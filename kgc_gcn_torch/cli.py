@@ -1,0 +1,254 @@
+"""Experiment CLI of the port, flag-compatible with ``kgc_gcn_tpu.cli``.
+
+    python -m kgc_gcn_torch.cli --dataset Toy --do_test --restore_dir experiments/Toy
+    python -m kgc_gcn_torch.cli --dataset Toy --do_predict --predict_file q.txt \\
+        --restore_dir experiments/Toy
+
+Every flag of the JAX CLI (and so of the reference driver, main.py:18-46) is
+accepted with the same name and default.  This slice serves: ``--do_test``
+and ``--do_predict`` run from a JAX npz checkpoint (``--restore_dir``), whose
+``params.json`` supplies the model-shape flags; ``--do_train`` is the next
+slice.  ``--device`` (default ``cuda``) picks the card or, when asked for,
+the CPU.  The flags that steer only the JAX package's TPU schedules
+(``--prng_impl``, ``--compile_cache_dir``, ``--spmm_mode``, ``--bwd_perm``,
+``--rel_compose``, ``--remat``, ``--no_scan_epoch``, ``--use_pallas``,
+``--no_use_pallas``) are accepted and have no effect.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+
+import torch
+
+from kgc_gcn_torch.config import Config, dataset_preset
+from kgc_gcn_torch.data.batching import make_banks
+from kgc_gcn_torch.data.dataset import load_dataset
+from kgc_gcn_torch.data.graph import build_graph
+from kgc_gcn_torch.models import build_model
+from kgc_gcn_torch.serve import Predictor, serve_file, serve_stream
+from kgc_gcn_torch.train.checkpoint import load_jax_checkpoint
+from kgc_gcn_torch.train.loop import evaluate
+from kgc_gcn_torch.utils.device import resolve_device
+from kgc_gcn_torch.utils.logging import set_logger
+
+_NO_EFFECT = "accepted for compatibility with kgc_gcn_tpu; no effect here"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    # reference flags (reference main.py:18-46)
+    p.add_argument("--dataset", default="WN18RR")
+    p.add_argument("--seed", default=19960326, type=int)
+    p.add_argument("--restore_dir", default=None,
+                   help="run directory holding a JAX npz last.ckpt")
+    p.add_argument("--restore_torch", default=None,
+                   help="import a reference (PyTorch) last.ckpt file")
+    p.add_argument("--init_embeddings", default=None,
+                   help="warm-start entity/relation tables from an .npz")
+    p.add_argument("--multi_gpu", action="store_true", help=_NO_EFFECT)
+    p.add_argument("--batch_size", default=128, type=int)
+    p.add_argument("--max_epoch", default=500, type=int)
+    p.add_argument("--min_epoch", default=50, type=int)
+    p.add_argument("--eval_every", default=1, type=int)
+    p.add_argument("--ckpt_every", default=0, type=int)
+    p.add_argument("--patience", default=0.001, type=float)
+    p.add_argument("--patience_num", default=-1, type=int)
+    p.add_argument("--learning_rate", default=0.001, type=float)
+    p.add_argument("--lr_schedule", default="step",
+                   choices=["step", "cosine", "constant"])
+    p.add_argument("--warmup_epochs", default=0, type=int)
+    p.add_argument("--weight_decay", default=0.0, type=float)
+    p.add_argument("--lbl_smooth", default=0.1, type=float)
+    p.add_argument("--num_workers", default=0, type=int, help=_NO_EFFECT)
+    p.add_argument("--bias", action="store_true")
+    p.add_argument("--gcn_in_dim", default=100, type=int)
+    p.add_argument("--gcn_out_dim", default=200, type=int)
+    p.add_argument("--gcn_drop", default=0.3, type=float)
+    p.add_argument("--hidden_drop", default=0.3, type=float)
+    p.add_argument("--feat_drop", default=0.3, type=float)
+    p.add_argument("--k_w", default=10, type=int)
+    p.add_argument("--k_h", default=20, type=int)
+    p.add_argument("--num_filter", default=200, type=int)
+    p.add_argument("--kernel_size", default=7, type=int)
+    p.add_argument("--clip_grad", default=1.0, type=float)
+    p.add_argument("--do_train", action="store_true")
+    p.add_argument("--do_test", action="store_true")
+    p.add_argument("--do_predict", action="store_true",
+                   help="serve top-k link prediction from a checkpoint")
+    p.add_argument("--predict_file", default=None,
+                   help="TSV of 'subject relation' query lines for "
+                        "--do_predict ('-' streams stdin)")
+    p.add_argument("--top_k", default=10, type=int)
+    p.add_argument("--per_relation", action="store_true")
+    p.add_argument("--profile_dir", default=None)
+    p.add_argument("--bi_direction", action="store_false", help=_NO_EFFECT)
+    # JAX-package flags
+    p.add_argument("--model", default="mgcn", choices=["mgcn", "rgcn", "rgat"])
+    p.add_argument("--num_heads", default=1, type=int)
+    p.add_argument("--decoder", default="conve",
+                   choices=["conve", "distmult", "transe", "complex", "rotate"])
+    p.add_argument("--num_layers", default=1, type=int)
+    p.add_argument("--composition", default="mult",
+                   choices=["mult", "sub", "corr"])
+    p.add_argument("--num_bases", default=0, type=int)
+    p.add_argument("--num_blocks", default=0, type=int)
+    p.add_argument("--train_mode", default="one_vs_all",
+                   choices=["one_vs_all", "negative_sampling"])
+    p.add_argument("--num_negatives", default=64, type=int)
+    p.add_argument("--neg_loss", default="bce",
+                   choices=["bce", "margin", "self_adversarial"])
+    p.add_argument("--neg_margin", default=1.0, type=float)
+    p.add_argument("--neg_adversarial_temp", default=1.0, type=float)
+    p.add_argument("--edge_sample_size", default=0, type=int)
+    p.add_argument("--loss_impl", default="auto",
+                   choices=["auto", "dense", "sparse", "fused"])
+    # None default = "not specified": presets may set these, and an explicit
+    # flag must override the preset in both directions
+    p.add_argument("--moment_dtype", default=None,
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--prng_impl", default="rbg",
+                   choices=["threefry", "rbg", "unsafe_rbg"], help=_NO_EFFECT)
+    p.add_argument("--bwd_perm", default="contrib",
+                   choices=["contrib", "operands", "fwdw"], help=_NO_EFFECT)
+    p.add_argument("--rel_compose", default="gather",
+                   choices=["gather", "onehot"], help=_NO_EFFECT)
+    p.add_argument("--compute_dtype", default=None,
+                   choices=["float32", "bfloat16"],
+                   help="matmul operands and aggregation messages; sums "
+                        "stay float32")
+    p.add_argument("--use_pallas", dest="use_pallas", action="store_const",
+                   const=True, default=None, help=_NO_EFFECT)
+    p.add_argument("--no_use_pallas", dest="use_pallas",
+                   action="store_const", const=False, help=_NO_EFFECT)
+    p.add_argument("--spmm_mode", default="halves",
+                   choices=["halves", "stacked", "stacked_xla"], help=_NO_EFFECT)
+    p.add_argument("--remat", action="store_true", help=_NO_EFFECT)
+    p.add_argument("--no_scan_epoch", action="store_true", help=_NO_EFFECT)
+    p.add_argument("--eval_batch_size", default=0, type=int)
+    p.add_argument("--data_axis", default=1, type=int)
+    p.add_argument("--graph_axis", default=1, type=int)
+    p.add_argument("--entity_sharded", default="none",
+                   choices=["none", "gather", "ring", "boundary"])
+    p.add_argument("--partition", default="contiguous",
+                   choices=["contiguous", "locality"])
+    p.add_argument("--data_dir", default="data")
+    p.add_argument("--experiments_dir", default="experiments")
+    p.add_argument("--compile_cache_dir", default="", help=_NO_EFFECT)
+    # the port's own
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default; fails without a card) "
+                        "or cpu")
+    return p
+
+
+def config_from_args(args: argparse.Namespace) -> Config:
+    cfg = dataset_preset(args.dataset)
+    overrides = {}
+    defaults = build_parser().parse_args([])
+    for field in (
+        "seed restore_dir restore_torch batch_size max_epoch min_epoch "
+        "eval_every ckpt_every patience "
+        "patience_num learning_rate lr_schedule warmup_epochs weight_decay "
+        "lbl_smooth bias gcn_in_dim "
+        "gcn_out_dim gcn_drop hidden_drop feat_drop k_w k_h num_filter "
+        "kernel_size clip_grad do_train do_test model decoder num_layers "
+        "num_bases num_blocks num_heads composition train_mode num_negatives "
+        "neg_loss neg_margin neg_adversarial_temp "
+        "edge_sample_size remat "
+        "compute_dtype use_pallas spmm_mode loss_impl moment_dtype prng_impl "
+        "rel_compose bwd_perm eval_batch_size data_axis graph_axis "
+        "entity_sharded partition data_dir experiments_dir compile_cache_dir"
+    ).split():
+        val = getattr(args, field)
+        # explicit CLI values override the preset; untouched defaults do not
+        if val != getattr(defaults, field):
+            overrides[field] = val
+    overrides["scan_epoch"] = not args.no_scan_epoch
+
+    # restoring a checkpoint: adopt the MODEL-SHAPE fields recorded in the
+    # run's params.json unless the user passed them explicitly
+    if args.restore_dir:
+        run_record = os.path.join(args.restore_dir, "params.json")
+        if os.path.exists(run_record):
+            saved = Config.from_json(run_record)
+            shape_fields = (
+                "model decoder num_layers num_bases num_blocks num_heads "
+                "composition partition "
+                "bias gcn_in_dim gcn_out_dim k_w k_h num_filter kernel_size"
+            ).split()
+            for field in shape_fields:
+                if field not in overrides:   # explicit flags still win
+                    overrides[field] = getattr(saved, field)
+    return cfg.replace(**overrides)
+
+
+def _check_ported(cfg: Config, args: argparse.Namespace) -> None:
+    """Raise on what this slice of the port cannot run (ROADMAP.md §1)."""
+    if cfg.do_train:
+        raise NotImplementedError("training is the next slice of the port")
+    unported = [
+        ("--restore_torch", cfg.restore_torch is not None, 5),
+        ("--init_embeddings", args.init_embeddings is not None, 4),
+        ("--per_relation", args.per_relation, 4),
+        ("--partition", cfg.partition != "contiguous", 8),
+        ("--data_axis/--graph_axis", cfg.data_axis * cfg.graph_axis > 1, 8),
+    ]
+    for flag, bad, item in unported:
+        if bad:
+            raise NotImplementedError(
+                f"{flag} is not ported to kgc_gcn_torch yet "
+                f"(ROADMAP.md §1 item {item})")
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    cfg = config_from_args(args)
+    if cfg.do_train and cfg.do_test:
+        raise ValueError("Can not perform training and testing at one time")
+    _check_ported(cfg, args)
+    if (cfg.do_test or args.do_predict) and cfg.restore_dir is None:
+        raise ValueError("Must specify restore dir for testing or prediction")
+    if args.do_predict and not args.predict_file:
+        raise ValueError("--do_predict needs --predict_file")
+    device = resolve_device(args.device)
+
+    model_dir = os.path.join(cfg.experiments_dir, cfg.dataset)
+    os.makedirs(model_dir, exist_ok=True)
+    cfg.to_json(os.path.join(model_dir, "params.json"))
+    set_logger(os.path.join(model_dir, "train.log"))
+    logging.info("device: %s (%s)", device, torch.cuda.get_device_name(device)
+                 if device.type == "cuda" else "host CPU")
+
+    logging.info("Loading the dataset...")
+    ds = load_dataset(cfg.dataset, cfg.data_dir)
+    graph = build_graph(ds.train_triples, ds.num_entity,
+                        ds.num_relation).to(device)
+    model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
+                        e_pad=graph.e_pad)
+    if cfg.restore_dir is not None:
+        state_dict, best = load_jax_checkpoint(cfg.restore_dir, cfg)
+        model.load_state_dict(state_dict)
+        logging.info("Restored model from %s with best measure: %s",
+                     cfg.restore_dir, best)
+    model = model.to(device).eval()
+
+    if cfg.do_test:
+        evaluate(cfg, model, graph, make_banks(ds, device), "test", mark="Test")
+    if args.do_predict:
+        predictor = Predictor(cfg, model, graph, ds.entity2id, ds.relation2id)
+        if args.predict_file == "-":
+            for line in serve_stream(predictor, sys.stdin, k=args.top_k):
+                print(line, flush=True)   # one JSON line per query, streamed
+        else:
+            for line in serve_file(predictor, args.predict_file, k=args.top_k):
+                print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

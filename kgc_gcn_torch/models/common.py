@@ -1,0 +1,108 @@
+"""Shared model building blocks: initializers, BatchNorm, mixed matmul
+(the port's ``kgc_gcn_tpu/models/common.py``).
+
+  * ``xavier_uniform``: bound ``sqrt(6/(fan_in+fan_out))`` with torch's 2-D fan
+    convention ``fan_in = shape[1], fan_out = shape[0]`` (reference
+    utils.py:113-118).
+  * BatchNorm: eps 1e-5, momentum 0.1; training normalizes with the BIASED
+    batch variance and updates the running variance with the UNBIASED one;
+    eval uses the running statistics (reference model.py:56,137-139).
+
+Initializers draw from an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+from torch import nn
+
+
+# ---------------------------------------------------------------- initializers
+
+def _uniform(shape, bound: float, generator: torch.Generator) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32).uniform_(
+        -bound, bound, generator=generator)
+
+
+def xavier_uniform(shape: Tuple[int, ...], generator: torch.Generator) -> torch.Tensor:
+    fan_in = math.prod(shape[1:])
+    fan_out = shape[0] * (math.prod(shape[2:]) if len(shape) > 2 else 1)
+    return _uniform(shape, math.sqrt(6.0 / (fan_in + fan_out)), generator)
+
+
+def kaiming_uniform_torch(shape: Tuple[int, ...],
+                          generator: torch.Generator) -> torch.Tensor:
+    """torch's default Linear/Conv2d weight init (kaiming_uniform, a=sqrt(5)):
+    for weight shape (out, in, *rf), bound = 1/sqrt(fan_in)."""
+    return _uniform(shape, 1.0 / math.sqrt(math.prod(shape[1:])), generator)
+
+
+def fan_in_bias_uniform(size: int, fan_in: int,
+                        generator: torch.Generator) -> torch.Tensor:
+    return _uniform((size,), 1.0 / math.sqrt(fan_in), generator)
+
+
+# ------------------------------------------------------------------- BatchNorm
+
+def batch_norm(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    mean: torch.Tensor,
+    var: torch.Tensor,
+    *,
+    train: bool,
+    channel_axis: int = -1,
+    momentum: float = 0.1,
+    eps: float = 1e-5,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Functional BatchNorm over all axes except ``channel_axis``; returns
+    (y, new running mean, new running var)."""
+    axis = channel_axis % x.dim()
+    axes = tuple(i for i in range(x.dim()) if i != axis)
+    shape = [1] * x.dim()
+    shape[axis] = x.shape[axis]
+    if train:
+        m = x.mean(dim=axes)
+        v = (x - m.reshape(shape)).square().mean(dim=axes)
+        n = float(math.prod(x.shape[i] for i in axes))
+        new_mean = (1 - momentum) * mean + momentum * m
+        new_var = (1 - momentum) * var + momentum * v * (n / max(n - 1.0, 1.0))
+    else:
+        m, v, new_mean, new_var = mean, var, mean, var
+    y = (x - m.reshape(shape)) * torch.rsqrt(v.reshape(shape) + eps)
+    return y * scale.reshape(shape) + bias.reshape(shape), new_mean, new_var
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm parameters ``scale``/``bias`` and running ``mean``/``var``
+    under the JAX package's names (``BNParams``/``BNState``).  ``forward``
+    is the eval form: it normalizes with the running statistics."""
+
+    def __init__(self, c: int, channel_axis: int = -1):
+        super().__init__()
+        self.channel_axis = channel_axis
+        self.scale = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("mean", torch.zeros(c))
+        self.register_buffer("var", torch.ones(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return batch_norm(x, self.scale, self.bias, self.mean, self.var,
+                          train=False, channel_axis=self.channel_axis)[0]
+
+
+# ---------------------------------------------------------------- mixed matmul
+
+def mm(a: torch.Tensor, b: torch.Tensor,
+       compute_dtype: str = "float32") -> torch.Tensor:
+    """``a @ b`` in float32; with ``compute_dtype='bfloat16'`` the operands
+    are rounded to bf16 first and the products still accumulate in float32
+    (the semantics of the JAX package's ``mm``)."""
+    if compute_dtype == "bfloat16":
+        a = a.to(torch.bfloat16).float()
+        b = b.to(torch.bfloat16).float()
+    return torch.matmul(a, b)

@@ -1,0 +1,101 @@
+"""Tests of the port that need an NVIDIA card: each CUDA kernel against its
+plain PyTorch version on the card, and the encoder through the kernels.
+
+This file imports neither JAX nor kgc_gcn_tpu, so that it runs on a machine
+with a card and no JAX (tests/conftest.py imports JAX, hence --noconftest):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Without a card every test here skips.  The CSR inputs are shared with
+tests/test_torch_segment_sum.py, which holds the plain version against the
+JAX package on the CPU.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from kgc_gcn_torch.ops.segment_sum import segment_sum, segment_sum_reference
+
+# Exact: the messages are multiples of 2**-8 below 2 in magnitude (also after
+# rounding to bf16), so every partial sum of a row is exact in float32 and
+# any summation order gives the same bits.  A dropped, doubled or misplaced
+# edge, or a sum kept in bf16, changes the result.
+ATOL = RTOL = 0.0
+
+
+def csr_case(counts, d: int, seed: int):
+    """(msg (E, d) float32, dst (E,) int32, indptr (n_rows+1,) int32) with
+    the given per-row edge counts (zeros allowed), as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray(counts)
+    dst = np.repeat(np.arange(len(counts)), counts).astype(np.int32)
+    indptr = np.zeros(len(counts) + 1, np.int32)
+    indptr[1:] = np.cumsum(counts)
+    msg = (rng.integers(-511, 512, size=(len(dst), d)) / 256).astype(np.float32)
+    return msg, dst, indptr
+
+
+def case_counts():
+    """Per-row edge counts: empty first/inner/last rows, D=37, a row count
+    that is no multiple of the kernel's 8 rows per block; and a hub row."""
+    rng = np.random.default_rng(0)
+    empty = rng.integers(0, 4, size=50)
+    empty[[0, 7, 8, 49]] = 0
+    hub = rng.integers(0, 3, size=19)
+    hub[11] = 700
+    wide = rng.integers(0, 5, size=9)                  # D > 256: two column chunks
+    return {"empty_rows": (empty, 37), "hub_row": (hub, 100),
+            "wide": (wide, 300)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(case_counts()))
+def test_segment_sum_kernel_matches_plain(cuda, case, dtype):
+    counts, d = case_counts()[case]
+    msg, dst, indptr = csr_case(counts, d, seed=3)
+    m = torch.from_numpy(msg).to(getattr(torch, dtype)).to(cuda)
+    dd, ip = torch.from_numpy(dst).to(cuda), torch.from_numpy(indptr).to(cuda)
+    before = segment_sum.launches
+    got = segment_sum(m, dd, ip, len(counts))
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (len(counts), d)
+    want = segment_sum_reference(m, dd, ip, len(counts))
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_encode_through_kernel_matches_plain_and_cpu(cuda):
+    from kgc_gcn_torch.config import dataset_preset
+    from kgc_gcn_torch.data.dataset import build_dataset
+    from kgc_gcn_torch.data.graph import build_graph
+    from kgc_gcn_torch.data.toy import toy_triples
+    from kgc_gcn_torch.models import build_model
+
+    ds = build_dataset("toy", *toy_triples(n_ent=40, n_rel=5, n_train=300))
+    graph = build_graph(ds.train_triples, ds.num_entity, ds.num_relation)
+    cfg = dataset_preset("Toy", gcn_in_dim=16, gcn_out_dim=32, k_w=4, k_h=8,
+                         num_filter=4, kernel_size=3)
+    model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
+                        e_pad=graph.e_pad).eval()
+    with torch.no_grad():
+        cpu_ent, cpu_rel = model.encode(graph)
+        model, graph = model.to(cuda), graph.to(cuda)
+        before = segment_sum.launches
+        ent, rel = model.encode(graph)
+        assert segment_sum.launches == before + 2
+        ref_ent, _ = model.encode(graph, seg_sum=segment_sum_reference)
+    # real messages: float32 sums in another order, through BN and tanh
+    tol = dict(rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ent, ref_ent, **tol)
+    torch.testing.assert_close(ent.cpu(), cpu_ent, **tol)
+    torch.testing.assert_close(rel.cpu(), cpu_rel, **tol)
