@@ -1,18 +1,23 @@
 """Experiment CLI of the port, flag-compatible with ``kgc_gcn_tpu.cli``.
 
+    python -m kgc_gcn_torch.cli --dataset Toy --do_train [--loss_impl fused]
     python -m kgc_gcn_torch.cli --dataset Toy --do_test --restore_dir experiments/Toy
     python -m kgc_gcn_torch.cli --dataset Toy --do_predict --predict_file q.txt \\
         --restore_dir experiments/Toy
 
 Every flag of the JAX CLI (and so of the reference driver, main.py:18-46) is
-accepted with the same name and default.  This slice serves: ``--do_test``
-and ``--do_predict`` run from a JAX npz checkpoint (``--restore_dir``), whose
-``params.json`` supplies the model-shape flags; ``--do_train`` is the next
-slice.  ``--device`` (default ``cuda``) picks the card or, when asked for,
-the CPU.  The flags that steer only the JAX package's TPU schedules
-(``--prng_impl``, ``--compile_cache_dir``, ``--spmm_mode``, ``--bwd_perm``,
-``--rel_compose``, ``--remat``, ``--no_scan_epoch``, ``--use_pallas``,
-``--no_use_pallas``) are accepted and have no effect.
+accepted with the same name and default.  ``--do_train`` trains MGCN + ConvE
+1-vs-all and writes ``params.json``, ``train.log``, ``metrics.jsonl`` and, on
+every validation improvement, ``last.ckpt`` under
+``<experiments_dir>/<dataset>``; with ``--restore_dir`` it resumes from that
+checkpoint, optimizer state included.  ``--do_test`` and ``--do_predict``
+serve a checkpoint that either package wrote (``--restore_dir``, whose
+``params.json`` supplies the model-shape flags).  ``--device`` (default
+``cuda``) picks the card or, when asked for, the CPU.  The flags that steer
+only the JAX package's TPU schedules (``--prng_impl``,
+``--compile_cache_dir``, ``--spmm_mode``, ``--bwd_perm``, ``--rel_compose``,
+``--remat``, ``--no_scan_epoch``, ``--use_pallas``, ``--no_use_pallas``) are
+accepted and have no effect.
 """
 
 from __future__ import annotations
@@ -30,8 +35,8 @@ from kgc_gcn_torch.data.dataset import load_dataset
 from kgc_gcn_torch.data.graph import build_graph
 from kgc_gcn_torch.models import build_model
 from kgc_gcn_torch.serve import Predictor, serve_file, serve_stream
-from kgc_gcn_torch.train.checkpoint import load_jax_checkpoint
-from kgc_gcn_torch.train.loop import evaluate
+from kgc_gcn_torch.train.checkpoint import load_checkpoint
+from kgc_gcn_torch.train.loop import Trainer, evaluate, train_and_evaluate
 from kgc_gcn_torch.utils.device import resolve_device
 from kgc_gcn_torch.utils.logging import set_logger
 
@@ -188,15 +193,18 @@ def config_from_args(args: argparse.Namespace) -> Config:
 
 
 def _check_ported(cfg: Config, args: argparse.Namespace) -> None:
-    """Raise on what this slice of the port cannot run (ROADMAP.md §1)."""
-    if cfg.do_train:
-        raise NotImplementedError("training is the next slice of the port")
+    """Raise on what the port cannot run yet (ROADMAP.md §1)."""
     unported = [
         ("--restore_torch", cfg.restore_torch is not None, 5),
         ("--init_embeddings", args.init_embeddings is not None, 4),
         ("--per_relation", args.per_relation, 4),
         ("--partition", cfg.partition != "contiguous", 8),
         ("--data_axis/--graph_axis", cfg.data_axis * cfg.graph_axis > 1, 8),
+        ("--train_mode negative_sampling",
+         cfg.train_mode == "negative_sampling", 4),
+        ("--edge_sample_size", cfg.edge_sample_size > 0, 4),
+        ("--ckpt_every (orbax async checkpoints)", cfg.ckpt_every > 0, 9),
+        ("--profile_dir", args.profile_dir is not None, 9),
     ]
     for flag, bad, item in unported:
         if bad:
@@ -228,17 +236,32 @@ def main(argv=None) -> int:
     ds = load_dataset(cfg.dataset, cfg.data_dir)
     graph = build_graph(ds.train_triples, ds.num_entity,
                         ds.num_relation).to(device)
+    banks = make_banks(ds, device)
     model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
                         e_pad=graph.e_pad)
+    best, opt_state = 0.0, None
     if cfg.restore_dir is not None:
-        state_dict, best = load_jax_checkpoint(cfg.restore_dir, cfg)
+        state_dict, best, *opt = load_checkpoint(
+            cfg.restore_dir, cfg, with_opt_state=cfg.do_train)
         model.load_state_dict(state_dict)
+        opt_state = opt[0] if opt else None
         logging.info("Restored model from %s with best measure: %s",
                      cfg.restore_dir, best)
-    model = model.to(device).eval()
+    model = model.to(device)
 
+    if cfg.do_train:
+        trainer = Trainer(cfg, model, graph, banks)
+        if opt_state is not None:   # resume: the optimizer continues too
+            trainer.opt_state.count = opt_state.count
+            for dst, src in zip(trainer.opt_state.mu + trainer.opt_state.nu,
+                                opt_state.mu + opt_state.nu):
+                dst.copy_(src)
+        logging.info("Training %s+%s, loss_impl=%s, on %s",
+                     cfg.model, cfg.decoder, trainer.loss_impl, device)
+        best = train_and_evaluate(trainer, model_dir, best,
+                                  seed=cfg.seed % 2**32)
     if cfg.do_test:
-        evaluate(cfg, model, graph, make_banks(ds, device), "test", mark="Test")
+        evaluate(cfg, model, graph, banks, "test", mark="Test")
     if args.do_predict:
         predictor = Predictor(cfg, model, graph, ds.entity2id, ds.relation2id)
         if args.predict_file == "-":

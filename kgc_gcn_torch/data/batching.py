@@ -1,15 +1,18 @@
-"""Eval query banks (the eval half of ``kgc_gcn_tpu/data/batching.py``).
+"""Query banks and batching (the port's ``kgc_gcn_tpu/data/batching.py``).
 
-Filter labels live on the device as a padded index matrix ``(Q, L_max)``
-whose pad value is ``n_ent``; consumers mask the pad column away
-(``ops/ranking.py``).
+Labels live on the device as a padded index matrix ``(Q, L_max)`` whose pad
+value is ``n_ent``; consumers mask the pad entries away (``ops/ranking.py``,
+``ops/fused_loss.py``) or drop them (``build_labels``).  The host produces
+only the batch order: a shuffled ``(steps, B)`` index plan per epoch, made
+with numpy exactly as the JAX package makes it, so one seed gives both
+packages the same batches.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -21,7 +24,7 @@ from kgc_gcn_torch.data.dataset import KGDataset, LabelSet
 class QueryBank:
     """Queries + padded filter-label indices for one eval split."""
 
-    queries: torch.Tensor     # int32 (Q, 3) eval (s, r, o)
+    queries: torch.Tensor     # int32 (Q, 2) train (s, r) | (Q, 3) eval (s, r, o)
     label_idx: torch.Tensor   # int32 (Q, L_max), padded with n_ent
     n_queries: int = 0
     n_ent: int = 0
@@ -62,6 +65,44 @@ def make_query_bank(queries: np.ndarray, labels, n_ent: int) -> QueryBank:
 
 
 def make_banks(ds: KGDataset, device="cpu") -> Dict[str, QueryBank]:
-    """Banks for the four eval splits (reference data_loader.py:180-192)."""
-    return {key: make_query_bank(eq.triples, eq.labels, ds.num_entity).to(device)
-            for key, eq in ds.eval_queries.items()}
+    """Banks for train + the four eval splits (reference
+    data_loader.py:180-192)."""
+    banks = {"train": make_query_bank(ds.train_queries, ds.train_labels,
+                                      ds.num_entity)}
+    for key, eq in ds.eval_queries.items():
+        banks[key] = make_query_bank(eq.triples, eq.labels, ds.num_entity)
+    return {key: bank.to(device) for key, bank in banks.items()}
+
+
+def epoch_batches(
+    n_queries: int,
+    batch_size: int,
+    rng: np.random.Generator,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Shuffled, padded batch plan for one epoch: ``idx`` int32 (steps, B)
+    indices into the query bank and ``mask`` float32 (steps, B), 0.0 on the
+    padding rows of the last batch (reference data_loader.py:186-191:
+    shuffle=True, drop_last=False).  Padding rows point at query 0."""
+    order = rng.permutation(n_queries)
+    steps = -(-n_queries // batch_size)
+    total = steps * batch_size
+    idx = np.zeros(total, dtype=np.int32)
+    idx[:n_queries] = order
+    mask = np.zeros(total, dtype=np.float32)
+    mask[:n_queries] = 1.0
+    return idx.reshape(steps, batch_size), mask.reshape(steps, batch_size)
+
+
+def build_labels(label_idx: torch.Tensor, n_ent: int,
+                 smooth: float = 0.0) -> torch.Tensor:
+    """Dense (B, n_ent) float32 multi-hot labels from padded indices, with
+    label smoothing ``y = (1 - eps) * y + 1/N`` (reference
+    data_loader.py:41-51).  Pad entries equal ``n_ent``: they land in one
+    extra column that is cut off."""
+    b = label_idx.shape[0]
+    y = torch.zeros(b, n_ent + 1, dtype=torch.float32, device=label_idx.device)
+    y.scatter_(1, label_idx.long(), 1.0)
+    y = y[:, :n_ent]
+    if smooth:
+        y = (1.0 - smooth) * y + 1.0 / n_ent
+    return y

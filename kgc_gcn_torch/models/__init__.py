@@ -9,7 +9,7 @@ __all__ = ["MGCN", "build_model"]
 
 
 def _unported(cfg: Config):
-    """(flag, ROADMAP.md §1 item) for each setting this slice cannot run."""
+    """(flag, ROADMAP.md §1 item) for each setting the port cannot run yet."""
     item = {"rgat": 6, "rgcn": 7}.get(cfg.model, 4)
     return [
         (f"model={cfg.model!r}", item, cfg.model != "mgcn"),

@@ -1,5 +1,5 @@
-"""Shared model building blocks: initializers, BatchNorm, mixed matmul
-(the port's ``kgc_gcn_tpu/models/common.py``).
+"""Shared model building blocks: initializers, BatchNorm, mixed matmul and
+dropout (the port's ``kgc_gcn_tpu/models/common.py``).
 
   * ``xavier_uniform``: bound ``sqrt(6/(fan_in+fan_out))`` with torch's 2-D fan
     convention ``fan_in = shape[1], fan_out = shape[0]`` (reference
@@ -7,14 +7,15 @@
   * BatchNorm: eps 1e-5, momentum 0.1; training normalizes with the BIASED
     batch variance and updates the running variance with the UNBIASED one;
     eval uses the running statistics (reference model.py:56,137-139).
+  * dropout: inverted dropout ``where(keep, x / (1 - p), 0)``.
 
-Initializers draw from an explicit ``torch.Generator``.
+Initializers and dropout masks draw from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -79,8 +80,11 @@ def batch_norm(
 
 class BatchNorm(nn.Module):
     """BatchNorm parameters ``scale``/``bias`` and running ``mean``/``var``
-    under the JAX package's names (``BNParams``/``BNState``).  ``forward``
-    is the eval form: it normalizes with the running statistics."""
+    under the JAX package's names (``BNParams``/``BNState``).
+
+    ``forward(x)`` normalizes with the running statistics; ``forward(x,
+    train=True)`` with the batch statistics, and then moves the running
+    statistics in place, outside autograd."""
 
     def __init__(self, c: int, channel_axis: int = -1):
         super().__init__()
@@ -90,9 +94,15 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return batch_norm(x, self.scale, self.bias, self.mean, self.var,
-                          train=False, channel_axis=self.channel_axis)[0]
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y, new_mean, new_var = batch_norm(
+            x, self.scale, self.bias, self.mean, self.var, train=train,
+            channel_axis=self.channel_axis)
+        if train:
+            with torch.no_grad():
+                self.mean.copy_(new_mean)
+                self.var.copy_(new_var)
+        return y
 
 
 # ---------------------------------------------------------------- mixed matmul
@@ -106,3 +116,16 @@ def mm(a: torch.Tensor, b: torch.Tensor,
         a = a.to(torch.bfloat16).float()
         b = b.to(torch.bfloat16).float()
     return torch.matmul(a, b)
+
+
+# --------------------------------------------------------------------- dropout
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator], train: bool) -> torch.Tensor:
+    """Inverted dropout with the keep mask drawn from ``generator`` (which
+    must live on ``x``'s device); the identity when not training, at rate 0
+    or without a generator (``kgc_gcn_tpu/models/common.py:124-129``)."""
+    if not train or rate == 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)

@@ -8,12 +8,14 @@ as a plain float32 matrix product and never through cuDNN's TF32 path.
 
 from __future__ import annotations
 
+from typing import Dict, Optional
+
 import torch
 from torch import nn
 
 from kgc_gcn_torch.config import Config
 from kgc_gcn_torch.models.common import (
-    BatchNorm, fan_in_bias_uniform, kaiming_uniform_torch, mm,
+    BatchNorm, dropout, fan_in_bias_uniform, kaiming_uniform_torch, mm,
 )
 
 
@@ -68,26 +70,38 @@ class ConvE(nn.Module):
         self.bn2 = BatchNorm(cfg.gcn_out_dim)
         self.ent_bias = nn.Parameter(torch.zeros(n_ent))
 
-    def query(self, src_emb: torch.Tensor, rel_emb: torch.Tensor) -> torch.Tensor:
-        """Decoder trunk, eval mode: query vector h (B, gcn_out_dim).
+    def query(self, src_emb: torch.Tensor, rel_emb: torch.Tensor,
+              train: bool = False,
+              rngs: Optional[Dict[str, torch.Generator]] = None
+              ) -> torch.Tensor:
+        """Decoder trunk: query vector h (B, gcn_out_dim).
 
         Reference model.py:159-175.  The image layout is the reference's:
         stack (B, 2, d), transpose to (B, d, 2) and reshape row-major to
-        (B, 1, 2*k_w, k_h), i.e. src/rel features interleaved along rows."""
+        (B, 1, 2*k_w, k_h), i.e. src/rel features interleaved along rows.
+        With ``train`` the three BNs use batch statistics (and move their
+        running ones), ``feat`` dropout follows the conv's ReLU and
+        ``hidden`` dropout the fc layer (``decoders.py:137-169``)."""
         cfg = self.cfg
+        rngs = rngs or {}
         b = src_emb.shape[0]
         img = torch.stack([src_emb, rel_emb], dim=1).transpose(1, 2).reshape(
             b, 1, 2 * cfg.k_w, cfg.k_h)
-        x = _conv2d_c1_im2col(self.bn0(img), self.conv_w, cfg.compute_dtype)
+        x = _conv2d_c1_im2col(self.bn0(img, train), self.conv_w,
+                              cfg.compute_dtype)
         if self.conv_b is not None:
             x = x + self.conv_b[None, :, None, None]
-        x = torch.relu(self.bn1(x)).reshape(b, -1)               # (B, flat)
-        x = mm(x, self.fc_w.T, cfg.compute_dtype) + self.fc_b
-        return torch.relu(self.bn2(x))
+        x = torch.relu(self.bn1(x, train))
+        x = dropout(x, cfg.feat_drop, rngs.get("feat"), train)
+        x = mm(x.reshape(b, -1), self.fc_w.T, cfg.compute_dtype) + self.fc_b
+        x = dropout(x, cfg.hidden_drop, rngs.get("hidden"), train)
+        return torch.relu(self.bn2(x, train))
 
     def forward(self, src_emb: torch.Tensor, rel_emb: torch.Tensor,
-                all_ent: torch.Tensor) -> torch.Tensor:
+                all_ent: torch.Tensor, train: bool = False,
+                rngs: Optional[Dict[str, torch.Generator]] = None
+                ) -> torch.Tensor:
         """1-vs-all logits (B, N) = h @ all_ent.T + ent_bias
         (reference model.py:177-178)."""
-        h = self.query(src_emb, rel_emb)
+        h = self.query(src_emb, rel_emb, train, rngs)
         return mm(h, all_ent.T, self.cfg.compute_dtype) + self.ent_bias[None, :]

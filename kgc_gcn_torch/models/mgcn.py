@@ -1,5 +1,4 @@
-"""M-GCN encoder + ConvE decoder, eval mode (the port's
-``kgc_gcn_tpu/models/mgcn.py``).
+"""M-GCN encoder + ConvE decoder (the port's ``kgc_gcn_tpu/models/mgcn.py``).
 
   * Three xavier-initialized tables: entities ``(N, d_in)``, relations
     ``(2R, d_in)`` and one learned embedding per edge, stored positionally as
@@ -10,25 +9,30 @@
     direction weights applied after aggregation, a dense self-loop term,
     ``(in + out + loop) / 3``, BatchNorm, tanh; relations projected by
     ``rels_weight`` without the appended loop relation (model.py:82-118).
-  * ``encode`` runs once per graph; ``decode`` scores queries against the
-    encoded entity table.
+  * ``encode`` runs once per graph (per step in training); ``decode``
+    scores queries against the encoded entity table and ``query_and_bias``
+    stops before the scoring product, for the sparse and fused losses.
+  * Training (``train=True``): BatchNorm on batch statistics, moving its
+    running ones in place, and dropout at the sites of ``make_rngs``:
+    ``conv_in``/``conv_out`` on the two direction results (not the loop
+    term), ``gcn`` on the encoded entities before both the query gather and
+    the scoring product, ``feat``/``hidden`` in the decoder.
 
 Parameters keep the JAX layout and names (``in_weight`` is ``(d_in, d_out)``
 used as ``x @ W``), so ``convert.py`` maps a JAX model onto this one by name.
-Dropout never applies: this slice serves; training is the next one.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from kgc_gcn_torch.config import Config
 from kgc_gcn_torch.data.graph import Graph, padded_edge_count
-from kgc_gcn_torch.models.common import BatchNorm, mm, xavier_uniform
+from kgc_gcn_torch.models.common import BatchNorm, dropout, mm, xavier_uniform
 from kgc_gcn_torch.models.decoders import ConvE
 from kgc_gcn_torch.ops.scatter import aggregate_half, loop_messages
 from kgc_gcn_torch.ops.segment_sum import segment_sum
@@ -78,29 +82,63 @@ class MGCN(nn.Module):
         self.edge_embeddings = nn.Parameter(torch.empty(
             2, self.e_pad, d_in).uniform_(-b, b, generator=generator))
 
-    def encode(self, graph: Graph, seg_sum=segment_sum
+    def encode(self, graph: Graph, train: bool = False,
+               rngs: Optional[Dict[str, torch.Generator]] = None,
+               seg_sum: Callable = segment_sum
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full-graph encoder, eval mode -> (all_ent (N, d_out),
-        all_rel (2R, d_out)).  ``seg_sum`` selects the segment-sum; the
-        default dispatches to the kernel on the card."""
+        """Full-graph encoder -> (all_ent (N, d_out), all_rel (2R, d_out)).
+        ``seg_sum`` selects the segment-sum (default: the kernel on the
+        card)."""
         cfg = self.cfg
+        rngs = rngs or {}
         c = self.conv
         dt = cfg.compute_dtype
         x = self.entity_embedding
         rel_all = torch.cat([self.relation_embedding, c.loop_rel], dim=0)
-        in_agg = aggregate_half(x, rel_all, self.edge_embeddings[0], graph.inb,
-                                self.n_ent, dt, seg_sum)
-        out_agg = aggregate_half(x, rel_all, self.edge_embeddings[1],
-                                 graph.outb, self.n_ent, dt, seg_sum)
+        in_agg, out_agg = (
+            aggregate_half(x, rel_all, self.edge_embeddings[i], half,
+                           self.n_ent, dt, seg_sum)
+            for i, half in enumerate((graph.inb, graph.outb)))
         loop_res = mm(loop_messages(x, c.loop_rel, c.loop_edge),
                       c.loop_weight, dt)
-        out = (mm(in_agg, c.in_weight, dt) + mm(out_agg, c.out_weight, dt)
+        # (drop(in) + drop(out) + loop) / 3 — the loop term is NOT dropped
+        # (reference model.py:103)
+        out = (dropout(mm(in_agg, c.in_weight, dt), cfg.conv_drop,
+                       rngs.get("conv_in"), train)
+               + dropout(mm(out_agg, c.out_weight, dt), cfg.conv_drop,
+                         rngs.get("conv_out"), train)
                + loop_res) / 3.0
-        all_ent = torch.tanh(c.bn(out))
+        all_ent = torch.tanh(c.bn(out, train))
         all_rel = mm(rel_all, c.rels_weight, dt)[:-1]
+        # post-encoder entity dropout (reference model.py:34), before BOTH
+        # the query gather and the all-entity scoring product
+        all_ent = dropout(all_ent, cfg.gcn_drop, rngs.get("gcn"), train)
         return all_ent, all_rel
 
     def decode(self, all_ent: torch.Tensor, all_rel: torch.Tensor,
-               src: torch.Tensor, rel: torch.Tensor) -> torch.Tensor:
+               src: torch.Tensor, rel: torch.Tensor, train: bool = False,
+               rngs: Optional[Dict[str, torch.Generator]] = None
+               ) -> torch.Tensor:
         """(B,) query ids -> (B, N) logits over all entities."""
-        return self.decoder(all_ent[src.long()], all_rel[rel.long()], all_ent)
+        return self.decoder(all_ent[src.long()], all_rel[rel.long()], all_ent,
+                            train, rngs)
+
+    def query_and_bias(self, all_ent: torch.Tensor, all_rel: torch.Tensor,
+                       src: torch.Tensor, rel: torch.Tensor,
+                       train: bool = False,
+                       rngs: Optional[Dict[str, torch.Generator]] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Decoder trunk only: (h (B, d_out), ent_bias (N,)) with logits ==
+        h @ all_ent.T + ent_bias, for the sparse and fused losses
+        (``mgcn.py:510-530``)."""
+        h = self.decoder.query(all_ent[src.long()], all_rel[rel.long()],
+                               train, rngs)
+        return h, self.decoder.ent_bias
+
+    @staticmethod
+    def make_rngs(generator: torch.Generator) -> Dict[str, torch.Generator]:
+        """The dropout sites of one training step, each drawing from the
+        trainer's one generator in the order the step reaches them
+        (``mgcn.py:553-563``; a site missing here would silently not drop)."""
+        return dict.fromkeys(("conv_in", "conv_out", "gcn", "feat", "hidden"),
+                             generator)

@@ -1,45 +1,36 @@
-"""Checkpoints, read side: serve a model that the JAX package trained.
+"""Checkpoints in the JAX package's npz format, both ways.
 
-The JAX package writes ``<dir>/last.ckpt`` as an npz of the flattened tree
-``{"params", "state", "opt_state"}`` (``kgc_gcn_tpu/train/checkpoint.py``):
-``leaf_<i>`` arrays, ``leaf_<i>__dtype`` beside extended dtypes stored as raw
-bits, and the best validation measure under ``__measure__``.  Dict keys
-flatten in sorted order, so the optimizer's leaves come first and the model's
-are the LAST ``len(params) + len(state)`` leaves, in the order of
-``convert.jax_leaf_names``.  Reading needs numpy alone.
+``<dir>/last.ckpt`` is an npz of the flattened tree ``{"opt_state", "params",
+"state"}`` (``kgc_gcn_tpu/train/checkpoint.py``): ``leaf_<i>`` arrays,
+``leaf_<i>__dtype`` beside extended dtypes (bf16) stored as raw bits, and the
+best validation measure under ``__measure__``.  Dict keys flatten in sorted
+order, so the optimizer's leaves come first (``convert.opt_state_leaves``)
+and the model's are the LAST ``len(params) + len(state)`` leaves, in the
+order of ``convert.jax_leaf_names``.  Either package reads what the other
+wrote: the JAX ``load_checkpoint`` with a template from ``model.init`` and
+``make_optimizer(cfg).init``, the port with numpy alone.  The policy is the
+reference's (utils.py:121-155): the trainer saves only when the validation
+MRR improves, so ``last.ckpt`` holds the best weights.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from kgc_gcn_torch.config import Config
-from kgc_gcn_torch.convert import jax_leaf_names, params_from_numpy
+from kgc_gcn_torch.convert import (
+    jax_leaf_names, opt_state_from_leaves, opt_state_leaves, params_from_numpy,
+    params_to_numpy)
 
 CKPT_NAME = "last.ckpt"
 _MEASURE_KEY = "__measure__"
 
 
-def _leaf(data, i: int) -> np.ndarray:
-    arr = data[f"leaf_{i}"]
-    tag = f"leaf_{i}__dtype"
-    if tag in data.files:
-        dtype = str(data[tag])
-        if dtype != "bfloat16":
-            raise ValueError(f"checkpoint leaf {i} has unsupported dtype {dtype}")
-        # bf16 bits are the high half of the float32 with the same value
-        arr = (arr.astype(np.uint32) << 16).view(np.float32)
-    return arr
-
-
-def load_jax_checkpoint(path: str, cfg: Config
-                        ) -> Tuple[Dict[str, torch.Tensor], float]:
-    """(state dict for ``MGCN.load_state_dict``, stored measure) from a JAX
-    npz checkpoint file or the run directory that holds ``last.ckpt``."""
+def _ckpt_path(path: str) -> str:
     if os.path.isdir(path):
         if os.path.isdir(os.path.join(path, "last.orbax")):
             raise NotImplementedError(
@@ -48,6 +39,28 @@ def load_jax_checkpoint(path: str, cfg: Config
         path = os.path.join(path, CKPT_NAME)
     if not os.path.exists(path):
         raise FileNotFoundError(f"checkpoint not found: {path}")
+    return path
+
+
+def _leaf(data, i: int) -> torch.Tensor:
+    arr = data[f"leaf_{i}"]
+    tag = f"leaf_{i}__dtype"
+    if tag in data.files:
+        dtype = str(data[tag])
+        if dtype != "bfloat16":
+            raise ValueError(f"checkpoint leaf {i} has unsupported dtype {dtype}")
+        # bf16 bits are the high half of the float32 with the same value
+        return torch.from_numpy(np.ascontiguousarray(arr, np.uint16)
+                                .view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def load_checkpoint(path: str, cfg: Config, with_opt_state: bool = False):
+    """Read a checkpoint file, or the run directory that holds ``last.ckpt``.
+
+    Returns (state dict for ``MGCN.load_state_dict``, stored measure), and
+    with ``with_opt_state`` the optimizer's ``AdamState`` third."""
+    path = _ckpt_path(path)
     with np.load(path) as data:
         n_leaves = sum(1 for k in data.files
                        if k.startswith("leaf_") and not k.endswith("__dtype"))
@@ -57,7 +70,49 @@ def load_jax_checkpoint(path: str, cfg: Config
             raise ValueError(f"{path} holds {n_leaves} leaves; the model "
                              f"needs {len(names)}")
         first = n_leaves - len(names)
-        leaves = {name: _leaf(data, first + i) for i, name in enumerate(names)}
+        leaves = {name: _leaf(data, first + i).float().numpy()
+                  for i, name in enumerate(names)}
         measure = float(data[_MEASURE_KEY]) if _MEASURE_KEY in data.files else 0.0
-    return params_from_numpy({k: leaves[k] for k in param_names},
-                             {k: leaves[k] for k in state_names}), measure
+        opt = None
+        if with_opt_state:
+            if first != 1 + 2 * len(param_names):
+                raise ValueError(f"{path} holds {first} optimizer leaves; "
+                                 f"Adam over {len(param_names)} parameters "
+                                 f"needs {1 + 2 * len(param_names)}")
+            opt = opt_state_from_leaves([_leaf(data, i) for i in range(first)],
+                                        cfg)
+    sd = params_from_numpy({k: leaves[k] for k in param_names},
+                           {k: leaves[k] for k in state_names})
+    return (sd, measure, opt) if with_opt_state else (sd, measure)
+
+
+def _to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, Optional[str]]:
+    """(array, dtype tag): bf16 travels as its raw bits, as the JAX writer
+    stores extended dtypes."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    return t.numpy(), None
+
+
+def save_checkpoint(ckpt_dir: str, model, opt_state, cfg: Config,
+                    measure: float) -> str:
+    """Write ``<ckpt_dir>/last.ckpt`` atomically (write a temporary file,
+    then ``os.replace``): a crash never corrupts the previous checkpoint."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    params, state = params_to_numpy(model, cfg)
+    leaves = ([_to_numpy(t) for t in opt_state_leaves(opt_state)]
+              + [(a, None) for a in params.values()]
+              + [(a, None) for a in state.values()])
+    arrays = {}
+    for i, (arr, tag) in enumerate(leaves):
+        arrays[f"leaf_{i}"] = arr
+        if tag is not None:
+            arrays[f"leaf_{i}__dtype"] = np.asarray(tag)
+    arrays[_MEASURE_KEY] = np.asarray(measure, np.float64)
+    path = os.path.join(ckpt_dir, CKPT_NAME)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)
+    return path

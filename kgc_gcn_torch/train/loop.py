@@ -1,22 +1,139 @@
-"""Evaluation (the eval half of ``kgc_gcn_tpu/train/loop.py``).
+"""Training and evaluation loops (the port's ``kgc_gcn_tpu/train/loop.py``).
 
-The graph is encoded ONCE per evaluation and the decoder scores the query
-batches against the cached entity table; ranks are comparison counts
-(``ops/ranking.py``).  Training is the next slice of the port.
+  * ``Trainer.train_step``: encode the graph in train mode, score the batch
+    through the loss that ``loss_impl`` selects, backpropagate, clip and take
+    one Adam step, all on the trainer's device.  ``train_epoch`` drives it
+    over the epoch's shuffled batch plan (a Python loop where the JAX package
+    runs ``lax.scan``); the padded rows of the last batch are query 0 with
+    mask 0 and, as in the JAX package, enter the decoder's BN statistics.
+  * Evaluation encodes the graph ONCE per pass and scores the query batches
+    against the cached entity table; ranks are comparison counts
+    (``ops/ranking.py``).
+  * ``train_and_evaluate`` is the reference's epoch loop
+    (reference main.py:138-174): eval every ``eval_every`` epochs, best
+    validation MRR saved to ``last.ckpt``, the patience quirk (an improvement
+    smaller than ``patience`` still counts as stale), early stop, and one
+    ``metrics.jsonl`` record per epoch.
 """
 
 from __future__ import annotations
 
+import json
 import logging
-from typing import Dict
+import os
+import time
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from kgc_gcn_torch.config import Config
-from kgc_gcn_torch.data.batching import QueryBank
+from kgc_gcn_torch.convert import model_params
+from kgc_gcn_torch.data.batching import QueryBank, build_labels, epoch_batches
 from kgc_gcn_torch.data.graph import Graph
+from kgc_gcn_torch.models.common import mm
+from kgc_gcn_torch.ops.fused_loss import (
+    dense_grads, dense_grads_reference, dense_loss, dense_loss_reference,
+    fused_score_bce, sparse_bce_with_logits)
+from kgc_gcn_torch.ops.losses import bce_with_logits
 from kgc_gcn_torch.ops.ranking import combine_head_tail, filtered_ranks, rank_metrics
+from kgc_gcn_torch.ops.segment_sum import segment_sum, segment_sum_reference
+from kgc_gcn_torch.train import optim
+from kgc_gcn_torch.train.checkpoint import save_checkpoint
 
+
+class Trainer:
+    """Owns the optimizer state and the dropout generator of one (model,
+    graph) pair on one device; the generator is seeded from ``cfg.seed``.
+
+    ``plain=True`` runs every kernel's plain PyTorch version instead, on any
+    device (the card's check of a kernel step against the same step in
+    plain PyTorch)."""
+
+    def __init__(self, cfg: Config, model, graph: Graph,
+                 banks: Dict[str, QueryBank], plain: bool = False):
+        self.cfg = cfg
+        self.model = model
+        self.graph = graph
+        self.banks = banks
+        self.n_ent = graph.n_ent
+        self.device = graph.device
+        self.loss_impl = self._resolve_loss_impl(cfg)
+        self.params = model_params(model, cfg)
+        self.opt_state = optim.init_state(self.params, cfg)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(cfg.seed % 2**32)
+        self.seg_sum = segment_sum_reference if plain else segment_sum
+        self.k2 = ((dense_loss_reference, dense_grads_reference) if plain
+                   else (dense_loss, dense_grads))
+
+    @staticmethod
+    def _resolve_loss_impl(cfg: Config) -> str:
+        # auto is sparse, as in the JAX package: it never materializes the
+        # (B, N) label matrix; fused is opt-in
+        return "sparse" if cfg.loss_impl == "auto" else cfg.loss_impl
+
+    @property
+    def steps_per_epoch(self) -> int:
+        return -(-self.banks["train"].n_queries // self.cfg.batch_size)
+
+    # ------------------------------------------------------------- train step
+
+    def loss(self, q: torch.Tensor, label_idx: torch.Tensor,
+             mask: torch.Tensor) -> torch.Tensor:
+        """The training loss of one batch, in train mode (dropout, BN batch
+        statistics; the BN running statistics move)."""
+        cfg, model = self.cfg, self.model
+        rngs = model.make_rngs(self.generator)
+        all_ent, all_rel = model.encode(self.graph, train=True, rngs=rngs,
+                                        seg_sum=self.seg_sum)
+        if self.loss_impl in ("sparse", "fused"):
+            h, ent_bias = model.query_and_bias(all_ent, all_rel, q[:, 0],
+                                               q[:, 1], train=True, rngs=rngs)
+            if self.loss_impl == "fused":
+                return fused_score_bce(h, all_ent, ent_bias, label_idx,
+                                       cfg.lbl_smooth, mask, *self.k2)
+            logits = mm(h, all_ent.T, cfg.compute_dtype) + ent_bias[None, :]
+            return sparse_bce_with_logits(logits, label_idx, cfg.lbl_smooth,
+                                          mask)
+        lbl = build_labels(label_idx, self.n_ent, cfg.lbl_smooth)
+        logits = model.decode(all_ent, all_rel, q[:, 0], q[:, 1], train=True,
+                              rngs=rngs)
+        return bce_with_logits(logits, lbl, mask)
+
+    def train_step(self, lr: float, q: torch.Tensor, label_idx: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+        """One optimizer step; returns the batch loss (a device scalar)."""
+        loss = self.loss(q, label_idx, mask)
+        grads = list(torch.autograd.grad(loss, self.params))
+        optim.step(self.params, grads, self.opt_state, self.cfg, lr)
+        return loss.detach()
+
+    def train_epoch(self, epoch: int, host_rng: np.random.Generator,
+                    max_steps: Optional[int] = None) -> float:
+        """One epoch over the shuffled batch plan; returns the mean loss.
+        ``max_steps`` stops after that many steps."""
+        cfg = self.cfg
+        bank = self.banks["train"]
+        lr = optim.epoch_lr(cfg, epoch)
+        idx, mask = epoch_batches(bank.n_queries, cfg.batch_size, host_rng)
+        idx = torch.from_numpy(idx).long().to(self.device)
+        mask = torch.from_numpy(mask).to(self.device)
+        steps = idx.shape[0] if max_steps is None else min(max_steps,
+                                                           idx.shape[0])
+        losses = torch.stack([
+            self.train_step(lr, bank.queries[idx[s]], bank.label_idx[idx[s]],
+                            mask[s])
+            for s in range(steps)])
+        return float(losses.mean())   # the epoch's one host sync
+
+    def evaluate(self, split: str = "valid", mark: str = "Val"
+                 ) -> Dict[str, float]:
+        return evaluate(self.cfg, self.model, self.graph, self.banks, split,
+                        mark, seg_sum=self.seg_sum)
+
+
+# ------------------------------------------------------------------ evaluation
 
 @torch.no_grad()
 def _bank_sums(model, all_ent, all_rel, bank: QueryBank,
@@ -33,10 +150,11 @@ def _bank_sums(model, all_ent, all_rel, bank: QueryBank,
 
 @torch.no_grad()
 def evaluate(cfg: Config, model, graph: Graph, banks: Dict[str, QueryBank],
-             split: str = "valid", mark: str = "Val") -> Dict[str, float]:
+             split: str = "valid", mark: str = "Val",
+             seg_sum: Callable = segment_sum) -> Dict[str, float]:
     """Filtered MR/MRR/Hits over tail + head queries (reference main.py:80-103)."""
     bs = cfg.eval_batch_size or cfg.batch_size
-    all_ent, all_rel = model.encode(graph)
+    all_ent, all_rel = model.encode(graph, seg_sum=seg_sum)
     tail, head = (_bank_sums(model, all_ent, all_rel, banks[f"{split}_{d}"], bs)
                   for d in ("tail", "head"))
     results = combine_head_tail(tail, head)
@@ -48,3 +166,76 @@ def log_metrics(mark: str, results: Dict[str, float]) -> None:
     """The reference's metric log line (main.py:98-103 format)."""
     logging.info("- %s metrics: %s  ", mark,
                  "; ".join(f"{k}: {v:05.3f}" for k, v in results.items()))
+
+
+# ------------------------------------------------------------------ epoch loop
+
+def train_and_evaluate(trainer: Trainer, model_dir: Optional[str] = None,
+                       saved_best: float = 0.0, seed: int = 0) -> float:
+    """Epoch loop with eval-every, best tracking and early stop (reference
+    main.py:138-174); returns the best validation MRR.  ``seed`` seeds the
+    batch order and the dropout generator."""
+    cfg = trainer.cfg
+    best_measure = saved_best
+    patience_counter = 0
+    host_rng = np.random.default_rng(seed)
+    trainer.generator.manual_seed(seed)
+    metrics_path = (os.path.join(model_dir, "metrics.jsonl")
+                    if model_dir is not None else None)
+
+    def record(rec):
+        """One JSON line per epoch in <model_dir>/metrics.jsonl."""
+        if metrics_path is not None:
+            with open(metrics_path, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+
+    # the file appends across runs in one model_dir: consumers split runs here
+    record({"run_start": True, "dataset": cfg.dataset,
+            "max_epoch": cfg.max_epoch, "seed": seed,
+            "restored_best": saved_best})
+    steps = trainer.steps_per_epoch
+    edges_per_step = trainer.graph.num_messages
+    timed_steps, timed_s = 0, 0.0
+
+    logging.info("Starting training for %d epoch(s)", cfg.max_epoch)
+    for epoch in range(1, cfg.max_epoch + 1):
+        t0 = time.perf_counter()
+        loss = trainer.train_epoch(epoch, host_rng)
+        dt = time.perf_counter() - t0    # train only (train_epoch host-syncs)
+        rec = {"epoch": epoch, "loss": round(loss, 6),
+               "lr": optim.epoch_lr(cfg, epoch), "sec": round(dt, 3)}
+        rate = ""
+        if epoch > 1:                    # epoch 1 carries one-time set-up
+            timed_steps, timed_s = timed_steps + steps, timed_s + dt
+            sps = timed_steps / timed_s
+            rec["steps_per_s"] = round(steps / dt, 2)
+            rate = (f", {sps:.2f} steps/s, {sps * edges_per_step:.3e} "
+                    "edges/s")
+        logging.info("Epoch %d/%d  loss=%07.5f  (%.2fs%s)",
+                     epoch, cfg.max_epoch, loss, dt, rate)
+
+        if epoch % cfg.eval_every == 0:
+            val = trainer.evaluate("valid", mark="Val")
+            rec["val"] = val
+            improve = val["mrr"] - best_measure
+            if improve > 0:
+                best_measure = val["mrr"]
+                if model_dir is not None:
+                    save_checkpoint(model_dir, trainer.model,
+                                    trainer.opt_state, cfg, best_measure)
+                if improve < cfg.patience:
+                    patience_counter += 1
+                else:
+                    patience_counter = 0
+            else:
+                patience_counter += 1
+            rec["best_mrr"] = round(best_measure, 6)
+
+            if (cfg.patience_num > 0 and patience_counter >= cfg.patience_num
+                    and epoch > cfg.min_epoch):
+                logging.info("Early stopping with best val measure: %05.3f",
+                             best_measure)
+                record(rec)
+                break
+        record(rec)
+    return best_measure

@@ -96,9 +96,17 @@ def load_kernels(force_build: bool = False) -> KernelLibrary:
         return _LOADED
     path, seconds, log = build(force_build)
     lib = ctypes.CDLL(str(path))
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.kgc_segment_sum.argtypes = [vp, i32, vp, vp, i32, i32, i32, vp]
     lib.kgc_segment_sum.restype = i32
+    lib.kgc_fused_bce_loss_partials.argtypes = [i32, i32]
+    lib.kgc_fused_bce_loss_partials.restype = i32
+    lib.kgc_fused_bce_loss.argtypes = [vp, vp, vp, vp, f32, vp, vp, i32, i32,
+                                       i32, vp]
+    lib.kgc_fused_bce_loss.restype = i32
+    lib.kgc_fused_bce_grads.argtypes = [vp, vp, vp, vp, vp, f32, vp, vp, vp,
+                                        vp, i32, i32, i32, i32, i32, vp]
+    lib.kgc_fused_bce_grads.restype = i32
     lib.kgc_cuda_error_string.argtypes = [i32]
     lib.kgc_cuda_error_string.restype = ctypes.c_char_p
     _LOADED = KernelLibrary(lib, path, seconds, log)

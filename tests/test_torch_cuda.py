@@ -1,5 +1,6 @@
 """Tests of the port that need an NVIDIA card: each CUDA kernel against its
-plain PyTorch version on the card, and the encoder through the kernels.
+plain PyTorch version on the card, the encoder through the kernels, and one
+training step through the kernels against the same step in plain PyTorch.
 
 This file imports neither JAX nor kgc_gcn_tpu, so that it runs on a machine
 with a card and no JAX (tests/conftest.py imports JAX, hence --noconftest):
@@ -15,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from kgc_gcn_torch.ops.fused_loss import (
+    dense_grads, dense_grads_reference, dense_loss, dense_loss_reference)
 from kgc_gcn_torch.ops.segment_sum import segment_sum, segment_sum_reference
 
 # Exact: the messages are multiples of 2**-8 below 2 in magnitude (also after
@@ -99,3 +102,99 @@ def test_encode_through_kernel_matches_plain_and_cpu(cuda):
     torch.testing.assert_close(ent, ref_ent, **tol)
     torch.testing.assert_close(ent.cpu(), cpu_ent, **tol)
     torch.testing.assert_close(rel.cpu(), cpu_rel, **tol)
+
+
+# K2a: a float32 sum of B*N terms in another order; K2b: sums over B or N in
+# another order, whose error scales with the summands (absolute part relative
+# to the largest element)
+K2_LOSS_RTOL = 1e-5
+K2_GRAD_RTOL = K2_GRAD_ATOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,masked", [
+    (128, 4099, 200, ()), (5, 1001, 37, (1, 3)), (7, 300, 300, (6,)),
+    (70, 33, 64, (0, 69))])
+def test_k2_kernels_match_plain(cuda, b, n, d, masked):
+    gen = torch.Generator().manual_seed(b + n)
+    h = torch.relu(torch.randn(b, d, generator=gen)).to(cuda)
+    ent = torch.tanh(torch.randn(n, d, generator=gen)).to(cuda)
+    bias = (torch.randn(n, generator=gen) * 0.1).to(cuda)
+    w = torch.ones(b)
+    w[list(masked)] = 0.0
+    w = w.to(cuda)
+    base, g = 1.0 / n, torch.tensor(1.0 / (b * n), device=cuda)
+    before = (dense_loss.launches, dense_grads.launches)
+    got = dense_loss(h, ent, bias, w, base)
+    got_g = dense_grads(g, h, ent, bias, w, base)
+    torch.cuda.synchronize()
+    assert (dense_loss.launches, dense_grads.launches) == (before[0] + 1,
+                                                           before[1] + 1)
+    torch.testing.assert_close(got, dense_loss_reference(h, ent, bias, w, base),
+                               rtol=K2_LOSS_RTOL, atol=0.0)
+    for a, want in zip(got_g, dense_grads_reference(g, h, ent, bias, w, base)):
+        torch.testing.assert_close(
+            a, want, rtol=K2_GRAD_RTOL,
+            atol=K2_GRAD_ATOL * float(want.abs().max()))
+    for i in masked:
+        assert float(got_g[0][i].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss_impl", ["fused", "sparse"])
+def test_kernel_train_step_matches_plain_step(cuda, loss_impl):
+    """One training step with dropout on the card through the kernels, and
+    the same step (same weights, same dropout masks) through the plain
+    versions: loss, gradients and updated parameters."""
+    import copy
+
+    from kgc_gcn_torch.config import dataset_preset
+    from kgc_gcn_torch.convert import jax_leaf_names
+    from kgc_gcn_torch.data.batching import make_banks
+    from kgc_gcn_torch.data.dataset import build_dataset
+    from kgc_gcn_torch.data.graph import build_graph
+    from kgc_gcn_torch.data.toy import toy_triples
+    from kgc_gcn_torch.models import build_model
+    from kgc_gcn_torch.train import optim
+    from kgc_gcn_torch.train.loop import Trainer
+
+    ds = build_dataset("toy", *toy_triples(n_ent=40, n_rel=5, n_train=300))
+    graph = build_graph(ds.train_triples, ds.num_entity,
+                        ds.num_relation).to(cuda)
+    banks = make_banks(ds, cuda)
+    cfg = dataset_preset("Toy", gcn_in_dim=16, gcn_out_dim=32, k_w=4, k_h=8,
+                         num_filter=4, kernel_size=3, batch_size=16,
+                         loss_impl=loss_impl, gcn_drop=0.2, feat_drop=0.2,
+                         hidden_drop=0.3, seed=5)
+    model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
+                        e_pad=graph.e_pad).to(cuda)
+    kernel = Trainer(cfg, model, graph, banks)
+    plain = Trainer(cfg, copy.deepcopy(model), graph, banks, plain=True)
+    bank = banks["train"]
+    idx = torch.arange(16, device=cuda)
+    batch = (bank.queries[idx], bank.label_idx[idx], torch.ones(16, device=cuda))
+    before = [p.detach().clone() for p in kernel.params]
+    out = {}
+    for name, t in (("kernel", kernel), ("plain", plain)):
+        launches = (segment_sum.launches, dense_loss.launches)
+        loss = t.loss(*batch)
+        grads = torch.autograd.grad(loss, t.params)
+        optim.step(t.params, list(grads), t.opt_state, cfg, 1e-3)
+        out[name] = (loss.detach(), grads, (segment_sum.launches - launches[0],
+                                            dense_loss.launches - launches[1]))
+    assert out["kernel"][2] == (4, int(loss_impl == "fused"))
+    assert out["plain"][2] == (0, 0)
+    # float32 sums in another order through one forward and backward pass
+    torch.testing.assert_close(out["kernel"][0], out["plain"][0], rtol=1e-5,
+                               atol=0.0)
+    for i, name in enumerate(jax_leaf_names(cfg)[0]):
+        if name in ("decoder.bn0.scale", "decoder.bn0.bias"):
+            continue   # BN1 cancels them: float noise on both sides
+        gk, gp = out["kernel"][1][i], out["plain"][1][i]
+        torch.testing.assert_close(gk, gp, rtol=1e-3,
+                                   atol=1e-4 * float(gp.abs().max()), msg=name)
+        uk = kernel.params[i].detach() - before[i]
+        up = plain.params[i].detach() - before[i]
+        # first Adam step: each element moves by lr * sign(g) unless g ~ 0
+        agree = torch.isclose(uk, up, rtol=1e-3, atol=1e-7)
+        assert float(agree.float().mean()) > 0.999, name

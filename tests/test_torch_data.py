@@ -72,7 +72,7 @@ def test_dataset_graph_and_banks_equal_jax(corpus):
 
     jbanks = jbatch.make_banks(jds)
     pbanks = pbatch.make_banks(pds)
-    assert sorted(pbanks) == sorted(k for k in jbanks if k != "train")
+    assert sorted(pbanks) == sorted(jbanks)
     for k, pb in pbanks.items():
         assert (pb.n_queries, pb.n_ent) == (jbanks[k].n_queries, jbanks[k].n_ent)
         np.testing.assert_array_equal(pb.queries.numpy(),

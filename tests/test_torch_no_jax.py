@@ -39,7 +39,10 @@ def test_no_jax_import_in_source(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, kgc_gcn_torch.cli, kgc_gcn_torch.serve, "
-            "kgc_gcn_torch.convert\n"
+            "kgc_gcn_torch.convert, kgc_gcn_torch.train.loop, "
+            "kgc_gcn_torch.train.optim, kgc_gcn_torch.train.checkpoint, "
+            "kgc_gcn_torch.ops.fused_loss, kgc_gcn_torch.ops.losses, "
+            "kgc_gcn_torch.ops.scatter\n"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'kgc_gcn_tpu'))\n"
             "print(bad)\n")

@@ -29,7 +29,7 @@ from kgc_gcn_tpu.train.optim import make_optimizer
 
 from kgc_gcn_torch import cli
 from kgc_gcn_torch.serve import Predictor, serve_file, serve_stream
-from kgc_gcn_torch.train.checkpoint import load_jax_checkpoint
+from kgc_gcn_torch.train.checkpoint import load_checkpoint
 from kgc_gcn_torch.train.loop import evaluate
 from test_torch_common import (jax_and_port_models, jax_leaves, port_cfg,
                                port_toy, randomize)
@@ -161,7 +161,7 @@ def _write_run(tmp_path, toy_cfg):
 
 def test_load_jax_checkpoint(tmp_path, toy_cfg):
     *_, run, cfg, ds, graph, model, params, state = _write_run(tmp_path, toy_cfg)
-    sd, measure = load_jax_checkpoint(run, port_cfg(cfg))
+    sd, measure = load_checkpoint(run, port_cfg(cfg))
     assert measure == pytest.approx(0.25)
     want = dict(jax_leaves(params))
     want.update({("conv.bn." + k[8:] if k.startswith("conv_bn.") else k): v
@@ -170,7 +170,7 @@ def test_load_jax_checkpoint(tmp_path, toy_cfg):
     for k, v in want.items():
         np.testing.assert_array_equal(sd[k].numpy(), v, err_msg=k)
     with pytest.raises(FileNotFoundError):
-        load_jax_checkpoint(str(tmp_path / "missing"), port_cfg(cfg))
+        load_checkpoint(str(tmp_path / "missing"), port_cfg(cfg))
 
 
 def test_cli_predict_and_test_on_cpu(tmp_path, toy_cfg, capsys, caplog):
@@ -208,8 +208,11 @@ def test_cli_predict_and_test_on_cpu(tmp_path, toy_cfg, capsys, caplog):
 
 def test_cli_refuses_what_it_cannot_run(tmp_path):
     base = ["--dataset", "Toy", "--experiments_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="next slice"):
-        cli.main(base + ["--do_train", "--device", "cpu"])
+    for flags in (["--train_mode", "negative_sampling"],
+                  ["--edge_sample_size", "8"], ["--ckpt_every", "1"],
+                  ["--profile_dir", str(tmp_path)]):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            cli.main(base + ["--do_train", "--device", "cpu"] + flags)
     with pytest.raises(ValueError, match="restore dir"):
         cli.main(base + ["--do_test", "--device", "cpu"])
     if not torch.cuda.is_available():   # the default device needs a card
