@@ -9,10 +9,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. kernels: hold each kernel against its plain PyTorch version on the card
      at the shapes the training and serving paths give it, plus an edge case:
      K1 (segment-sum) in dst, src and rel order, K2a / K2b (fused score +
-     BCE, forward and backward);
+     BCE, forward and backward), K7 / K8 (basis R-GCN aggregation and its
+     backward; bit-equal on dyadic inputs, then real values);
   4. timing: each kernel, its plain version and the one-call library
      equivalent or yardstick, with CUDA events, beside the least time the
-     card needs;
+     card needs (K1, K7, K8 also without the graph's padding edges);
   5. training: the reference model (MGCN + ConvE at full width, WN18RR
      preset and dropout, random weights from --seed) on a WN18RR-shaped
      synthetic corpus: timed steps with loss_impl fused and auto (steps/s,
@@ -21,9 +22,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      epoch through the CLI entry point, which writes last.ckpt;
   6. serving: that checkpoint served: encode once, 512 file queries and 3
      stream queries, the filtered metrics on the test split, and the encode
-     held against the same encode through the plain segment-sum.
-K1 checks use dyadic messages, whose float32 sums are exact in any order,
-so kernel and plain version must agree to the bit.
+     held against the same encode through the plain segment-sum;
+  7. R-GCN training: BASELINE config 3 (basis R-GCN, 30 bases, DistMult,
+     negative sampling with K = 64, float32, FB15k-237 preset's lr and
+     dropout, random weights from --seed) on an FB15k-237-shaped synthetic
+     corpus: timed steps, one kernel step against the same step through the
+     plain versions (same negatives and dropout masks), then one epoch
+     through the CLI, which writes last.ckpt;
+  8. R-GCN serving: that checkpoint through the CLI (--do_test,
+     --do_predict), and the kernel encode held against the plain encode.
+K1, K7 and K8 checks use dyadic inputs, whose float32 sums are exact in any
+order, so kernel and plain version must agree to the bit.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Nothing of JAX is imported.
 """
@@ -31,8 +40,11 @@ The line before the last is {"kernels": [...]}; the last is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import io
 import json
+import logging
 import math
 import os
 import statistics
@@ -68,11 +80,20 @@ STEP_RTOL, STEP_ATOL = 1e-3, 1e-3
 # directions that BatchNorm cancels (bn0's scale up to eps and bias, through
 # the conv into BN1): their gradient is float noise on both sides
 DEGENERATE = ("decoder.bn0.scale", "decoder.bn0.bias")
+# K7 / K8 on real (normal) values: float32 sums over a row's edges (K7), the
+# bases (d_msg) or the columns (d_a) in another order; the absolute part is
+# relative to the largest element
+BASIS_RTOL, BASIS_ATOL = 1e-5, 1e-5
+# R-GCN encode through K7 vs through the plain version, trained weights
+RGCN_ENCODE_TOL = 1e-5
+# longest R-GCN CLI epoch the smoke runs at full size; above it the CLI
+# trains on fewer triples over the same entities and relations
+CLI_EPOCH_LIMIT_S = 180.0
 TIMED_STEPS = 50
-# WN18RR's counts (scripts/make_synth_corpus.py): entities, relations,
-# train / valid / test triples; FB15k-237's for the bf16 kernel case
+# WN18RR's and FB15k-237's counts (scripts/make_synth_corpus.py): entities,
+# relations, train / valid / test triples
 WN18RR = (40943, 11, 86835, 3000, 3000)
-FB15K237 = (14541, 237, 272115)
+FB15K237 = (14541, 237, 272115, 17535, 20466)
 
 
 def log(msg: str) -> None:
@@ -81,9 +102,10 @@ def log(msg: str) -> None:
 
 # ------------------------------------------------------------------ helpers
 
-def write_corpus(root: str, seed: int) -> None:
-    """WN18RR-shaped random triples as TSV; every entity appears in train."""
-    n_ent, n_rel, n_train, n_valid, n_test = WN18RR
+def write_corpus(root: str, seed: int, counts) -> None:
+    """Random triples with the given (entities, relations, train, valid,
+    test) counts as TSV; every entity appears in train."""
+    n_ent, n_rel, n_train, n_valid, n_test = counts
     rng = np.random.default_rng(seed)
     os.makedirs(root, exist_ok=True)
     for split, n in (("train", n_train), ("valid", n_valid), ("test", n_test)):
@@ -109,6 +131,17 @@ def bound(msg: torch.Tensor, n_rows: int):
     e, d = msg.shape
     return bound_of(e * d * msg.element_size() + 4 * (n_rows + 1)
                     + 4 * n_rows * d, e * d)
+
+
+def basis_bound(e: int, n_rows: int, d: int, nb: int, backward: bool):
+    """K7: msg, a and indptr read once, out written once; 2*E*B*d
+    operations.  K8: g, msg, a, indptr read, d_msg and d_a written; twice
+    the operations."""
+    if not backward:
+        return bound_of(4 * (e * d + e * nb + n_rows + 1 + n_rows * nb * d),
+                        2.0 * e * nb * d)
+    return bound_of(4 * (n_rows * nb * d + 2 * e * d + 2 * e * nb + n_rows + 1),
+                    4.0 * e * nb * d)
 
 
 def k2_bound(b: int, n: int, d: int, backward: bool):
@@ -236,6 +269,17 @@ def dyadic(e: int, d: int, dtype, gen) -> torch.Tensor:
     return (torch.randint(-511, 512, (e, d), generator=gen) / 256).to(dtype)
 
 
+def basis_case(dst, indptr, n_rows: int, d: int, nb: int, gen, real: bool):
+    """K7 / K8 operands (msg (E, d), a (E, B), dst, indptr, g (n_rows, B*d))
+    on the card: multiples of 2**-4 below 1 (every product and partial sum
+    exact in float32), or normal values with ``real``."""
+    e = dst.shape[0]
+    draw = ((lambda *s: torch.randn(*s, generator=gen)) if real else
+            (lambda *s: torch.randint(-15, 16, s, generator=gen) / 16))
+    return (draw(e, d).cuda(), draw(e, nb).cuda(), dst.cuda(), indptr.cuda(),
+            draw(n_rows, nb * d).cuda())
+
+
 def csr_case(counts, d: int, dtype, gen):
     counts = torch.as_tensor(counts, dtype=torch.int64)
     dst = torch.repeat_interleave(torch.arange(len(counts)), counts)
@@ -307,13 +351,18 @@ def main() -> int:
     from kgc_gcn_torch.data.dataset import load_dataset
     from kgc_gcn_torch.data.graph import build_graph
     from kgc_gcn_torch.models import build_model
+    from kgc_gcn_torch.ops.basis import (
+        basis_backward, basis_backward_reference, basis_segment_sum,
+        basis_segment_sum_reference)
     from kgc_gcn_torch.ops.fused_loss import (
         dense_grads, dense_grads_reference, dense_loss, dense_loss_reference)
+    from kgc_gcn_torch.ops.kernels import PLAIN
     from kgc_gcn_torch.ops.segment_sum import segment_sum, segment_sum_reference
     from kgc_gcn_torch.serve import Predictor, serve_file, serve_stream
     from kgc_gcn_torch.train import optim
     from kgc_gcn_torch.train.checkpoint import load_checkpoint
     from kgc_gcn_torch.train.loop import Trainer, evaluate
+    from kgc_gcn_torch.train.negative import NegativeSamplingTrainer
     from kgc_gcn_torch.utils.cuda_build import load_kernels
     from kgc_gcn_torch.utils.device import resolve_device
 
@@ -324,7 +373,8 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; count {torch.cuda.device_count()}")
     log(smi)
-    counters = (segment_sum, dense_loss, dense_grads)
+    counters = (segment_sum, dense_loss, dense_grads, basis_segment_sum,
+                basis_backward)       # K1, K2a, K2b, K7, K8
 
     def zero_counts():
         for f in counters:
@@ -345,10 +395,10 @@ def main() -> int:
     t0 = time.perf_counter()
     work = tempfile.TemporaryDirectory()
     corpus_root = os.path.join(work.name, "data")
-    write_corpus(os.path.join(corpus_root, "SYN"), args.seed)
+    write_corpus(os.path.join(corpus_root, "SYN"), args.seed, WN18RR)
     ds = load_dataset("SYN", corpus_root)
     graph = build_graph(ds.train_triples, ds.num_entity, ds.num_relation)
-    n_fb, r_fb, e_fb = FB15K237
+    n_fb, r_fb, e_fb = FB15K237[:3]
     rng = np.random.default_rng(args.seed + 1)
     fb_tri = np.stack([rng.integers(n_fb, size=e_fb), rng.integers(r_fb, size=e_fb),
                        rng.integers(n_fb, size=e_fb)], axis=1)
@@ -421,6 +471,52 @@ def main() -> int:
             f"{float(want):.6g} (rtol {K2_LOSS_RTOL}); grads max_abs_err "
             f"{k2_errs['K2b'][name]:.3g} (rtol {K2_GRAD_RTOL}, atol "
             f"{K2_GRAD_ATOL} x max)")
+
+    # K7 / K8 at BASELINE config 3's shape (FB15k-237 in-half, B 30, d 100)
+    # and an edge case (empty rows, a hub row, B = 1, d 37)
+    cfg3 = dataset_preset("FB15k-237", model="rgcn", decoder="distmult",
+                          num_bases=30, train_mode="negative_sampling",
+                          compute_dtype="float32", moment_dtype="float32",
+                          seed=args.seed)
+    nb3, d3 = cfg3.num_bases, cfg3.gcn_in_dim
+    hub_ptr = torch.zeros(hub.shape[0] + 1, dtype=torch.int32)
+    hub_ptr[1:] = torch.cumsum(hub, 0)
+    hub_dst = torch.repeat_interleave(torch.arange(hub.shape[0]), hub).int()
+    fb_in = fb_graph.inb
+    basis_shapes = {"config3": (fb_in.dst, fb_in.indptr, n_fb, d3, nb3),
+                    "edge": (hub_dst, hub_ptr, hub.shape[0], 37, 1)}
+    basis_errs = {"K7": {}, "K8": {}}
+    for name, (dst_, ptr_, n_rows, d, nb) in basis_shapes.items():
+        for real in (False, True):
+            msg, a, dd, ip, g = basis_case(dst_, ptr_, n_rows, d, nb, gen, real)
+            got = basis_segment_sum(msg, a, dd, ip, n_rows)
+            want = basis_segment_sum_reference(msg, a, dd, ip, n_rows)
+            got_b = basis_backward(g, msg, a, dd, ip)
+            want_b = basis_backward_reference(g, msg, a, dd, ip)
+            torch.cuda.synchronize()
+            case = f"{name}_{'real' if real else 'dyadic'}"
+            if real:
+                basis_errs["K7"][case] = close_rel(got, want, BASIS_RTOL,
+                                                   BASIS_ATOL, f"K7 {case}")
+                basis_errs["K8"][case] = max(
+                    close_rel(x, y, BASIS_RTOL, BASIS_ATOL, f"K8 {case} {w}")
+                    for x, y, w in zip(got_b, want_b, ("d_msg", "d_a")))
+            else:
+                for x, y, w in ((got, want, "K7"), (got_b[0], want_b[0], "K8 d_msg"),
+                                (got_b[1], want_b[1], "K8 d_a")):
+                    torch.testing.assert_close(x, y, rtol=0.0, atol=0.0,
+                                               msg=f"{w} {case}")
+                basis_errs["K7"][case] = 0.0
+                basis_errs["K8"][case] = 0.0
+            log(f"[K7/K8 check] {case}: E={msg.shape[0]} rows={n_rows} B={nb} "
+                f"d={d}: K7 max_abs_err {float((got - want).abs().max()):.3g},"
+                f" K8 max_abs_err d_msg "
+                f"{float((got_b[0] - want_b[0]).abs().max()):.3g}, d_a "
+                f"{float((got_b[1] - want_b[1]).abs().max()):.3g} (tol "
+                + (f"rtol {BASIS_RTOL}, atol {BASIS_ATOL} x max)" if real
+                   else "0: bit-equal)"))
+            del got, want, got_b, want_b, msg, a, g
+    torch.cuda.empty_cache()
 
     # 4. timing -----------------------------------------------------------------
     # The graph pads each half with zero-norm edges, all in row N-1 of the
@@ -504,6 +600,58 @@ def main() -> int:
             f"{t['K2b_bound'] / t['K2b']:.1%} of bound; yardstick "
             f"addmm(bias, h, ent.T) {t['addmm']:.4f} ms")
 
+    # K7 / K8 at config 3: "ms_without_padding" cuts the 269 zero-norm
+    # padding edges of row N-1 off (indptr[-1] = e_real, same operands).
+    # Yardsticks (no one PyTorch call computes either function): K7,
+    # index_add_ of the pre-built (E, B*d) expansion; K8, the two einsums on
+    # a pre-gathered sel = g[dst].  The basis contraction that follows K7 in
+    # the encoder, (N, B*d) @ (B*d, d_out), is timed beside them.
+    msg, a, dd, ip, g = basis_case(fb_in.dst, fb_in.indptr, n_fb, d3, nb3, gen,
+                                   real=True)
+    e3 = msg.shape[0]
+    cut = ip.clone()
+    cut[-1] = fb_in.e_real
+    expansion = (msg[:, None, :] * a[:, :, None]).reshape(e3, -1)
+    sel = g[dd.long()].view(e3, nb3, d3)
+    lib_out = torch.zeros(n_fb, nb3 * d3, device=device)
+    dst_long = dd.long()
+    basis_w = torch.randn(nb3 * d3, cfg3.gcn_out_dim, generator=gen).to(device)
+    agg = basis_segment_sum(msg, a, dd, ip, n_fb)
+    t = time_in_turns({
+        "K7": lambda: basis_segment_sum(msg, a, dd, ip, n_fb),
+        "K7_plain": lambda: basis_segment_sum_reference(msg, a, dd, ip, n_fb),
+        "K7_yardstick": lambda: lib_out.index_add_(0, dst_long, expansion),
+        "K7_without_padding": lambda: basis_segment_sum(msg, a, dd, cut, n_fb),
+        "K8": lambda: basis_backward(g, msg, a, dd, ip),
+        "K8_plain": lambda: basis_backward_reference(g, msg, a, dd, ip),
+        "K8_yardstick": lambda: (torch.einsum("ebd,eb->ed", sel, a),
+                                 torch.einsum("ebd,ed->eb", sel, msg)),
+        "K8_without_padding": lambda: basis_backward(g, msg, a, dd, cut),
+        "basis_matmul": lambda: agg @ basis_w,
+    }, n=50)
+    t["K7_bound"], t["K7_bound_by"] = basis_bound(e3, n_fb, d3, nb3, False)
+    t["K8_bound"], t["K8_bound_by"] = basis_bound(e3, n_fb, d3, nb3, True)
+    timings["basis_config3"] = t
+    log_profile("K7 at config 3", lambda: basis_segment_sum(msg, a, dd, ip, n_fb),
+                steps=5)
+    log_profile("K8 at config 3", lambda: basis_backward(g, msg, a, dd, ip),
+                steps=5)
+    for key, what in (("K7", "index_add_ of the pre-built expansion"),
+                      ("K8", "two einsums on a pre-gathered sel")):
+        log(f"[{key} time] config 3 (E {e3}, N {n_fb}, B {nb3}, d {d3}): "
+            f"kernel {t[key]:.4f} ms, plain {t[f'{key}_plain']:.4f} ms, "
+            f"yardstick ({what}) {t[f'{key}_yardstick']:.4f} ms, bound "
+            f"{t[f'{key}_bound']:.4f} ms ({t[f'{key}_bound_by']}), "
+            f"{t[f'{key}_bound'] / t[key]:.1%} of bound; without the "
+            f"{e3 - fb_in.e_real} padding edges {t[f'{key}_without_padding']:.4f}"
+            " ms")
+    log(f"[basis contraction] (N {n_fb}, {nb3 * d3}) @ ({nb3 * d3}, "
+        f"{cfg3.gcn_out_dim}) float32: {t['basis_matmul']:.4f} ms "
+        f"({2 * n_fb * nb3 * d3 * cfg3.gcn_out_dim / t['basis_matmul'] / 1e9:.1f}"
+        " TFLOP/s)")
+    del msg, a, g, expansion, sel, lib_out, agg, cut
+    torch.cuda.empty_cache()
+
     # 5. training ---------------------------------------------------------------
     graph = graph.to(device)
     banks = make_banks(ds, device)
@@ -527,13 +675,13 @@ def main() -> int:
         loss = trainer.train_epoch(1, host_rng, max_steps=TIMED_STEPS)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        k1, k2a, k2b = counts()
+        k1, k2a, k2b, k7, k8 = counts()
         peak = torch.cuda.max_memory_allocated()
-        want = (4 * TIMED_STEPS, TIMED_STEPS, TIMED_STEPS) if impl == "fused" \
-            else (4 * TIMED_STEPS, 0, 0)
-        if (k1, k2a, k2b) != want or not math.isfinite(loss):
-            raise AssertionError(f"{impl}: launches (K1, K2a, K2b) "
-                                 f"{(k1, k2a, k2b)}, want {want}; loss {loss}")
+        want = (4 * TIMED_STEPS, TIMED_STEPS, TIMED_STEPS, 0, 0) \
+            if impl == "fused" else (4 * TIMED_STEPS, 0, 0, 0, 0)
+        if counts() != want or not math.isfinite(loss):
+            raise AssertionError(f"{impl}: launches (K1, K2a, K2b, K7, K8) "
+                                 f"{counts()}, want {want}; loss {loss}")
         sps = TIMED_STEPS / dt
         bank = banks["train"]
         idx = torch.arange(cfg.batch_size, device=device)
@@ -582,7 +730,8 @@ def main() -> int:
         grads = list(torch.autograd.grad(loss, t.params))
         optim.step(t.params, grads, t.opt_state, cfg, optim.epoch_lr(cfg, 1))
         result[name] = (loss.detach(), grads, counts())
-    if result["kernel"][2] != (4, 1, 1) or result["plain"][2] != (0, 0, 0):
+    if (result["kernel"][2] != (4, 1, 1, 0, 0)
+            or result["plain"][2] != (0, 0, 0, 0, 0)):
         raise AssertionError(f"same-step launches {result['kernel'][2]} / "
                              f"{result['plain'][2]}")
     torch.testing.assert_close(result["kernel"][0], result["plain"][0],
@@ -631,8 +780,8 @@ def main() -> int:
             and os.path.exists(os.path.join(run_dir, "last.ckpt"))
             and 0.0 < ep["val"]["mrr"] <= 1.0):
         raise AssertionError(f"cli epoch: {recs}")
-    k1, k2a, k2b = train_launches
-    if not (k2a == k2b == steps_per_epoch
+    k1, k2a, k2b, k7, k8 = train_launches
+    if not (k2a == k2b == steps_per_epoch and k7 == k8 == 0
             and k1 == 4 * steps_per_epoch + 2):
         raise AssertionError(f"cli epoch launches {train_launches} for "
                              f"{steps_per_epoch} steps")
@@ -694,20 +843,22 @@ def main() -> int:
                 math.isfinite(t["score"]) and t["entity"] in ds.entity2id
                 for t in rec["topk"]):
             raise AssertionError(f"bad answer: {rec}")
-    if not (serve_launches == (4, 0, 0) and 1.0 <= metrics["mr"] <= ds.num_entity
+    if not (serve_launches == (4, 0, 0, 0, 0)
+            and 1.0 <= metrics["mr"] <= ds.num_entity
             and 0.0 < metrics["mrr"] <= 1.0
             and all(0.0 <= metrics[k] <= 1.0 for k in metrics if "hits" in k)):
         raise AssertionError(f"eval: launches {serve_launches}, metrics {metrics}")
     log(f"[serve] first calls: encode {encode_ms:.2f} ms (K1 launches 2); "
         f"serve_file 512 queries in 4 batches: {serve_ms / 4:.2f} ms/batch; "
         f"serve_stream 3 lines; eval {2 * len(ds.test_triples)} queries "
-        f"{eval_s:.3f} s {metrics}; launches on the path (K1, K2a, K2b) "
+        f"{eval_s:.3f} s {metrics}; launches on the path (K1, K2a, K2b, K7, "
+        "K8) "
         f"{serve_launches}; peak memory {peak} B")
 
     # the same encode through the plain segment-sum on the card
     q = torch.as_tensor(test[:128], device=device).long()
     with torch.no_grad():
-        ref_ent, ref_rel = model.encode(graph, seg_sum=segment_sum_reference)
+        ref_ent, ref_rel = model.encode(graph, kernels=PLAIN)
         torch.testing.assert_close(pred.all_ent, ref_ent, rtol=TOL, atol=TOL)
         torch.testing.assert_close(pred.all_rel, ref_rel, rtol=TOL, atol=TOL)
         got = torch.topk(model.decode(pred.all_ent, pred.all_rel, q[:, 0],
@@ -737,21 +888,268 @@ def main() -> int:
             f"serve_file {serve_warm:.3f} ms/batch; eval {eval_warm:.3f} s")
         log_profile("encode", encode)
         log_profile("top-10 batch", top_k)
+    del pred, model, ref_ent, ref_rel, graph, banks
+    torch.cuda.empty_cache()
+
+    # 7. R-GCN training (BASELINE config 3) -------------------------------------
+    t0 = time.perf_counter()
+    fb_root = os.path.join(work.name, "fb")
+    write_corpus(os.path.join(fb_root, "SYN3"), args.seed, FB15K237)
+    ds3 = load_dataset("SYN3", fb_root)
+    graph3 = build_graph(ds3.train_triples, ds3.num_entity,
+                         ds3.num_relation).to(device)
+    banks3 = make_banks(ds3, device)
+    log(f"[data] FB15k-237-shaped corpus: {ds3.num_entity} entities, "
+        f"{ds3.num_relation} relations, {ds3.num_edge} train edges per half "
+        f"(E_pad {graph3.e_pad}, 2E+N = {graph3.num_messages}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    model3 = build_model(cfg3, ds3.num_entity, ds3.num_relation, ds3.num_edge,
+                         generator=torch.Generator().manual_seed(args.seed)
+                         ).to(device)
+    trainer3 = NegativeSamplingTrainer(cfg3, model3, graph3, banks3)
+    log(f"[train] rgcn config: {cfg3.num_layers} layer, B {model3.nb} bases, "
+        f"d_in {cfg3.gcn_in_dim}, d_out {cfg3.gcn_out_dim}, decoder "
+        f"{cfg3.decoder}, {cfg3.train_mode} K {cfg3.num_negatives} "
+        f"({cfg3.neg_loss}), batch {cfg3.batch_size}, lr {cfg3.learning_rate}, "
+        f"gcn_drop {cfg3.gcn_drop}, {cfg3.compute_dtype}, moments "
+        f"{cfg3.moment_dtype}; {sum(p.numel() for p in model3.parameters())} "
+        "parameters")
+    host_rng = np.random.default_rng(args.seed)
+    trainer3.train_epoch(1, host_rng, max_steps=3)      # one-time set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    loss = trainer3.train_epoch(1, host_rng, max_steps=TIMED_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got_counts = counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = (2 * TIMED_STEPS, 0, 0, 2 * TIMED_STEPS, 2 * TIMED_STEPS)
+    if got_counts != want or not math.isfinite(loss):
+        raise AssertionError(f"rgcn: launches (K1, K2a, K2b, K7, K8) "
+                             f"{got_counts}, want {want}; loss {loss}")
+    sps = TIMED_STEPS / dt
+    n_msgs3 = graph3.num_messages
+    lr3 = optim.epoch_lr(cfg3, 1)
+    batch3 = trainer3.batch(torch.arange(cfg3.batch_size, device=device),
+                            torch.ones(cfg3.batch_size, device=device))
+    prof = log_profile("one rgcn training step",
+                       lambda: trainer3.train_step(lr3, *batch3), steps=3)
+    phases = phase_ms(trainer3, batch3, lr3)
+    log(f"[train] rgcn step phases (host ms, each ended by a sync): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
+    steps3 = trainer3.steps_per_epoch
+    train["rgcn"] = {"steps_per_s": sps, "edges_per_s": sps * n_msgs3,
+                     "peak_bytes": peak, "loss": loss, **prof,
+                     "phases_ms": phases,
+                     "launches_per_step": dict(zip(
+                         ("K1", "K2a", "K2b", "K7", "K8"),
+                         (c / TIMED_STEPS for c in got_counts)))}
+    log(f"[train] rgcn + distmult, negative sampling: {TIMED_STEPS} warm steps "
+        f"in {dt:.3f} s = {sps:.2f} steps/s, {sps * n_msgs3:.4g} edges/s "
+        f"(2E+N = {n_msgs3}); mean loss {loss:.6f}; launches per step K7 "
+        f"{got_counts[3] / TIMED_STEPS:g}, K8 {got_counts[4] / TIMED_STEPS:g}, "
+        f"K1 {got_counts[0] / TIMED_STEPS:g}; peak memory {peak} B; an epoch "
+        f"of {steps3} steps ~ {steps3 / sps:.1f} s")
+
+    # one kernel step against the same step through the plain versions, from
+    # the warm state, with the same negatives and dropout masks
+    plain3 = NegativeSamplingTrainer(cfg3, copy.deepcopy(model3), graph3,
+                                     banks3, plain=True)
+    plain3.opt_state = optim.AdamState(
+        trainer3.opt_state.count,
+        [m.clone() for m in trainer3.opt_state.mu],
+        [v.clone() for v in trainer3.opt_state.nu])
+    idx = torch.randperm(trainer3.n_train, generator=gen)[:cfg3.batch_size]
+    batch = trainer3.batch(idx.to(device),
+                           torch.ones(cfg3.batch_size, device=device))
+    before = [p.detach().clone() for p in trainer3.params]
+    result = {}
+    for name, t in (("kernel", trainer3), ("plain", plain3)):
+        t.generator.manual_seed(args.seed + 7)
+        zero_counts()
+        loss = t.loss(*batch)
+        grads = list(torch.autograd.grad(loss, t.params))
+        optim.step(t.params, grads, t.opt_state, cfg3, lr3)
+        result[name] = (loss.detach(), grads, counts())
+        del loss
+        torch.cuda.empty_cache()
+    if (result["kernel"][2] != (2, 0, 0, 2, 2)
+            or result["plain"][2] != (0, 0, 0, 0, 0)):
+        raise AssertionError(f"rgcn same-step launches {result['kernel'][2]} "
+                             f"/ {result['plain'][2]}")
+    torch.testing.assert_close(result["kernel"][0], result["plain"][0],
+                               rtol=STEP_LOSS_RTOL, atol=0.0,
+                               msg="rgcn step loss")
+    step_err3 = {"grad": 0.0, "update": 0.0}
+    for i, name in enumerate(jax_leaf_names(cfg3)[0]):
+        gk, gp = result["kernel"][1][i], result["plain"][1][i]
+        uk = trainer3.params[i].detach() - before[i]
+        up = plain3.params[i].detach() - before[i]
+        if not (torch.isfinite(gk).all() and torch.isfinite(uk).all()):
+            raise AssertionError(f"rgcn same step: non-finite {name}")
+        step_err3["grad"] = max(step_err3["grad"], close_rel(
+            gk, gp, STEP_RTOL, STEP_ATOL, f"rgcn same step: grad {name}"))
+        step_err3["update"] = max(step_err3["update"], close_rel(
+            uk, up, STEP_RTOL, STEP_ATOL, f"rgcn same step: update {name}"))
+    log(f"[train] rgcn kernel step vs plain step (warm Adam, count "
+        f"{trainer3.opt_state.count}, same negatives and dropout masks): loss "
+        f"{float(result['kernel'][0]):.8f} vs {float(result['plain'][0]):.8f}; "
+        f"max abs err grads {step_err3['grad']:.3g}, updates "
+        f"{step_err3['update']:.3g} (rtol {STEP_RTOL}, atol {STEP_ATOL} x max)")
+    est_epoch_s = steps3 / sps
+    del plain3, result, before, trainer3, model3, batch, batch3, grads
+    torch.cuda.empty_cache()
+
+    # one epoch through the CLI entry point (the R-GCN training main path);
+    # above CLI_EPOCH_LIMIT_S the corpus keeps its entities and relations
+    # and has fewer train triples
+    cli_root, ds_cli = fb_root, ds3
+    if est_epoch_s > CLI_EPOCH_LIMIT_S:
+        n_cut = int(FB15K237[2] * CLI_EPOCH_LIMIT_S / est_epoch_s)
+        cli_root = os.path.join(work.name, "fb_cut")
+        write_corpus(os.path.join(cli_root, "SYN3"), args.seed,
+                     (*FB15K237[:2], n_cut, *FB15K237[3:]))
+        ds_cli = load_dataset("SYN3", cli_root)
+        log(f"[train] rgcn CLI epoch cut: {est_epoch_s:.1f} s estimated at "
+            f"full size > {CLI_EPOCH_LIMIT_S} s; {n_cut} train triples")
+    exp3 = os.path.join(work.name, "experiments_rgcn")
+    # the dataset is not named FB15k-237, so the parser's defaults apply
+    # (eval_every 1) and the FB15k-237 preset's lr and dropout are passed
+    argv3 = ["--dataset", "SYN3", "--data_dir", cli_root,
+             "--experiments_dir", exp3, "--do_train", "--max_epoch", "1",
+             "--eval_every", "1", "--seed", str(args.seed), "--model", "rgcn",
+             "--decoder", "distmult", "--num_bases", "30", "--train_mode",
+             "negative_sampling", "--compute_dtype", "float32",
+             "--moment_dtype", "float32", "--learning_rate",
+             str(cfg3.learning_rate), "--gcn_drop", str(cfg3.gcn_drop)]
+    torch.cuda.synchronize()
+    zero_counts()                                  # the R-GCN training path starts
+    t0 = time.perf_counter()
+    if cli.main(argv3) != 0:
+        raise AssertionError("cli rgcn --do_train failed")
+    torch.cuda.synchronize()
+    cli3_s = time.perf_counter() - t0
+    rgcn_train_launches = counts()                 # the R-GCN training path ends
+    run3 = os.path.join(exp3, "SYN3")
+    with open(os.path.join(run3, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    ep = recs[-1]
+    if not (ep.get("epoch") == 1 and math.isfinite(ep["loss"])
+            and os.path.exists(os.path.join(run3, "last.ckpt"))
+            and 0.0 < ep["val"]["mrr"] <= 1.0):
+        raise AssertionError(f"cli rgcn epoch: {recs}")
+    cli_steps = -(-2 * ds_cli.num_edge // cfg3.batch_size)
+    if rgcn_train_launches != (2 * cli_steps, 0, 0, 2 * cli_steps + 2,
+                               2 * cli_steps):
+        raise AssertionError(f"cli rgcn launches {rgcn_train_launches} for "
+                             f"{cli_steps} steps")
+    train["rgcn"]["cli_epoch_s"] = ep["sec"]
+    log(f"[train] cli --model rgcn --decoder distmult --num_bases 30 "
+        f"--train_mode negative_sampling --max_epoch 1: {cli_steps} steps "
+        f"({ds_cli.num_edge} train triples) + validation in {cli3_s:.2f} s "
+        f"(epoch {ep['sec']} s); loss {ep['loss']}; Val {ep['val']}; launches "
+        f"(K1, K2a, K2b, K7, K8) {rgcn_train_launches}; last.ckpt written")
+
+    # 8. R-GCN serving: the checkpoint through the CLI ----------------------------
+    id2ent = {i: e for e, i in ds_cli.entity2id.items()}
+    id2rel = {i: r for r, i in ds_cli.relation2id.items()}
+    test3 = ds_cli.test_triples[:512]
+    qfile3 = os.path.join(work.name, "queries_rgcn.txt")
+    with open(qfile3, "w") as f:
+        f.write("".join(f"{id2ent[s_]}\t{id2rel[r_]}\n" for s_, r_, _ in test3))
+    serve_base = ["--dataset", "SYN3", "--data_dir", cli_root,
+                  "--restore_dir", run3, "--experiments_dir",
+                  os.path.join(work.name, "serve_rgcn")]
+    captured = _Capture()
+    logging.getLogger().addHandler(captured)
+    zero_counts()                                  # the R-GCN serving path starts
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if cli.main(serve_base + ["--do_test"]) != 0:
+        raise AssertionError("cli rgcn --do_test failed")
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        if cli.main(serve_base + ["--do_predict", "--predict_file", qfile3,
+                                  "--top_k", "10"]) != 0:
+            raise AssertionError("cli rgcn --do_predict failed")
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    rgcn_serve_launches = counts()                 # the R-GCN serving path ends
+    logging.getLogger().removeHandler(captured)
+    answers = [json.loads(x) for x in out.getvalue().splitlines()]
+    if len(answers) != 512 or not all(
+            len(a_["topk"]) == 10 and all(math.isfinite(t_["score"])
+                                          and t_["entity"] in ds_cli.entity2id
+                                          for t_ in a_["topk"])
+            for a_ in answers):
+        raise AssertionError(f"cli rgcn --do_predict: {len(answers)} answers")
+    test_line = [m for m in captured.lines if "Test metrics" in m][-1]
+    metrics3 = {k: float(v) for k, v in (
+        kv.split(": ") for kv in test_line.split("metrics: ")[1].strip()
+        .split("; "))}
+    if not (rgcn_serve_launches == (0, 0, 0, 4, 0)
+            and 1.0 <= metrics3["mr"] <= ds_cli.num_entity
+            and 0.0 < metrics3["mrr"] <= 1.0):
+        raise AssertionError(f"rgcn serving: launches {rgcn_serve_launches}, "
+                             f"metrics {metrics3}")
+    log(f"[serve] rgcn cli --do_test {test_s:.2f} s {metrics3}; --do_predict "
+        f"512 queries {predict_s:.2f} s (both load the corpus and build the "
+        f"graph); launches (K1, K2a, K2b, K7, K8) {rgcn_serve_launches}")
+
+    # the served checkpoint: kernel encode vs plain encode, warm timings
+    cfg_s = Config.from_json(os.path.join(run3, "params.json"))
+    graph_s = (graph3 if cli_root == fb_root else build_graph(
+        ds_cli.train_triples, ds_cli.num_entity, ds_cli.num_relation).to(device))
+    model_s = build_model(cfg_s, ds_cli.num_entity, ds_cli.num_relation,
+                          ds_cli.num_edge)
+    model_s.load_state_dict(load_checkpoint(run3, cfg_s)[0])
+    model_s = model_s.to(device).eval()
+    q3 = torch.as_tensor(test3[:128], device=device).long()
+    with torch.no_grad():
+        ent_k, rel_k = model_s.encode(graph_s)
+        ent_p, rel_p = model_s.encode(graph_s, kernels=PLAIN)
+        torch.testing.assert_close(ent_k, ent_p, rtol=RGCN_ENCODE_TOL,
+                                   atol=RGCN_ENCODE_TOL)
+        torch.testing.assert_close(rel_k, rel_p, rtol=0.0, atol=0.0)
+        got = torch.topk(model_s.decode(ent_k, rel_k, q3[:, 0], q3[:, 1]), 10)
+        want = torch.topk(model_s.decode(ent_p, rel_p, q3[:, 0], q3[:, 1]), 10)
+        assert_topk_match(got.values, got.indices, want.values, want.indices,
+                          tol=1e-4)
+        enc3_err = float((ent_k - ent_p).abs().max())
+        encode3 = lambda: model_s.encode(graph_s)
+        top3 = lambda: torch.topk(model_s.decode(ent_k, rel_k, q3[:, 0],
+                                                 q3[:, 1]), 10)
+        dev3 = time_in_turns({"encode": encode3, "top_k": top3}, n=10,
+                             warmup=1, lead_cycles=10_000_000)
+        log(f"[serve] rgcn kernel encode vs plain encode: all_ent max_abs_err "
+            f"{enc3_err:.3g} (tol {RGCN_ENCODE_TOL}); top-10 of 128 queries "
+            f"agree; warm encode {host_ms(encode3, 5):.3f} ms host, "
+            f"{dev3['encode']:.3f} ms device; top-10 of a 128-query batch "
+            f"{host_ms(top3, 10):.3f} ms host, {dev3['top_k']:.3f} ms device")
+        log_profile("rgcn encode", encode3)
     work.cleanup()
 
+    paths = {"mgcn_train": train_launches, "mgcn_serve": serve_launches,
+             "rgcn_train": rgcn_train_launches,
+             "rgcn_serve": rgcn_serve_launches}
+    by_path = lambda i: {k: v[i] for k, v in paths.items()}
     main_t = timings["wn18rr_f32"]
     k1_err = max(errs.values())
     entries = [{
-        "name": "segment_sum", "route": "cuda",
+        "name": "segment_sum (K1)", "route": "cuda",
         "source": "kgc_gcn_torch/csrc/segment_sum.cu",
         "replaces": "kgc_gcn_tpu/ops/spmm_pallas.py:126",
-        "launches": train_launches[0] + serve_launches[0],
+        "launches": sum(by_path(0).values()),
         "max_abs_err": k1_err,
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
         "library_ms": main_t["library_ms"],
-        "launches_by_path": {"train": train_launches[0],
-                             "serve": serve_launches[0]},
+        "launches_by_path": by_path(0),
         "cases": {name: {**timings.get(name, {}), "max_abs_err": err}
                   for name, err in errs.items()},
     }]
@@ -762,26 +1160,57 @@ def main() -> int:
             "name": f"{fn_name} ({key})", "route": "cuda",
             "source": "kgc_gcn_torch/csrc/fused_score_bce.cu",
             "replaces": f"kgc_gcn_tpu/ops/fused_loss.py:{line}",
-            "launches": train_launches[1 + i] + serve_launches[1 + i],
+            "launches": sum(by_path(1 + i).values()),
             "max_abs_err": max(k2_errs[key].values()),
             "ms": k2_main[key], "plain_ms": k2_main[f"{key}_plain"],
             "bound_ms": k2_main[f"{key}_bound"],
             "bound_by": k2_main[f"{key}_bound_by"],
             "library_ms": None,
-            "yardstick_addmm_ms": k2_main["addmm"],
-            "launches_by_path": {"train": train_launches[1 + i],
-                                 "serve": serve_launches[1 + i]},
+            "yardstick": "addmm(bias, h, ent.T)",
+            "yardstick_ms": k2_main["addmm"],
+            "launches_by_path": by_path(1 + i),
             "cases": {"edge": {k: v for k, v in timings["k2_edge"].items()
                                if k.startswith(key) or k == "addmm"},
                       "max_abs_err": k2_errs[key]},
         })
+    t3 = timings["basis_config3"]
+    for i, (key, fn_name, line, yard) in enumerate((
+            ("K7", "basis_sum", 918, "index_add_ of the pre-built expansion"),
+            ("K8", "basis_bwd", 1181, "two einsums on a pre-gathered sel"))):
+        entries.append({
+            "name": f"{fn_name} ({key})", "route": "cuda",
+            "source": "kgc_gcn_torch/csrc/basis_rgcn.cu",
+            "replaces": f"kgc_gcn_tpu/ops/spmm_pallas.py:{line}",
+            "launches": sum(by_path(3 + i).values()),
+            "max_abs_err": max(basis_errs[key].values()),
+            "ms": t3[key], "plain_ms": t3[f"{key}_plain"],
+            "bound_ms": t3[f"{key}_bound"], "bound_by": t3[f"{key}_bound_by"],
+            "library_ms": None, "yardstick": yard,
+            "yardstick_ms": t3[f"{key}_yardstick"],
+            "ms_without_padding": t3[f"{key}_without_padding"],
+            "launches_by_path": by_path(3 + i),
+            "cases": {"max_abs_err": basis_errs[key]},
+        })
     log(json.dumps({"training": train, "few_sum": {
-        k: v for k, v in timings.items() if k.startswith("few_sum")}}))
+        k: v for k, v in timings.items() if k.startswith("few_sum")},
+        "basis_matmul_ms": t3["basis_matmul"]}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+class _Capture(logging.Handler):
+    """Keeps the messages of the root logger's records (the CLI logs its
+    test metrics)."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
 
 
 if __name__ == "__main__":

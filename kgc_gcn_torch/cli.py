@@ -1,14 +1,19 @@
 """Experiment CLI of the port, flag-compatible with ``kgc_gcn_tpu.cli``.
 
     python -m kgc_gcn_torch.cli --dataset Toy --do_train [--loss_impl fused]
+    python -m kgc_gcn_torch.cli --dataset FB15k-237 --do_train --model rgcn \
+        --decoder distmult --num_bases 30 --train_mode negative_sampling \
+        --compute_dtype float32 --moment_dtype float32
     python -m kgc_gcn_torch.cli --dataset Toy --do_test --restore_dir experiments/Toy
     python -m kgc_gcn_torch.cli --dataset Toy --do_predict --predict_file q.txt \\
         --restore_dir experiments/Toy
 
 Every flag of the JAX CLI (and so of the reference driver, main.py:18-46) is
 accepted with the same name and default.  ``--do_train`` trains MGCN + ConvE
-1-vs-all and writes ``params.json``, ``train.log``, ``metrics.jsonl`` and, on
-every validation improvement, ``last.ckpt`` under
+or basis R-GCN + DistMult (``--model rgcn --decoder distmult``), 1-vs-all or
+on sampled negatives (``--train_mode negative_sampling``), and writes
+``params.json``, ``train.log``, ``metrics.jsonl`` and, on every validation
+improvement, ``last.ckpt`` under
 ``<experiments_dir>/<dataset>``; with ``--restore_dir`` it resumes from that
 checkpoint, optimizer state included.  ``--do_test`` and ``--do_predict``
 serve a checkpoint that either package wrote (``--restore_dir``, whose
@@ -37,6 +42,7 @@ from kgc_gcn_torch.models import build_model
 from kgc_gcn_torch.serve import Predictor, serve_file, serve_stream
 from kgc_gcn_torch.train.checkpoint import load_checkpoint
 from kgc_gcn_torch.train.loop import Trainer, evaluate, train_and_evaluate
+from kgc_gcn_torch.train.negative import NegativeSamplingTrainer
 from kgc_gcn_torch.utils.device import resolve_device
 from kgc_gcn_torch.utils.logging import set_logger
 
@@ -200,8 +206,6 @@ def _check_ported(cfg: Config, args: argparse.Namespace) -> None:
         ("--per_relation", args.per_relation, 4),
         ("--partition", cfg.partition != "contiguous", 8),
         ("--data_axis/--graph_axis", cfg.data_axis * cfg.graph_axis > 1, 8),
-        ("--train_mode negative_sampling",
-         cfg.train_mode == "negative_sampling", 4),
         ("--edge_sample_size", cfg.edge_sample_size > 0, 4),
         ("--ckpt_every (orbax async checkpoints)", cfg.ckpt_every > 0, 9),
         ("--profile_dir", args.profile_dir is not None, 9),
@@ -250,14 +254,16 @@ def main(argv=None) -> int:
     model = model.to(device)
 
     if cfg.do_train:
-        trainer = Trainer(cfg, model, graph, banks)
+        trainer_cls = (NegativeSamplingTrainer
+                       if cfg.train_mode == "negative_sampling" else Trainer)
+        trainer = trainer_cls(cfg, model, graph, banks)
         if opt_state is not None:   # resume: the optimizer continues too
             trainer.opt_state.count = opt_state.count
             for dst, src in zip(trainer.opt_state.mu + trainer.opt_state.nu,
                                 opt_state.mu + opt_state.nu):
                 dst.copy_(src)
-        logging.info("Training %s+%s, loss_impl=%s, on %s",
-                     cfg.model, cfg.decoder, trainer.loss_impl, device)
+        logging.info("Training %s+%s, %s, loss_impl=%s, on %s", cfg.model,
+                     cfg.decoder, cfg.train_mode, trainer.loss_impl, device)
         best = train_and_evaluate(trainer, model_dir, best,
                                   seed=cfg.seed % 2**32)
     if cfg.do_test:

@@ -1,11 +1,12 @@
 """Weights carried between the JAX package and the port, both ways.
 
 The port keeps the JAX parameter layout and names, so a JAX ``MGCNParams`` /
-``MGCNState`` pair maps onto ``models.mgcn.MGCN`` by name alone, with no
-transposes.  Leaves travel as numpy arrays keyed by their dotted JAX paths
-(``entity_embedding``, ``conv.in_weight``, ``decoder.bn0.scale``;
+``MGCNState`` pair maps onto ``models.mgcn.MGCN``, and an ``RGCNParams``
+onto ``models.rgcn.RGCN``, by name alone, with no transposes.  Leaves travel
+as numpy arrays keyed by their dotted JAX paths (``entity_embedding``,
+``conv.in_weight``, ``decoder.bn0.scale``, ``layers.0.basis``;
 ``conv_bn.mean``, ``decoder.bn1.var`` for the state).  The optimizer state
-follows the parameters' order (``opt_state_to_numpy``).
+follows the parameters' order (``opt_state_leaves``).
 """
 
 from __future__ import annotations
@@ -20,8 +21,15 @@ from kgc_gcn_torch.train.optim import AdamState, moment_dtype
 
 
 def jax_leaf_names(cfg: Config) -> Tuple[List[str], List[str]]:
-    """Dotted paths of the JAX MGCN+ConvE parameters and of its state, each
-    in the order ``jax.tree.flatten`` lists them (dataclass field order)."""
+    """Dotted paths of the JAX model's parameters and of its state, each in
+    the order ``jax.tree.flatten`` lists them (dataclass field order; the
+    ``None`` leaves, such as RGCN's ``blocks`` in basis mode, drop out).
+    MGCN+ConvE and RGCN+DistMult (which has no state)."""
+    if cfg.model == "rgcn":
+        layers = [f"layers.{i}.{w}" for i in range(max(1, cfg.num_layers))
+                  for w in ("basis", "coeff", "self_weight")]
+        return (["entity_embedding", "relation_embedding"] + layers
+                + ["decoder.ent_bias"]), []
     bn = lambda p, leaves=("scale", "bias"): [f"{p}.{x}" for x in leaves]
     params = (["entity_embedding", "relation_embedding", "edge_embeddings"]
               + [f"conv.{w}" for w in ("in_weight", "out_weight", "loop_weight",
@@ -79,7 +87,8 @@ def opt_state_from_leaves(leaves: List[torch.Tensor], cfg: Config):
 
 def params_from_numpy(params: Dict[str, np.ndarray],
                       state: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """JAX params + state leaves -> a state dict for ``MGCN.load_state_dict``.
+    """JAX params + state leaves -> a state dict for the model's
+    ``load_state_dict``.
 
     Parameter paths are the module's names; the state's ``conv_bn.*`` are
     the buffers of ``conv.bn`` and ``decoder.bnK.*`` keep their names."""

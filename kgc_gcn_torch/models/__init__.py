@@ -1,21 +1,31 @@
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from kgc_gcn_torch.config import Config
 from kgc_gcn_torch.models.mgcn import MGCN
+from kgc_gcn_torch.models.rgcn import RGCN
 
-__all__ = ["MGCN", "build_model"]
+__all__ = ["MGCN", "RGCN", "build_model"]
+
+# the decoder each ported family runs
+_DECODERS = {"mgcn": "conve", "rgcn": "distmult"}
 
 
 def _unported(cfg: Config):
-    """(flag, ROADMAP.md §1 item) for each setting the port cannot run yet."""
-    item = {"rgat": 6, "rgcn": 7}.get(cfg.model, 4)
+    """(flag, ROADMAP.md §1 item, refused) for each setting the port cannot
+    run yet."""
+    mgcn = cfg.model == "mgcn"
     return [
-        (f"model={cfg.model!r}", item, cfg.model != "mgcn"),
-        (f"decoder={cfg.decoder!r}", 4, cfg.decoder != "conve"),
-        (f"num_layers={cfg.num_layers}", 4, cfg.num_layers > 1),
-        (f"composition={cfg.composition!r}", 4, cfg.composition != "mult"),
+        ("model='rgat'", 6, cfg.model == "rgat"),
+        (f"decoder={cfg.decoder!r} with model={cfg.model!r}", 4,
+         cfg.model in _DECODERS and cfg.decoder != _DECODERS[cfg.model]),
+        (f"num_blocks={cfg.num_blocks} (rgcn block mode)", 7,
+         cfg.model == "rgcn" and cfg.num_blocks > 0),
+        (f"num_layers={cfg.num_layers} with model='mgcn'", 4,
+         mgcn and cfg.num_layers > 1),
+        (f"composition={cfg.composition!r}", 4,
+         mgcn and cfg.composition != "mult"),
         (f"agg_schedule={cfg.agg_schedule!r}", 4, cfg.agg_schedule != "fused"),
         (f"entity_sharded={cfg.entity_sharded!r}", 8,
          cfg.entity_sharded != "none"),
@@ -24,14 +34,20 @@ def _unported(cfg: Config):
 
 def build_model(cfg: Config, n_ent: int, n_rel: int, n_edge: int,
                 e_pad: Optional[int] = None,
-                generator: Optional[torch.Generator] = None) -> MGCN:
-    """Model factory.  ``e_pad`` must equal the Graph's padded per-half edge
-    count when the graph was built with a non-default ``pad_to``; the model
-    is initialized on the CPU from ``generator`` (default: seeded from
-    ``cfg.seed``) and moved with ``.to(device)``."""
+                generator: Optional[torch.Generator] = None
+                ) -> Union[MGCN, RGCN]:
+    """Model factory (``cfg.model``: mgcn | rgcn).  ``e_pad`` must equal the
+    Graph's padded per-half edge count when the graph was built with a
+    non-default ``pad_to`` (MGCN's per-edge table); the model is initialized
+    on the CPU from ``generator`` (default: seeded from ``cfg.seed``) and
+    moved with ``.to(device)``."""
+    if cfg.model not in ("mgcn", "rgcn", "rgat"):
+        raise ValueError(f"unknown model family: {cfg.model!r}")
     for flag, item, bad in _unported(cfg):
         if bad:
             raise NotImplementedError(
                 f"{flag} is not ported to kgc_gcn_torch yet "
                 f"(ROADMAP.md §1 item {item})")
+    if cfg.model == "rgcn":
+        return RGCN(cfg, n_ent, n_rel, n_edge, generator)
     return MGCN(cfg, n_ent, n_rel, n_edge, e_pad, generator)

@@ -1,9 +1,12 @@
-"""ConvE scoring decoder (the port's ConvE from ``kgc_gcn_tpu/models/decoders.py``).
+"""Scoring decoders: ConvE and DistMult (the port's ``kgc_gcn_tpu/models/decoders.py``).
 
-Returns LOGITS over all entities; the reference's final sigmoid
-(model.py:179) is monotonic, so ranking is unchanged.  The convolution keeps
-the JAX package's im2col + matmul form rather than ``F.conv2d``, so it runs
-as a plain float32 matrix product and never through cuDNN's TF32 path.
+Each returns LOGITS over all entities; the reference's final sigmoid
+(model.py:179) is monotonic, so ranking is unchanged.  Both have a query
+trunk ``query`` with ``logits == h @ all_ent.T + ent_bias``, which the sparse
+and fused losses and the candidate scoring of negative sampling use
+(``models/family_base.py``).  ConvE's convolution keeps the JAX package's
+im2col + matmul form rather than ``F.conv2d``, so it runs as a plain float32
+matrix product and never through cuDNN's TF32 path.
 """
 
 from __future__ import annotations
@@ -105,3 +108,27 @@ class ConvE(nn.Module):
         (reference model.py:177-178)."""
         h = self.query(src_emb, rel_emb, train, rngs)
         return mm(h, all_ent.T, self.cfg.compute_dtype) + self.ent_bias[None, :]
+
+
+class DistMult(nn.Module):
+    """score(s, r, o) = <e_s * w_r, e_o> + b_o (``decoders.py:209-263,
+    474-485``), with the JAX ``DistMultParams`` leaf ``ent_bias``
+    (initialized to zeros); it has no state and ignores dropout keys."""
+
+    def __init__(self, cfg: Config, n_ent: int):
+        super().__init__()
+        self.cfg = cfg
+        self.ent_bias = nn.Parameter(torch.zeros(n_ent))
+
+    def query(self, src_emb: torch.Tensor, rel_emb: torch.Tensor,
+              train: bool = False,
+              rngs: Optional[Dict[str, torch.Generator]] = None
+              ) -> torch.Tensor:
+        return src_emb * rel_emb
+
+    def forward(self, src_emb: torch.Tensor, rel_emb: torch.Tensor,
+                all_ent: torch.Tensor, train: bool = False,
+                rngs: Optional[Dict[str, torch.Generator]] = None
+                ) -> torch.Tensor:
+        return (mm(src_emb * rel_emb, all_ent.T, self.cfg.compute_dtype)
+                + self.ent_bias[None, :])

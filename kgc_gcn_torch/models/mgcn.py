@@ -9,9 +9,9 @@
     direction weights applied after aggregation, a dense self-loop term,
     ``(in + out + loop) / 3``, BatchNorm, tanh; relations projected by
     ``rels_weight`` without the appended loop relation (model.py:82-118).
-  * ``encode`` runs once per graph (per step in training); ``decode``
-    scores queries against the encoded entity table and ``query_and_bias``
-    stops before the scoring product, for the sparse and fused losses.
+  * ``encode`` runs once per graph (per step in training); ``decode``,
+    ``query_and_bias`` and ``score_candidates`` come from
+    ``models/family_base.py``.
   * Training (``train=True``): BatchNorm on batch statistics, moving its
     running ones in place, and dropout at the sites of ``make_rngs``:
     ``conv_in``/``conv_out`` on the two direction results (not the loop
@@ -25,7 +25,7 @@ used as ``x @ W``), so ``convert.py`` maps a JAX model onto this one by name.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -34,8 +34,9 @@ from kgc_gcn_torch.config import Config
 from kgc_gcn_torch.data.graph import Graph, padded_edge_count
 from kgc_gcn_torch.models.common import BatchNorm, dropout, mm, xavier_uniform
 from kgc_gcn_torch.models.decoders import ConvE
+from kgc_gcn_torch.models.family_base import DecoderFamilyMixin
+from kgc_gcn_torch.ops.kernels import KERNELS, Kernels
 from kgc_gcn_torch.ops.scatter import aggregate_half, loop_messages
-from kgc_gcn_torch.ops.segment_sum import segment_sum
 
 
 class MGCNConv(nn.Module):
@@ -55,7 +56,7 @@ class MGCNConv(nn.Module):
         self.bn = BatchNorm(d_out)
 
 
-class MGCN(nn.Module):
+class MGCN(DecoderFamilyMixin, nn.Module):
     """Model family 'mgcn' with the ConvE decoder."""
 
     def __init__(self, cfg: Config, n_ent: int, n_rel: int, n_edge: int,
@@ -84,11 +85,10 @@ class MGCN(nn.Module):
 
     def encode(self, graph: Graph, train: bool = False,
                rngs: Optional[Dict[str, torch.Generator]] = None,
-               seg_sum: Callable = segment_sum
+               kernels: Kernels = KERNELS
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-graph encoder -> (all_ent (N, d_out), all_rel (2R, d_out)).
-        ``seg_sum`` selects the segment-sum (default: the kernel on the
-        card)."""
+        ``kernels`` selects the segment-sum (default: K1 on the card)."""
         cfg = self.cfg
         rngs = rngs or {}
         c = self.conv
@@ -97,7 +97,7 @@ class MGCN(nn.Module):
         rel_all = torch.cat([self.relation_embedding, c.loop_rel], dim=0)
         in_agg, out_agg = (
             aggregate_half(x, rel_all, self.edge_embeddings[i], half,
-                           self.n_ent, dt, seg_sum)
+                           self.n_ent, dt, kernels.seg_sum)
             for i, half in enumerate((graph.inb, graph.outb)))
         loop_res = mm(loop_messages(x, c.loop_rel, c.loop_edge),
                       c.loop_weight, dt)
@@ -115,28 +115,8 @@ class MGCN(nn.Module):
         all_ent = dropout(all_ent, cfg.gcn_drop, rngs.get("gcn"), train)
         return all_ent, all_rel
 
-    def decode(self, all_ent: torch.Tensor, all_rel: torch.Tensor,
-               src: torch.Tensor, rel: torch.Tensor, train: bool = False,
-               rngs: Optional[Dict[str, torch.Generator]] = None
-               ) -> torch.Tensor:
-        """(B,) query ids -> (B, N) logits over all entities."""
-        return self.decoder(all_ent[src.long()], all_rel[rel.long()], all_ent,
-                            train, rngs)
-
-    def query_and_bias(self, all_ent: torch.Tensor, all_rel: torch.Tensor,
-                       src: torch.Tensor, rel: torch.Tensor,
-                       train: bool = False,
-                       rngs: Optional[Dict[str, torch.Generator]] = None
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Decoder trunk only: (h (B, d_out), ent_bias (N,)) with logits ==
-        h @ all_ent.T + ent_bias, for the sparse and fused losses
-        (``mgcn.py:510-530``)."""
-        h = self.decoder.query(all_ent[src.long()], all_rel[rel.long()],
-                               train, rngs)
-        return h, self.decoder.ent_bias
-
-    @staticmethod
-    def make_rngs(generator: torch.Generator) -> Dict[str, torch.Generator]:
+    def make_rngs(self, generator: torch.Generator
+                  ) -> Dict[str, torch.Generator]:
         """The dropout sites of one training step, each drawing from the
         trainer's one generator in the order the step reaches them
         (``mgcn.py:553-563``; a site missing here would silently not drop)."""

@@ -1,0 +1,215 @@
+"""Basis-decomposed R-GCN aggregation: kernels K7 and K8 of the port, their
+plain versions, and the autograd function built on them (the port's
+``kgc_gcn_tpu/ops/spmm_pallas.py:basis_aggregate_fused`` and its VJP).
+
+For one direction half with (E, d) messages ``msg = x[src] * norm`` and (E, B)
+coefficients ``a = coeff[rel]``, over edges sorted by destination:
+
+  * ``basis_segment_sum`` (K7): ``out[n, b*d + j] = Σ_{e into n} a[e,b] ·
+    msg[e,j]``, (n_rows, B·d) float32; the (E, B·d) expansion never reaches
+    device memory.  Plain version: ``index_add_`` of that expansion.
+  * ``basis_backward`` (K8): per edge e into n, with ``sel = g[n]`` viewed as
+    (B, d), ``d_msg[e] = Σ_b a[e,b] · sel[b]`` and ``d_a[e,b] = sel[b] ·
+    msg[e]``.  Plain version: the gather ``g[dst]`` and two einsums (the JAX
+    fallback, ``spmm_pallas.py:1536-1542``).
+  * ``basis_aggregate``: forward through K7; backward through K8, then
+    ``d_x`` by permuting ``d_msg · norm`` into src order and summing it with
+    K1 over ``s_indptr``, and ``d_coeff`` with ``segment_sum_few`` over the
+    relation rows.
+
+Both wrappers run their plain version on a CPU tensor and launch their
+kernel (``csrc/basis_rgcn.cu``) on a CUDA tensor or raise; there is no
+fallback from the card to the plain version.  ``.launches`` counts kernel
+launches only.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from kgc_gcn_torch.data.graph import GraphHalf
+from kgc_gcn_torch.ops.scatter import segment_sum_few
+from kgc_gcn_torch.utils.cuda_build import check_launch, load_kernels
+
+# Shared memory K8 may ask for (one block's opt-in maximum on the H100,
+# kMaxSmem in csrc/basis_rgcn.cu).
+BASIS_BWD_MAX_SMEM = 232448
+
+
+def basis_bwd_smem_bytes(d: int, nb: int) -> int:
+    """Shared memory K8 needs for one row (``bwd_smem_bytes`` in
+    csrc/basis_rgcn.cu): the row's cotangent as (B padded to 32) x S, a
+    32-edge chunk of messages (32 x S) and of coefficients transposed
+    ((B padded to 32) x 36), S being d rounded up to 4 with an odd quotient."""
+    nb_pad = -(-nb // 32) * 32
+    s = -(-d // 4) * 4
+    s += 4 * (s // 4 % 2 == 0)
+    return 4 * (nb_pad * s + 32 * s + nb_pad * 36)
+
+
+def basis_segment_sum_reference(msg: torch.Tensor, a: torch.Tensor,
+                                dst: torch.Tensor, indptr: torch.Tensor,
+                                n_rows: int) -> torch.Tensor:
+    """Plain K7: ``index_add_`` of the (E, B·d) expansion at ``dst``."""
+    del indptr
+    e, d = msg.shape
+    expansion = (msg[:, None, :] * a[:, :, None]).reshape(e, -1)
+    out = torch.zeros(n_rows, a.shape[1] * d, dtype=torch.float32,
+                      device=msg.device)
+    return out.index_add_(0, dst.long(), expansion)
+
+
+def basis_backward_reference(g: torch.Tensor, msg: torch.Tensor,
+                             a: torch.Tensor, dst: torch.Tensor,
+                             indptr: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K8: gather ``g[dst]`` as (E, B, d), then the two contractions."""
+    del indptr
+    e, d = msg.shape
+    sel = g[dst.long()].view(e, a.shape[1], d)
+    return (torch.einsum("ebd,eb->ed", sel, a),
+            torch.einsum("ebd,ed->eb", sel, msg))
+
+
+def _check(msg, a, dst, indptr, n_rows, what: str) -> None:
+    if msg.dim() != 2 or msg.dtype != torch.float32:
+        raise ValueError(f"{what}: msg must be (E, d) float32, got "
+                         f"{tuple(msg.shape)} {msg.dtype}")
+    e = msg.shape[0]
+    if a.dim() != 2 or a.shape[0] != e or a.dtype != torch.float32:
+        raise ValueError(f"{what}: a must be ({e}, B) float32, got "
+                         f"{tuple(a.shape)} {a.dtype}")
+    if tuple(dst.shape) != (e,) or dst.dtype != torch.int32:
+        raise ValueError(f"{what}: dst must be ({e},) int32, got "
+                         f"{tuple(dst.shape)} {dst.dtype}")
+    if tuple(indptr.shape) != (n_rows + 1,) or indptr.dtype != torch.int32:
+        raise ValueError(f"{what}: indptr must be ({n_rows + 1},) int32, got "
+                         f"{tuple(indptr.shape)} {indptr.dtype}")
+    if not (msg.device == a.device == dst.device == indptr.device):
+        raise ValueError(f"{what}: operands must be on one device")
+    if e >= 2**31 or n_rows * a.shape[1] * msg.shape[1] >= 2**31:
+        raise ValueError(f"{what} takes sizes below 2**31")
+
+
+def _on_card(t: torch.Tensor, what: str) -> bool:
+    """False for a CPU tensor (plain version), True for a CUDA tensor."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {t.device}")
+    return True
+
+
+def basis_segment_sum(msg: torch.Tensor, a: torch.Tensor, dst: torch.Tensor,
+                      indptr: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """(E, d) messages and (E, B) coefficients sorted by ``dst`` ->
+    (n_rows, B·d) float32 (K7 on the card)."""
+    _check(msg, a, dst, indptr, n_rows, "basis_segment_sum")
+    if not _on_card(msg, "basis_segment_sum"):
+        return basis_segment_sum_reference(msg, a, dst, indptr, n_rows)
+    if not (msg.is_contiguous() and a.is_contiguous()
+            and indptr.is_contiguous()):
+        raise ValueError("basis_segment_sum: msg, a and indptr must be "
+                         "contiguous")
+    e, d = msg.shape
+    nb = a.shape[1]
+    out = torch.empty(n_rows, nb * d, dtype=torch.float32, device=msg.device)
+    if n_rows == 0 or d == 0 or nb == 0:
+        return out
+    kernels = load_kernels()
+    with torch.cuda.device(msg.device):
+        stream = torch.cuda.current_stream(msg.device).cuda_stream
+        code = kernels.lib.kgc_basis_sum(
+            msg.data_ptr(), a.data_ptr(), indptr.data_ptr(), out.data_ptr(),
+            n_rows, e, d, nb, stream)
+    check_launch(kernels.lib, code, "basis_segment_sum")
+    basis_segment_sum.launches += 1
+    return out
+
+
+basis_segment_sum.launches = 0
+
+
+def basis_backward(g: torch.Tensor, msg: torch.Tensor, a: torch.Tensor,
+                   dst: torch.Tensor, indptr: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(n_rows, B·d) cotangent -> (d_msg (E, d), d_a (E, B)) float32 (K8 on
+    the card).  On the card it raises when one row of ``g`` and one staged
+    edge chunk exceed ``BASIS_BWD_MAX_SMEM`` bytes of shared memory."""
+    n_rows = indptr.shape[0] - 1
+    _check(msg, a, dst, indptr, n_rows, "basis_backward")
+    e, d = msg.shape
+    nb = a.shape[1]
+    if tuple(g.shape) != (n_rows, nb * d) or g.dtype != torch.float32:
+        raise ValueError(f"basis_backward: g must be ({n_rows}, {nb * d}) "
+                         f"float32, got {tuple(g.shape)} {g.dtype}")
+    if g.device != msg.device:
+        raise ValueError("basis_backward: operands must be on one device")
+    if not _on_card(msg, "basis_backward"):
+        return basis_backward_reference(g, msg, a, dst, indptr)
+    need = basis_bwd_smem_bytes(d, nb)
+    if need > BASIS_BWD_MAX_SMEM:
+        raise ValueError(
+            f"basis_backward: B*d = {nb}*{d} needs {need} bytes of shared "
+            f"memory per block, above the {BASIS_BWD_MAX_SMEM} K8 asks for")
+    if not (g.is_contiguous() and msg.is_contiguous() and a.is_contiguous()
+            and indptr.is_contiguous()):
+        raise ValueError("basis_backward: g, msg, a and indptr must be "
+                         "contiguous")
+    d_msg = torch.empty(e, d, dtype=torch.float32, device=msg.device)
+    d_a = torch.empty(e, nb, dtype=torch.float32, device=msg.device)
+    if n_rows == 0 or d == 0 or nb == 0:
+        return d_msg, d_a
+    kernels = load_kernels()
+    with torch.cuda.device(msg.device):
+        stream = torch.cuda.current_stream(msg.device).cuda_stream
+        code = kernels.lib.kgc_basis_bwd(
+            g.data_ptr(), msg.data_ptr(), a.data_ptr(), indptr.data_ptr(),
+            d_msg.data_ptr(), d_a.data_ptr(), n_rows, e, d, nb, stream)
+    check_launch(kernels.lib, code, "basis_backward")
+    basis_backward.launches += 1
+    return d_msg, d_a
+
+
+basis_backward.launches = 0
+
+
+class _BasisAggregate(torch.autograd.Function):
+    """One direction half's basis aggregation, differentiable in ``x`` and
+    ``coeff`` (``spmm_pallas.py:_basis_agg_fwd``, ``_basis_agg_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, coeff, half: GraphHalf, n_ent: int, kernels):
+        msg = x[half.src.long()] * half.norm[:, None]
+        a = coeff[half.rel.long()]
+        ctx.save_for_backward(msg, a)
+        ctx.half, ctx.kernels, ctx.n_coeff = half, kernels, coeff.shape[0]
+        return kernels.basis_sum(msg, a, half.dst, half.indptr, n_ent)
+
+    @staticmethod
+    def backward(ctx, g):
+        msg, a = ctx.saved_tensors
+        half, kernels = ctx.half, ctx.kernels
+        d_msg, d_a = kernels.basis_bwd(g.contiguous(), msg, a, half.dst,
+                                       half.indptr)
+        contrib = (d_msg * half.norm[:, None])[half.sperm.long()]
+        d_x = kernels.seg_sum(contrib, half.s_src, half.s_indptr,
+                              half.s_indptr.shape[0] - 1)
+        # the rel-sorted view's pointers cover every relation row of the
+        # graph (2R + 1); the coefficient table has the first 2R of them
+        n_seg = half.r_indptr.shape[0] - 1
+        d_coeff = segment_sum_few(d_a, half.rel, n_seg,
+                                  (half.rperm, half.r_indptr, half.r_rel),
+                                  kernels.seg_sum)[:ctx.n_coeff]
+        return d_x, d_coeff, None, None, None
+
+
+def basis_aggregate(x: torch.Tensor, coeff: torch.Tensor, half: GraphHalf,
+                    n_ent: int, kernels) -> torch.Tensor:
+    """(N, d) entities and (2R, B) coefficients -> (N, B·d) float32 per-basis
+    aggregates of one direction half; ``kernels`` is an
+    ``ops.kernels.Kernels`` bundle (``basis_sum``, ``basis_bwd``,
+    ``seg_sum``)."""
+    return _BasisAggregate.apply(x, coeff, half, n_ent, kernels)

@@ -1,5 +1,5 @@
-"""The dense training loss (the port's ``kgc_gcn_tpu/ops/losses.py``,
-``loss_impl=dense``).
+"""Training losses (the port's ``kgc_gcn_tpu/ops/losses.py``): the dense
+1-vs-all BCE (``loss_impl=dense``) and the negative-sampling objectives.
 
 The reference computes ``BCELoss(sigmoid(x), y)`` (reference
 model.py:22,179; main.py:62); the port keeps the logits and uses the stable
@@ -47,3 +47,52 @@ def bce_with_logits(logits: torch.Tensor,             # (B, N)
     if row_mask is None:
         row_mask = logits.new_ones(logits.shape[0])
     return _BCEWithLogits.apply(logits, targets, row_mask)
+
+
+# ------------------------------------------------ negative-sampling objectives
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + exp(x)), as ``jax.nn.softplus`` computes it (logaddexp)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def margin_ranking_loss(pos_scores: torch.Tensor,   # (B,)
+                        neg_scores: torch.Tensor,   # (B, K)
+                        margin: float = 1.0,
+                        row_mask: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Hinge ``max(0, margin - s+ + s-)``, masked mean over valid rows x K
+    (``kgc_gcn_tpu/ops/losses.py:63-75``)."""
+    per = torch.relu(margin - pos_scores[:, None] + neg_scores)
+    if row_mask is None:
+        return per.mean()
+    denom = row_mask.sum().clamp_min(1.0) * per.shape[1]
+    return (per * row_mask[:, None]).sum() / denom
+
+
+def self_adversarial_loss(pos_logits: torch.Tensor,   # (B,)
+                          neg_logits: torch.Tensor,   # (B, K)
+                          margin: float = 1.0,
+                          temperature: float = 1.0,
+                          row_mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """RotatE's ``-log σ(γ + s+) - Σ_k p_k log σ(-s_k - γ)`` with the weights
+    ``p = softmax(α s-)`` detached (``kgc_gcn_tpu/ops/losses.py:78-99``)."""
+    w = torch.softmax(temperature * neg_logits, dim=1).detach()
+    per = (_softplus(-(margin + pos_logits))
+           + (w * _softplus(neg_logits + margin)).sum(dim=1))
+    if row_mask is None:
+        return per.mean()
+    return (per * row_mask).sum() / row_mask.sum().clamp_min(1.0)
+
+
+def sampled_bce_with_logits(pos_logits: torch.Tensor,   # (B,)
+                            neg_logits: torch.Tensor,   # (B, K)
+                            row_mask: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """BCE over one positive and K sampled negatives per query
+    (``kgc_gcn_tpu/ops/losses.py:102-110``)."""
+    logits = torch.cat([pos_logits[:, None], neg_logits], dim=1)
+    targets = torch.zeros_like(logits)
+    targets[:, 0] = 1.0
+    return bce_with_logits(logits, targets, row_mask)

@@ -6,9 +6,10 @@
 best validation measure under ``__measure__``.  Dict keys flatten in sorted
 order, so the optimizer's leaves come first (``convert.opt_state_leaves``)
 and the model's are the LAST ``len(params) + len(state)`` leaves, in the
-order of ``convert.jax_leaf_names``.  Either package reads what the other
-wrote: the JAX ``load_checkpoint`` with a template from ``model.init`` and
-``make_optimizer(cfg).init``, the port with numpy alone.  The policy is the
+order of ``convert.jax_leaf_names`` for the run's family (``cfg.model``).
+Either package reads what the other wrote: the JAX ``load_checkpoint`` with
+a template from ``model.init`` and ``make_optimizer(cfg).init``, the port
+with numpy alone.  The policy is the
 reference's (utils.py:121-155): the trainer saves only when the validation
 MRR improves, so ``last.ckpt`` holds the best weights.
 """
@@ -58,7 +59,8 @@ def _leaf(data, i: int) -> torch.Tensor:
 def load_checkpoint(path: str, cfg: Config, with_opt_state: bool = False):
     """Read a checkpoint file, or the run directory that holds ``last.ckpt``.
 
-    Returns (state dict for ``MGCN.load_state_dict``, stored measure), and
+    Returns (state dict for the model's ``load_state_dict``, stored
+    measure), and
     with ``with_opt_state`` the optimizer's ``AdamState`` third."""
     path = _ckpt_path(path)
     with np.load(path) as data:

@@ -22,7 +22,7 @@ import json
 import logging
 import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -32,12 +32,10 @@ from kgc_gcn_torch.convert import model_params
 from kgc_gcn_torch.data.batching import QueryBank, build_labels, epoch_batches
 from kgc_gcn_torch.data.graph import Graph
 from kgc_gcn_torch.models.common import mm
-from kgc_gcn_torch.ops.fused_loss import (
-    dense_grads, dense_grads_reference, dense_loss, dense_loss_reference,
-    fused_score_bce, sparse_bce_with_logits)
+from kgc_gcn_torch.ops.fused_loss import fused_score_bce, sparse_bce_with_logits
+from kgc_gcn_torch.ops.kernels import KERNELS, PLAIN, Kernels
 from kgc_gcn_torch.ops.losses import bce_with_logits
 from kgc_gcn_torch.ops.ranking import combine_head_tail, filtered_ranks, rank_metrics
-from kgc_gcn_torch.ops.segment_sum import segment_sum, segment_sum_reference
 from kgc_gcn_torch.train import optim
 from kgc_gcn_torch.train.checkpoint import save_checkpoint
 
@@ -46,9 +44,11 @@ class Trainer:
     """Owns the optimizer state and the dropout generator of one (model,
     graph) pair on one device; the generator is seeded from ``cfg.seed``.
 
-    ``plain=True`` runs every kernel's plain PyTorch version instead, on any
-    device (the card's check of a kernel step against the same step in
-    plain PyTorch)."""
+    ``plain=True`` runs every kernel's plain PyTorch version instead
+    (``ops.kernels.PLAIN``), on any device: the card's check of a kernel
+    step against the same step in plain PyTorch.  Either model family
+    (``models.build_model``) trains here 1-vs-all; ``train/negative.py``
+    trains it on sampled negatives."""
 
     def __init__(self, cfg: Config, model, graph: Graph,
                  banks: Dict[str, QueryBank], plain: bool = False):
@@ -63,9 +63,7 @@ class Trainer:
         self.opt_state = optim.init_state(self.params, cfg)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed % 2**32)
-        self.seg_sum = segment_sum_reference if plain else segment_sum
-        self.k2 = ((dense_loss_reference, dense_grads_reference) if plain
-                   else (dense_loss, dense_grads))
+        self.kernels = PLAIN if plain else KERNELS
 
     @staticmethod
     def _resolve_loss_impl(cfg: Config) -> str:
@@ -74,8 +72,18 @@ class Trainer:
         return "sparse" if cfg.loss_impl == "auto" else cfg.loss_impl
 
     @property
+    def n_train(self) -> int:
+        """Rows of the epoch's batch plan: the train bank's queries."""
+        return self.banks["train"].n_queries
+
+    @property
     def steps_per_epoch(self) -> int:
-        return -(-self.banks["train"].n_queries // self.cfg.batch_size)
+        return -(-self.n_train // self.cfg.batch_size)
+
+    def batch(self, idx: torch.Tensor, mask: torch.Tensor) -> tuple:
+        """The ``loss`` arguments of one step of the batch plan."""
+        bank = self.banks["train"]
+        return bank.queries[idx], bank.label_idx[idx], mask
 
     # ------------------------------------------------------------- train step
 
@@ -86,13 +94,15 @@ class Trainer:
         cfg, model = self.cfg, self.model
         rngs = model.make_rngs(self.generator)
         all_ent, all_rel = model.encode(self.graph, train=True, rngs=rngs,
-                                        seg_sum=self.seg_sum)
+                                        kernels=self.kernels)
         if self.loss_impl in ("sparse", "fused"):
             h, ent_bias = model.query_and_bias(all_ent, all_rel, q[:, 0],
                                                q[:, 1], train=True, rngs=rngs)
             if self.loss_impl == "fused":
                 return fused_score_bce(h, all_ent, ent_bias, label_idx,
-                                       cfg.lbl_smooth, mask, *self.k2)
+                                       cfg.lbl_smooth, mask,
+                                       self.kernels.dense_loss,
+                                       self.kernels.dense_grads)
             logits = mm(h, all_ent.T, cfg.compute_dtype) + ent_bias[None, :]
             return sparse_bce_with_logits(logits, label_idx, cfg.lbl_smooth,
                                           mask)
@@ -101,10 +111,10 @@ class Trainer:
                               rngs=rngs)
         return bce_with_logits(logits, lbl, mask)
 
-    def train_step(self, lr: float, q: torch.Tensor, label_idx: torch.Tensor,
-                   mask: torch.Tensor) -> torch.Tensor:
-        """One optimizer step; returns the batch loss (a device scalar)."""
-        loss = self.loss(q, label_idx, mask)
+    def train_step(self, lr: float, *batch: torch.Tensor) -> torch.Tensor:
+        """One optimizer step on ``loss(*batch)``; returns the batch loss (a
+        device scalar)."""
+        loss = self.loss(*batch)
         grads = list(torch.autograd.grad(loss, self.params))
         optim.step(self.params, grads, self.opt_state, self.cfg, lr)
         return loss.detach()
@@ -114,23 +124,20 @@ class Trainer:
         """One epoch over the shuffled batch plan; returns the mean loss.
         ``max_steps`` stops after that many steps."""
         cfg = self.cfg
-        bank = self.banks["train"]
         lr = optim.epoch_lr(cfg, epoch)
-        idx, mask = epoch_batches(bank.n_queries, cfg.batch_size, host_rng)
+        idx, mask = epoch_batches(self.n_train, cfg.batch_size, host_rng)
         idx = torch.from_numpy(idx).long().to(self.device)
         mask = torch.from_numpy(mask).to(self.device)
         steps = idx.shape[0] if max_steps is None else min(max_steps,
                                                            idx.shape[0])
-        losses = torch.stack([
-            self.train_step(lr, bank.queries[idx[s]], bank.label_idx[idx[s]],
-                            mask[s])
-            for s in range(steps)])
+        losses = torch.stack([self.train_step(lr, *self.batch(idx[s], mask[s]))
+                              for s in range(steps)])
         return float(losses.mean())   # the epoch's one host sync
 
     def evaluate(self, split: str = "valid", mark: str = "Val"
                  ) -> Dict[str, float]:
         return evaluate(self.cfg, self.model, self.graph, self.banks, split,
-                        mark, seg_sum=self.seg_sum)
+                        mark, kernels=self.kernels)
 
 
 # ------------------------------------------------------------------ evaluation
@@ -151,10 +158,10 @@ def _bank_sums(model, all_ent, all_rel, bank: QueryBank,
 @torch.no_grad()
 def evaluate(cfg: Config, model, graph: Graph, banks: Dict[str, QueryBank],
              split: str = "valid", mark: str = "Val",
-             seg_sum: Callable = segment_sum) -> Dict[str, float]:
+             kernels: Kernels = KERNELS) -> Dict[str, float]:
     """Filtered MR/MRR/Hits over tail + head queries (reference main.py:80-103)."""
     bs = cfg.eval_batch_size or cfg.batch_size
-    all_ent, all_rel = model.encode(graph, seg_sum=seg_sum)
+    all_ent, all_rel = model.encode(graph, kernels=kernels)
     tail, head = (_bank_sums(model, all_ent, all_rel, banks[f"{split}_{d}"], bs)
                   for d in ("tail", "head"))
     results = combine_head_tail(tail, head)

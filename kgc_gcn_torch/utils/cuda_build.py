@@ -107,6 +107,11 @@ def load_kernels(force_build: bool = False) -> KernelLibrary:
     lib.kgc_fused_bce_grads.argtypes = [vp, vp, vp, vp, vp, f32, vp, vp, vp,
                                         vp, i32, i32, i32, i32, i32, vp]
     lib.kgc_fused_bce_grads.restype = i32
+    lib.kgc_basis_sum.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
+    lib.kgc_basis_sum.restype = i32
+    lib.kgc_basis_bwd.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                                  vp]
+    lib.kgc_basis_bwd.restype = i32
     lib.kgc_cuda_error_string.argtypes = [i32]
     lib.kgc_cuda_error_string.restype = ctypes.c_char_p
     _LOADED = KernelLibrary(lib, path, seconds, log)

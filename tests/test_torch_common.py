@@ -44,10 +44,11 @@ def port_cfg(jax_cfg) -> Config:
 
 
 def jax_leaves(tree) -> dict:
-    """{dotted JAX path: numpy array} of a params or state pytree."""
+    """{dotted JAX path: numpy array} of a params or state pytree (a list
+    entry's index is a path component: ``layers.0.basis``)."""
     flat, _ = jax.tree_util.tree_flatten_with_path(tree)
-    return {".".join(str(getattr(k, "name", k)) for k in path): np.asarray(v)
-            for path, v in flat}
+    key = lambda k: str(getattr(k, "name", getattr(k, "idx", k)))
+    return {".".join(key(k) for k in path): np.asarray(v) for path, v in flat}
 
 
 def randomize(params, state, rng):
@@ -74,9 +75,17 @@ def randomize(params, state, rng):
     return dataclasses.replace(params, decoder=dec), state
 
 
+def rgcn_cfg(toy_cfg, **kw):
+    """A toy R-GCN + DistMult config (d_in 8, d_out 16, B 3), dropout off."""
+    base = dict(model="rgcn", decoder="distmult", num_bases=3, gcn_in_dim=8,
+                gcn_out_dim=16, gcn_drop=0.0, batch_size=8, num_negatives=5)
+    return toy_cfg.replace(**{**base, **kw})
+
+
 def jax_and_port_models(toy, cfg, seed: int = 0):
-    """A JAX MGCN with randomized weights and BN stats, and the port's MGCN
-    holding the same weights carried across by convert.params_from_numpy."""
+    """A JAX model (MGCN or RGCN, by ``cfg.model``) with randomized weights,
+    BN stats and entity bias, and the port's model holding the same weights
+    carried across by convert.params_from_numpy."""
     ds, graph, _ = toy
     model = jax_build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
                             e_pad=graph.e_pad)

@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA card: each CUDA kernel against its
 plain PyTorch version on the card, the encoder through the kernels, and one
-training step through the kernels against the same step in plain PyTorch.
+training step through the kernels against the same step in plain PyTorch
+(MGCN 1-vs-all, and R-GCN on sampled negatives).
 
 This file imports neither JAX nor kgc_gcn_tpu, so that it runs on a machine
 with a card and no JAX (tests/conftest.py imports JAX, hence --noconftest):
@@ -16,8 +17,12 @@ import numpy as np
 import pytest
 import torch
 
+from kgc_gcn_torch.ops.basis import (
+    BASIS_BWD_MAX_SMEM, basis_backward, basis_backward_reference,
+    basis_segment_sum, basis_segment_sum_reference)
 from kgc_gcn_torch.ops.fused_loss import (
     dense_grads, dense_grads_reference, dense_loss, dense_loss_reference)
+from kgc_gcn_torch.ops.kernels import PLAIN
 from kgc_gcn_torch.ops.segment_sum import segment_sum, segment_sum_reference
 
 # Exact: the messages are multiples of 2**-8 below 2 in magnitude (also after
@@ -96,7 +101,7 @@ def test_encode_through_kernel_matches_plain_and_cpu(cuda):
         before = segment_sum.launches
         ent, rel = model.encode(graph)
         assert segment_sum.launches == before + 2
-        ref_ent, _ = model.encode(graph, seg_sum=segment_sum_reference)
+        ref_ent, _ = model.encode(graph, kernels=PLAIN)
     # real messages: float32 sums in another order, through BN and tanh
     tol = dict(rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(ent, ref_ent, **tol)
@@ -198,3 +203,122 @@ def test_kernel_train_step_matches_plain_step(cuda, loss_impl):
         # first Adam step: each element moves by lr * sign(g) unless g ~ 0
         agree = torch.isclose(uk, up, rtol=1e-3, atol=1e-7)
         assert float(agree.float().mean()) > 0.999, name
+
+
+# K7 / K8: edge cases (empty rows, a hub row, B = 1, d not a multiple of 32,
+# K7 columns over two blocks (wide_d), K8 above 48 KB of shared memory
+# (wide_d, layer2), and B > 32, where K8's d_a tasks of a full edge chunk
+# fill every warp before the d_msg tiles (many_bases).  Inputs
+# are multiples of 2**-4 below 1: every product and partial sum is exact in
+# float32, so kernel and plain version agree to the bit.
+BASIS_CASES = {
+    "empty_rows": ("empty", 37, 3), "hub_row": ("hub", 100, 30),
+    "one_basis": ("empty", 45, 1), "wide_d": ("wide", 600, 12),
+    "layer2": ("hub", 200, 30), "many_bases": ("hub", 40, 70)}
+
+
+def basis_case(name: str, seed: int):
+    kind, d, nb = BASIS_CASES[name]
+    counts = {"empty": case_counts()["empty_rows"][0],
+              "hub": case_counts()["hub_row"][0],
+              "wide": case_counts()["wide"][0]}[kind]
+    rng = np.random.default_rng(seed)
+    dyadic = lambda *s: (rng.integers(-15, 16, size=s) / 16).astype(np.float32)
+    _, dst, indptr = csr_case(counts, 1, seed)
+    e = len(dst)
+    return (dyadic(e, d), dyadic(e, nb), dst, indptr,
+            dyadic(len(counts), nb * d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BASIS_CASES))
+def test_basis_kernels_match_plain(cuda, case):
+    msg, a, dst, indptr, g = (torch.from_numpy(x).to(cuda)
+                              for x in basis_case(case, 5))
+    n_rows = indptr.shape[0] - 1
+    before = (basis_segment_sum.launches, basis_backward.launches)
+    got = basis_segment_sum(msg, a, dst, indptr, n_rows)
+    got_dm, got_da = basis_backward(g, msg, a, dst, indptr)
+    torch.cuda.synchronize()
+    assert (basis_segment_sum.launches, basis_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(
+        got, basis_segment_sum_reference(msg, a, dst, indptr, n_rows),
+        rtol=0.0, atol=0.0)
+    want_dm, want_da = basis_backward_reference(g, msg, a, dst, indptr)
+    torch.testing.assert_close(got_dm, want_dm, rtol=0.0, atol=0.0)
+    torch.testing.assert_close(got_da, want_da, rtol=0.0, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_basis_backward_refuses_a_row_beyond_its_shared_memory(cuda):
+    d, nb = 100, BASIS_BWD_MAX_SMEM // 400 + 1     # B*d*4 bytes > the limit
+    msg = torch.zeros(3, d, device=cuda)
+    a = torch.zeros(3, nb, device=cuda)
+    dst = torch.tensor([0, 0, 1], dtype=torch.int32, device=cuda)
+    indptr = torch.tensor([0, 2, 3], dtype=torch.int32, device=cuda)
+    g = torch.zeros(2, nb * d, device=cuda)
+    before = basis_backward.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        basis_backward(g, msg, a, dst, indptr)
+    assert basis_backward.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("neg_loss", ["bce", "self_adversarial"])
+def test_rgcn_kernel_step_matches_plain_step(cuda, neg_loss):
+    """One R-GCN + DistMult negative-sampling step with dropout through
+    K7/K8/K1, and the same step (same weights, negatives and dropout masks)
+    through the plain versions: loss, gradients and updates."""
+    import copy
+
+    from kgc_gcn_torch.config import dataset_preset
+    from kgc_gcn_torch.data.batching import make_banks
+    from kgc_gcn_torch.data.dataset import build_dataset
+    from kgc_gcn_torch.data.graph import build_graph
+    from kgc_gcn_torch.data.toy import toy_triples
+    from kgc_gcn_torch.models import build_model
+    from kgc_gcn_torch.train import optim
+    from kgc_gcn_torch.train.negative import NegativeSamplingTrainer
+
+    ds = build_dataset("toy", *toy_triples(n_ent=40, n_rel=5, n_train=300))
+    graph = build_graph(ds.train_triples, ds.num_entity,
+                        ds.num_relation).to(cuda)
+    banks = make_banks(ds, cuda)
+    cfg = dataset_preset("Toy", model="rgcn", decoder="distmult", num_bases=4,
+                         num_layers=2, gcn_in_dim=16, gcn_out_dim=32,
+                         batch_size=16, num_negatives=8, gcn_drop=0.2,
+                         train_mode="negative_sampling", neg_loss=neg_loss,
+                         seed=5)
+    model = build_model(cfg, ds.num_entity, ds.num_relation,
+                        ds.num_edge).to(cuda)
+    kernel = NegativeSamplingTrainer(cfg, model, graph, banks)
+    plain = NegativeSamplingTrainer(cfg, copy.deepcopy(model), graph, banks,
+                                    plain=True)
+    idx = torch.arange(16, device=cuda)
+    batch = kernel.batch(idx, torch.ones(16, device=cuda))
+    before = [p.detach().clone() for p in kernel.params]
+    out = {}
+    for name, t in (("kernel", kernel), ("plain", plain)):
+        t.generator.manual_seed(9)
+        launches = (basis_segment_sum.launches, basis_backward.launches,
+                    segment_sum.launches)
+        loss = t.loss(*batch)
+        grads = torch.autograd.grad(loss, t.params)
+        optim.step(t.params, list(grads), t.opt_state, cfg, 1e-3)
+        out[name] = (loss.detach(), grads, (
+            basis_segment_sum.launches - launches[0],
+            basis_backward.launches - launches[1],
+            segment_sum.launches - launches[2]))
+    assert out["kernel"][2] == (4, 4, 4)      # two layers x two halves
+    assert out["plain"][2] == (0, 0, 0)
+    # float32 sums in another order through one forward and backward pass
+    torch.testing.assert_close(out["kernel"][0], out["plain"][0], rtol=1e-5,
+                               atol=0.0)
+    for i, (gk, gp) in enumerate(zip(out["kernel"][1], out["plain"][1])):
+        torch.testing.assert_close(gk, gp, rtol=1e-4,
+                                   atol=1e-4 * float(gp.abs().max()))
+        uk = kernel.params[i].detach() - before[i]
+        up = plain.params[i].detach() - before[i]
+        agree = torch.isclose(uk, up, rtol=1e-3, atol=1e-7)
+        assert float(agree.float().mean()) > 0.999
