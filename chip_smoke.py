@@ -8,12 +8,13 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build: compile the port's CUDA kernels from kgc_gcn_torch/csrc;
   3. kernels: hold each kernel against its plain PyTorch version on the card
      at the shapes the training and serving paths give it, plus an edge case:
-     K1 (segment-sum) in dst, src and rel order, K2a / K2b (fused score +
-     BCE, forward and backward), K7 / K8 (basis R-GCN aggregation and its
-     backward; bit-equal on dyadic inputs, then real values);
+     K1 (segment-sum) in dst, src and rel order and at RGAT's widths 4 and
+     200, K2a / K2b (fused score + BCE, forward and backward), K7 / K8
+     (basis R-GCN aggregation and its backward; bit-equal on dyadic inputs,
+     then real values), K5 (segment-max);
   4. timing: each kernel, its plain version and the one-call library
      equivalent or yardstick, with CUDA events, beside the least time the
-     card needs (K1, K7, K8 also without the graph's padding edges);
+     card needs (K1, K5, K7, K8 also without the graph's padding edges);
   5. training: the reference model (MGCN + ConvE at full width, WN18RR
      preset and dropout, random weights from --seed) on a WN18RR-shaped
      synthetic corpus: timed steps with loss_impl fused and auto (steps/s,
@@ -30,9 +31,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      plain versions (same negatives and dropout masks), then one epoch
      through the CLI, which writes last.ckpt;
   8. R-GCN serving: that checkpoint through the CLI (--do_test,
-     --do_predict), and the kernel encode held against the plain encode.
+     --do_predict), and the kernel encode held against the plain encode;
+  9. RGAT training: bench.py's rgat_pallas configuration (RGAT + DistMult,
+     4 heads, 1-vs-all, WN18RR preset's lr and dropout, random weights from
+     --seed) on the WN18RR-shaped corpus of phase 5: timed steps (steps/s,
+     edges/s, launches per step K5 2 and K1 10, profile, peak memory), one
+     kernel step against the same step through the plain versions, then one
+     epoch through the CLI, which writes last.ckpt;
+ 10. RGAT serving: that checkpoint through the CLI (--do_test,
+     --do_predict), the kernel encode held against the plain encode, warm
+     encode and top-10 times.
 K1, K7 and K8 checks use dyadic inputs, whose float32 sums are exact in any
-order, so kernel and plain version must agree to the bit.
+order, so kernel and plain version must agree to the bit; K5 (segment-max,
+phase 3: the RGAT path's shape and edge cases) is exact on any input.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Nothing of JAX is imported.
 """
@@ -84,8 +95,17 @@ DEGENERATE = ("decoder.bn0.scale", "decoder.bn0.bias")
 # bases (d_msg) or the columns (d_a) in another order; the absolute part is
 # relative to the largest element
 BASIS_RTOL, BASIS_ATOL = 1e-5, 1e-5
-# R-GCN encode through K7 vs through the plain version, trained weights
-RGCN_ENCODE_TOL = 1e-5
+# R-GCN and RGAT encode through the kernels vs through the plain versions,
+# trained weights: float32 sums in another order
+ENCODE_TOL = 1e-5
+# RGAT's destination attention vectors: the destination term is the same for
+# every edge of a softmax segment, so their gradient is what the leaky ReLU's
+# kink leaves of per-segment sums that cancel, and it can be float noise on
+# both sides (at the WN18RR shape after 53 steps it stays below 2e-12 while
+# the step's largest gradient is ~6e-5).  Its absolute tolerance is relative
+# to the step's largest gradient, and its Adam update, which scales noise to
+# lr-sized steps, is checked finite only
+RGAT_DEGENERATE = ("att_dst",)
 # longest R-GCN CLI epoch the smoke runs at full size; above it the CLI
 # trains on fewer triples over the same entities and relations
 CLI_EPOCH_LIMIT_S = 180.0
@@ -142,6 +162,12 @@ def basis_bound(e: int, n_rows: int, d: int, nb: int, backward: bool):
                         2.0 * e * nb * d)
     return bound_of(4 * (n_rows * nb * d + 2 * e * d + 2 * e * nb + n_rows + 1),
                     4.0 * e * nb * d)
+
+
+def max_bound(e: int, h: int, n_rows: int):
+    """Segment-max: each logit, indptr entry and output element moved once;
+    one comparison per logit."""
+    return bound_of(4 * e * h + 4 * (n_rows + 1) + 4 * n_rows * h, e * h)
 
 
 def k2_bound(b: int, n: int, d: int, backward: bool):
@@ -325,12 +351,281 @@ def assert_topk_match(scores, ids, want_scores, want_ids, tol: float) -> None:
         raise AssertionError("top-k ids differ between kernel and plain encode")
 
 
+def check_cli_metrics(logged: dict, exact: dict, n_ent: int, what: str):
+    """The CLI logs its test metrics to 3 digits (a random model's MRR over
+    tens of thousands of entities prints as 0.000): they must be ``exact``,
+    an evaluation of the same checkpoint, rounded; and those must be
+    metrics."""
+    if not (1.0 <= exact["mr"] <= n_ent and 0.0 < exact["mrr"] <= 1.0
+            and all(0.0 <= v <= 1.0 for k, v in exact.items() if "hits" in k)
+            and all(abs(logged[k] - v) <= 5e-4 + 1e-9
+                    for k, v in exact.items())):
+        raise AssertionError(f"{what}: cli metrics {logged}, evaluate {exact}")
+
+
 def close_rel(got, want, rtol, atol_rel, what) -> float:
     """assert_close with the absolute part relative to max |want|; returns
     the max abs error."""
     atol = atol_rel * float(want.abs().max()) + 1e-30
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol, msg=what)
     return float((got - want).abs().max())
+
+
+class Launches:
+    """The launch counts of the kernel wrappers, in the order of NAMES."""
+
+    NAMES = ("K1", "K2a", "K2b", "K7", "K8", "K5")
+
+    def __init__(self, wrappers):
+        self.wrappers = wrappers
+
+    def zero(self) -> None:
+        for f in self.wrappers:
+            f.launches = 0
+
+    def read(self) -> tuple:
+        return tuple(f.launches for f in self.wrappers)
+
+    @classmethod
+    def show(cls, counts) -> str:
+        return ", ".join(f"{k} {c}" for k, c in zip(cls.NAMES, counts))
+
+
+def timed_steps(trainer, launches: Launches, per_step, what: str,
+                seed: int) -> dict:
+    """3 set-up steps of ``trainer``'s epoch, then TIMED_STEPS warm ones
+    (steps/s, edges/s, peak memory, mean loss), each of which must launch
+    ``per_step`` kernels; then a profile and the host phases of one step."""
+    from kgc_gcn_torch.train import optim
+    host_rng = np.random.default_rng(seed)
+    trainer.train_epoch(1, host_rng, max_steps=3)      # one-time set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.zero()
+    t0 = time.perf_counter()
+    loss = trainer.train_epoch(1, host_rng, max_steps=TIMED_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = launches.read()
+    peak = torch.cuda.max_memory_allocated()
+    want = tuple(TIMED_STEPS * c for c in per_step)
+    if got != want or not math.isfinite(loss):
+        raise AssertionError(f"{what}: launches {Launches.show(got)}; want "
+                             f"{Launches.show(want)}; loss {loss}")
+    sps = TIMED_STEPS / dt
+    b, device = trainer.cfg.batch_size, trainer.device
+    batch = trainer.batch(torch.arange(b, device=device),
+                          torch.ones(b, device=device))
+    lr = optim.epoch_lr(trainer.cfg, 1)
+    prof = log_profile(f"one {what} training step",
+                       lambda: trainer.train_step(lr, *batch), steps=3)
+    phases = phase_ms(trainer, batch, lr)
+    log(f"[train] {what} step phases (host ms, each ended by a sync): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
+    n_msgs = trainer.graph.num_messages
+    log(f"[train] {what}: {TIMED_STEPS} warm steps in {dt:.3f} s = "
+        f"{sps:.2f} steps/s, {sps * n_msgs:.4g} edges/s (2E+N = {n_msgs}); "
+        f"mean loss {loss:.6f}; launches per step "
+        + ", ".join(f"{k} {c}" for k, c in zip(Launches.NAMES, per_step) if c)
+        + f"; peak memory {peak} B; an epoch of {trainer.steps_per_epoch} "
+        f"steps ~ {trainer.steps_per_epoch / sps:.1f} s")
+    return {"steps_per_s": sps, "edges_per_s": sps * n_msgs,
+            "peak_bytes": peak, "loss": loss, **prof, "phases_ms": phases,
+            "launches_per_step": dict(zip(Launches.NAMES,
+                                          (c / TIMED_STEPS for c in got)))}
+
+
+def same_step(trainer, batch, seed: int, launches: Launches, per_step,
+              what: str, degenerate=(), cancelling=()) -> dict:
+    """One kernel step of ``trainer`` against the same step through the plain
+    versions, from its warm state (a copy of its model and Adam state), with
+    the same batch and dropout masks: the loss within STEP_LOSS_RTOL, every
+    gradient and update within STEP_RTOL and STEP_ATOL x max.  Leaves named
+    in ``degenerate`` are checked finite only; a leaf whose last name is in
+    ``cancelling`` has its gradient's absolute tolerance relative to the
+    step's largest gradient and its update checked finite only.  Returns the
+    largest errors."""
+    from kgc_gcn_torch.convert import jax_leaf_names
+    from kgc_gcn_torch.train import optim
+    cfg = trainer.cfg
+    plain = type(trainer)(cfg, copy.deepcopy(trainer.model), trainer.graph,
+                          trainer.banks, plain=True)
+    plain.opt_state = optim.AdamState(
+        trainer.opt_state.count, [m.clone() for m in trainer.opt_state.mu],
+        [v.clone() for v in trainer.opt_state.nu])
+    before = [p.detach().clone() for p in trainer.params]
+    lr = optim.epoch_lr(cfg, 1)
+    result = {}
+    for name, t in (("kernel", trainer), ("plain", plain)):
+        t.generator.manual_seed(seed)
+        launches.zero()
+        loss = t.loss(*batch)
+        grads = list(torch.autograd.grad(loss, t.params))
+        optim.step(t.params, grads, t.opt_state, cfg, lr)
+        result[name] = (loss.detach(), grads, launches.read())
+        del loss
+        torch.cuda.empty_cache()
+    if result["kernel"][2] != tuple(per_step) or any(result["plain"][2]):
+        raise AssertionError(f"{what} same-step launches {result['kernel'][2]}"
+                             f" / {result['plain'][2]}")
+    torch.testing.assert_close(result["kernel"][0], result["plain"][0],
+                               rtol=STEP_LOSS_RTOL, atol=0.0,
+                               msg=f"{what} step loss")
+    g_max = max(float(g.abs().max()) for g in result["plain"][1])
+    errs, notes = {"grad": 0.0, "update": 0.0}, []
+    for i, name in enumerate(jax_leaf_names(cfg)[0]):
+        gk, gp = result["kernel"][1][i], result["plain"][1][i]
+        uk = trainer.params[i].detach() - before[i]
+        up = plain.params[i].detach() - before[i]
+        if not (torch.isfinite(gk).all() and torch.isfinite(uk).all()):
+            raise AssertionError(f"{what} same step: non-finite {name}")
+        if name in degenerate:
+            continue
+        if name.rsplit(".", 1)[-1] in cancelling:
+            torch.testing.assert_close(gk, gp, rtol=STEP_RTOL,
+                                       atol=STEP_ATOL * g_max,
+                                       msg=f"{what} same step: grad {name}")
+            notes.append(f"{name}: max abs err "
+                         f"{float((gk - gp).abs().max()):.3g} of gradients up "
+                         f"to {float(gp.abs().max()):.3g} (atol {STEP_ATOL} x "
+                         f"the step's largest, {g_max:.3g})")
+            continue
+        errs["grad"] = max(errs["grad"], close_rel(
+            gk, gp, STEP_RTOL, STEP_ATOL, f"{what} same step: grad {name}"))
+        errs["update"] = max(errs["update"], close_rel(
+            uk, up, STEP_RTOL, STEP_ATOL, f"{what} same step: update {name}"))
+    if degenerate:
+        notes.append(f"{', '.join(degenerate)} checked finite only")
+    log(f"[train] {what} kernel step vs plain step (warm Adam, count "
+        f"{trainer.opt_state.count}, the same batch and dropout masks): loss "
+        f"{float(result['kernel'][0]):.8f} vs {float(result['plain'][0]):.8f}; "
+        f"max abs err grads {errs['grad']:.3g}, updates {errs['update']:.3g} "
+        f"(rtol {STEP_RTOL}, atol {STEP_ATOL} x max)"
+        + "".join(f"; {n}" for n in notes))
+    return errs
+
+
+def cli_epoch(argv, run_dir: str, launches: Launches, want, what: str):
+    """One training epoch through the CLI entry point, which writes
+    ``run_dir``; the launches from its start to its end (the training path's)
+    must equal ``want``.  Returns them and the epoch's metrics record."""
+    from kgc_gcn_torch import cli
+    torch.cuda.synchronize()
+    launches.zero()                                    # the path starts
+    t0 = time.perf_counter()
+    if cli.main(argv) != 0:
+        raise AssertionError(f"{what} failed")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = launches.read()                              # the path ends
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    ep = recs[-1]
+    if not (ep.get("epoch") == 1 and math.isfinite(ep["loss"])
+            and os.path.exists(os.path.join(run_dir, "last.ckpt"))
+            and 0.0 < ep["val"]["mrr"] <= 1.0):
+        raise AssertionError(f"{what}: {recs}")
+    if got != tuple(want):
+        raise AssertionError(f"{what}: launches {got}, want {tuple(want)}")
+    log(f"[train] {what}: {seconds:.2f} s with validation (epoch {ep['sec']} "
+        f"s); loss {ep['loss']}; Val {ep['val']}; launches "
+        f"{Launches.show(got)}; last.ckpt written")
+    return got, ep
+
+
+def cli_serve(serve_args, qfile: str, n_queries: int, entity2id,
+              launches: Launches, want, what: str):
+    """``--do_test``, then ``--do_predict`` of the ``n_queries`` lines of
+    ``qfile`` (top-10 each), through the CLI entry point; the launches of the
+    two (the serving path's) must equal ``want``.  Returns them and the test
+    metrics the CLI logged."""
+    from kgc_gcn_torch import cli
+    captured = _Capture()
+    logging.getLogger().addHandler(captured)
+    try:
+        launches.zero()                                # the path starts
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if cli.main(serve_args + ["--do_test"]) != 0:
+            raise AssertionError(f"{what} --do_test failed")
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            if cli.main(serve_args + ["--do_predict", "--predict_file", qfile,
+                                      "--top_k", "10"]) != 0:
+                raise AssertionError(f"{what} --do_predict failed")
+        torch.cuda.synchronize()
+        predict_s = time.perf_counter() - t0
+        got = launches.read()                          # the path ends
+    finally:
+        logging.getLogger().removeHandler(captured)
+    answers = [json.loads(x) for x in out.getvalue().splitlines()]
+    if len(answers) != n_queries or not all(
+            len(a["topk"]) == 10 and all(math.isfinite(t["score"])
+                                         and t["entity"] in entity2id
+                                         for t in a["topk"])
+            for a in answers):
+        raise AssertionError(f"{what} --do_predict: {len(answers)} answers")
+    if got != tuple(want):
+        raise AssertionError(f"{what}: launches {got}, want {tuple(want)}")
+    test_line = [m for m in captured.lines if "Test metrics" in m][-1]
+    metrics = {k: float(v) for k, v in (
+        kv.split(": ") for kv in test_line.split("metrics: ")[1].strip()
+        .split("; "))}
+    log(f"[serve] {what} cli --do_test {test_s:.2f} s {metrics}; --do_predict "
+        f"{n_queries} queries {predict_s:.2f} s (both load the corpus and build"
+        f" the graph); launches {Launches.show(got)}")
+    return got, metrics
+
+
+def served_encode(run_dir: str, ds, graph, banks, queries, logged: dict,
+                  what: str) -> dict:
+    """The checkpoint the CLI trained in ``run_dir``, served in process: the
+    test metrics the CLI logged against ``evaluate``, the kernel encode
+    against the plain encode (ENCODE_TOL) and the top-10 of ``queries``
+    from both, then warm encode and top-10 times."""
+    from kgc_gcn_torch.config import Config
+    from kgc_gcn_torch.models import build_model
+    from kgc_gcn_torch.ops.kernels import PLAIN
+    from kgc_gcn_torch.train.checkpoint import load_checkpoint
+    from kgc_gcn_torch.train.loop import evaluate
+    cfg = Config.from_json(os.path.join(run_dir, "params.json"))
+    model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge)
+    model.load_state_dict(load_checkpoint(run_dir, cfg)[0])
+    model = model.to(graph.device).eval()
+    check_cli_metrics(logged, evaluate(cfg, model, graph, banks, "test",
+                                       mark="Test"), ds.num_entity, what)
+    q = torch.as_tensor(queries, device=graph.device).long()
+    with torch.no_grad():
+        ent_k, rel_k = model.encode(graph)
+        ent_p, rel_p = model.encode(graph, kernels=PLAIN)
+        torch.testing.assert_close(ent_k, ent_p, rtol=ENCODE_TOL,
+                                   atol=ENCODE_TOL, msg=f"{what} encode")
+        torch.testing.assert_close(rel_k, rel_p, rtol=0.0, atol=0.0)
+        got = torch.topk(model.decode(ent_k, rel_k, q[:, 0], q[:, 1]), 10)
+        want = torch.topk(model.decode(ent_p, rel_p, q[:, 0], q[:, 1]), 10)
+        assert_topk_match(got.values, got.indices, want.values, want.indices,
+                          tol=1e-4)
+        encode = lambda: model.encode(graph)
+        top_k = lambda: torch.topk(model.decode(ent_k, rel_k, q[:, 0],
+                                                q[:, 1]), 10)
+        dev = time_in_turns({"encode": encode, "top_k": top_k}, n=10,
+                            warmup=1, lead_cycles=10_000_000)
+        rec = {"encode_max_abs_err": float((ent_k - ent_p).abs().max()),
+               "encode_host_ms": host_ms(encode, 5),
+               "encode_device_ms": dev["encode"],
+               "top_k_host_ms": host_ms(top_k, 10),
+               "top_k_device_ms": dev["top_k"]}
+        log(f"[serve] {what} kernel encode vs plain encode: all_ent "
+            f"max_abs_err {rec['encode_max_abs_err']:.3g} (tol {ENCODE_TOL}); "
+            f"top-10 of {q.shape[0]} queries agree; warm encode "
+            f"{rec['encode_host_ms']:.3f} ms host, {dev['encode']:.3f} ms "
+            f"device; top-10 of a {q.shape[0]}-query batch "
+            f"{rec['top_k_host_ms']:.3f} ms host, {dev['top_k']:.3f} ms device")
+        log_profile(f"{what} encode", encode)
+    return rec
 
 
 # ------------------------------------------------------------------- phases
@@ -344,9 +639,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
-    from kgc_gcn_torch import cli
     from kgc_gcn_torch.config import Config, dataset_preset
-    from kgc_gcn_torch.convert import jax_leaf_names
     from kgc_gcn_torch.data.batching import make_banks
     from kgc_gcn_torch.data.dataset import load_dataset
     from kgc_gcn_torch.data.graph import build_graph
@@ -357,9 +650,9 @@ def main() -> int:
     from kgc_gcn_torch.ops.fused_loss import (
         dense_grads, dense_grads_reference, dense_loss, dense_loss_reference)
     from kgc_gcn_torch.ops.kernels import PLAIN
+    from kgc_gcn_torch.ops.segment_max import segment_max, segment_max_reference
     from kgc_gcn_torch.ops.segment_sum import segment_sum, segment_sum_reference
     from kgc_gcn_torch.serve import Predictor, serve_file, serve_stream
-    from kgc_gcn_torch.train import optim
     from kgc_gcn_torch.train.checkpoint import load_checkpoint
     from kgc_gcn_torch.train.loop import Trainer, evaluate
     from kgc_gcn_torch.train.negative import NegativeSamplingTrainer
@@ -373,15 +666,8 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; count {torch.cuda.device_count()}")
     log(smi)
-    counters = (segment_sum, dense_loss, dense_grads, basis_segment_sum,
-                basis_backward)       # K1, K2a, K2b, K7, K8
-
-    def zero_counts():
-        for f in counters:
-            f.launches = 0
-
-    def counts():
-        return tuple(f.launches for f in counters)
+    launches = Launches((segment_sum, dense_loss, dense_grads,
+                         basis_segment_sum, basis_backward, segment_max))
 
     # 2. build ----------------------------------------------------------------
     kernels = load_kernels(force_build=True)
@@ -427,6 +713,15 @@ def main() -> int:
                                        torch.bfloat16, gen, "src"),
         "fb15k237_rel_bf16": half_case(fb_graph.outb, n_fb, d_in,
                                        torch.bfloat16, gen, "rel"),
+        # RGAT's widths: D 4 (the softmax denominator, and the per-edge
+        # gathers' backward), D 200 (the aggregation; src order: the edge
+        # message's d_h)
+        "wn18rr_d4_f32": half_case(graph.inb, ds.num_entity, 4, torch.float32,
+                                   gen),
+        "wn18rr_d200_f32": half_case(graph.inb, ds.num_entity, 200,
+                                     torch.float32, gen),
+        "wn18rr_src_d200_f32": half_case(graph.inb, ds.num_entity, 200,
+                                         torch.float32, gen, "src"),
     }
     errs = {}
     for name, (msg, dst, indptr, n_rows) in cases.items():
@@ -518,6 +813,44 @@ def main() -> int:
             del got, want, got_b, want_b, msg, a, g
     torch.cuda.empty_cache()
 
+    # K5 at the RGAT path's shape (the WN18RR-shaped in-half: E_pad edges,
+    # H 4, normal logits with the zero-norm padding edges at -inf, as the
+    # softmax masks them) and edge cases on the hub counts above (empty
+    # rows 0, 500 and 1000, a 5,000-edge hub row 123): row 1 only -inf,
+    # about a fifth of the other logits -inf, H 1, 5 and 40.  A max is exact
+    # in any order, so kernel and plain version agree to the bit.
+    n_heads = dataset_preset("WN18RR", model="rgat", num_heads=4).num_heads
+    path_logits = torch.randn(graph.inb.dst.shape[0], n_heads, generator=gen)
+    path_logits[graph.inb.norm == 0] = -math.inf
+
+    def edge_logits(h):
+        lg = torch.randn(hub_dst.shape[0], h, generator=gen)
+        lg[torch.rand(hub_dst.shape[0], generator=gen) < 0.2] = -math.inf
+        lg[int(hub_ptr[1]):int(hub_ptr[2])] = -math.inf
+        return lg
+
+    max_cases = {"wn18rr_h4": (path_logits, graph.inb.dst, graph.inb.indptr,
+                               ds.num_entity)}
+    for h in (1, 5, 40):
+        max_cases[f"edge_h{h}"] = (edge_logits(h), hub_dst, hub_ptr,
+                                   hub.shape[0])
+    max_cases = {k: (lg.cuda(), dd.cuda(), ip.cuda(), n)
+                 for k, (lg, dd, ip, n) in max_cases.items()}
+    max_errs = {}
+    for name, (lg, dd, ip, n_rows) in max_cases.items():
+        got = segment_max(lg, dd, ip, n_rows)
+        want = segment_max_reference(lg, dd, ip, n_rows)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0.0, atol=0.0,
+                                   msg=f"K5 {name}")
+        finite = torch.isfinite(want)
+        max_errs[name] = float(torch.where(finite, got - want, 0.0).abs().max())
+        log(f"[K5 check] {name}: E={lg.shape[0]} H={lg.shape[1]} rows={n_rows}"
+            f" (empty rows {int((ip[1:] == ip[:-1]).sum())}, rows of only -inf "
+            f"{int(torch.isneginf(want).all(1).sum())}): max_abs_err "
+            f"{max_errs[name]:.3g} (tol 0: bit-equal, -inf where the plain "
+            "version has it)")
+
     # 4. timing -----------------------------------------------------------------
     # The graph pads each half with zero-norm edges, all in row N-1 of the
     # dst order (and in row 0 of the src order): one serial hub row.
@@ -528,7 +861,10 @@ def main() -> int:
                          ("fb15k237_bf16", fb_graph.inb.e_real),
                          ("wn18rr_src_f32", None), ("wn18rr_rel_f32", None),
                          ("fb15k237_src_bf16", None),
-                         ("fb15k237_rel_bf16", None)):
+                         ("fb15k237_rel_bf16", None),
+                         ("wn18rr_d4_f32", graph.inb.e_real),
+                         ("wn18rr_d200_f32", graph.inb.e_real),
+                         ("wn18rr_src_d200_f32", None)):
         msg, dst, indptr, n_rows = cases[name]
         dst_long, msg_f32 = dst.long(), msg.float()
         lib_out = torch.zeros(n_rows, msg.shape[1], device=device)
@@ -569,6 +905,41 @@ def main() -> int:
         log(f"[few-segment sum] {name}: {n_seg} x {half.rel.shape[0]} x {d_in}: "
             f"one-hot product {t['onehot']:.4f} ms, index_add_ "
             f"{t['index_add']:.4f} ms")
+
+    # K5 at the RGAT path's shape; the library call is one
+    # torch.segment_reduce over the CSR lengths where it gives the plain
+    # version's result (-inf on empty rows), else scatter_reduce_("amax")
+    lg, dd, ip, n_rows = max_cases["wn18rr_h4"]
+    lengths = (ip[1:] - ip[:-1]).long()
+    seg_reduce = lambda: torch.segment_reduce(lg, "max", lengths=lengths,
+                                              axis=0, unsafe=True)
+    want = segment_max_reference(lg, dd, ip, n_rows)
+    if torch.equal(seg_reduce(), want):
+        library, library_name = seg_reduce, "torch.segment_reduce max"
+    else:
+        idx = dd.long()[:, None].expand(-1, lg.shape[1])
+        library, library_name = (lambda: torch.full_like(want, -math.inf)
+                                 .scatter_reduce_(0, idx, lg, "amax"),
+                                 "scatter_reduce_ amax")
+    cut = ip.clone()
+    cut[-1] = graph.inb.e_real
+    t = time_in_turns({
+        "ms": lambda: segment_max(lg, dd, ip, n_rows),
+        "plain_ms": lambda: segment_max_reference(lg, dd, ip, n_rows),
+        "library_ms": library,
+        "ms_without_padding": lambda: segment_max(lg, dd, cut, n_rows),
+    })
+    t["bound_ms"], t["bound_by"] = max_bound(lg.shape[0], lg.shape[1], n_rows)
+    t["library"] = library_name
+    timings["k5_wn18rr_h4"] = t
+    log(f"[K5 time] wn18rr_h4 (E {lg.shape[0]}, H {lg.shape[1]}, rows "
+        f"{n_rows}): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+        f"{library_name} {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} "
+        f"ms ({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of bound; "
+        f"without the {lg.shape[0] - graph.inb.e_real} padding edges "
+        f"{t['ms_without_padding']:.4f} ms")
+    log_profile("K5 at the RGAT path's shape",
+                lambda: segment_max(lg, dd, ip, n_rows), steps=5)
 
     for name in ("main", "edge"):
         (h, ent, bias, w), _ = k2_cases[name]
@@ -655,10 +1026,8 @@ def main() -> int:
     # 5. training ---------------------------------------------------------------
     graph = graph.to(device)
     banks = make_banks(ds, device)
-    n_msgs = graph.num_messages
     steps_per_epoch = -(-banks["train"].n_queries // cfg0.batch_size)
     train = {}
-    model = None
     for impl in ("fused", "auto"):
         cfg = dataset_preset("WN18RR", seed=args.seed, loss_impl=impl)
         model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
@@ -666,129 +1035,38 @@ def main() -> int:
                             generator=torch.Generator().manual_seed(args.seed)
                             ).to(device)
         trainer = Trainer(cfg, model, graph, banks)
-        host_rng = np.random.default_rng(args.seed)
-        trainer.train_epoch(1, host_rng, max_steps=3)      # one-time set-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        t0 = time.perf_counter()
-        loss = trainer.train_epoch(1, host_rng, max_steps=TIMED_STEPS)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        k1, k2a, k2b, k7, k8 = counts()
-        peak = torch.cuda.max_memory_allocated()
-        want = (4 * TIMED_STEPS, TIMED_STEPS, TIMED_STEPS, 0, 0) \
-            if impl == "fused" else (4 * TIMED_STEPS, 0, 0, 0, 0)
-        if counts() != want or not math.isfinite(loss):
-            raise AssertionError(f"{impl}: launches (K1, K2a, K2b, K7, K8) "
-                                 f"{counts()}, want {want}; loss {loss}")
-        sps = TIMED_STEPS / dt
-        bank = banks["train"]
-        idx = torch.arange(cfg.batch_size, device=device)
-        batch = (bank.queries[idx], bank.label_idx[idx],
-                 torch.ones(cfg.batch_size, device=device))
-        lr = optim.epoch_lr(cfg, 1)
-        prof = log_profile(f"one {impl} training step",
-                           lambda: trainer.train_step(lr, *batch), steps=3)
-        phases = phase_ms(trainer, batch, lr)
-        log(f"[train] {impl} step phases (host ms, each ended by a sync): "
-            + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
-        prof["phases_ms"] = phases
-        train[impl] = {"steps_per_s": sps, "edges_per_s": sps * n_msgs,
-                       "peak_bytes": peak, "loss": loss, **prof,
-                       "launches_per_step": {"K1": k1 / TIMED_STEPS,
-                                             "K2a": k2a / TIMED_STEPS,
-                                             "K2b": k2b / TIMED_STEPS}}
-        log(f"[train] loss_impl={impl} ({trainer.loss_impl}): "
-            f"{TIMED_STEPS} warm steps in {dt:.3f} s = {sps:.2f} steps/s, "
-            f"{sps * n_msgs:.4g} edges/s (2E+N = {n_msgs}); mean loss "
-            f"{loss:.6f}; launches per step K1 {k1 / TIMED_STEPS:g}, K2a "
-            f"{k2a / TIMED_STEPS:g}, K2b {k2b / TIMED_STEPS:g}; peak memory "
-            f"{peak} B; an epoch of {steps_per_epoch} steps ~ "
-            f"{steps_per_epoch / sps:.1f} s")
-        if impl == "fused":
-            fused_model, fused_trainer = model, trainer
+        fused = int(impl == "fused")
+        train[impl] = timed_steps(trainer, launches, (4, fused, fused, 0, 0, 0),
+                                  f"loss_impl={impl} ({trainer.loss_impl})",
+                                  args.seed)
+        if fused:
+            fused_trainer = trainer
 
     # one kernel step against the same step through the plain versions, from
     # the warm fused state, with one dropout mask
-    cfg = fused_trainer.cfg
-    plain = Trainer(cfg, copy.deepcopy(fused_model), graph, banks, plain=True)
-    plain.opt_state = optim.AdamState(
-        fused_trainer.opt_state.count,
-        [m.clone() for m in fused_trainer.opt_state.mu],
-        [v.clone() for v in fused_trainer.opt_state.nu])
     bank = banks["train"]
-    idx = torch.randperm(bank.n_queries, generator=gen)[:cfg.batch_size].to(device)
-    batch = (bank.queries[idx], bank.label_idx[idx],
-             torch.ones(cfg.batch_size, device=device))
-    before = [p.detach().clone() for p in fused_trainer.params]
-    result = {}
-    for name, t in (("kernel", fused_trainer), ("plain", plain)):
-        t.generator.manual_seed(args.seed + 7)
-        zero_counts()
-        loss = t.loss(*batch)
-        grads = list(torch.autograd.grad(loss, t.params))
-        optim.step(t.params, grads, t.opt_state, cfg, optim.epoch_lr(cfg, 1))
-        result[name] = (loss.detach(), grads, counts())
-    if (result["kernel"][2] != (4, 1, 1, 0, 0)
-            or result["plain"][2] != (0, 0, 0, 0, 0)):
-        raise AssertionError(f"same-step launches {result['kernel'][2]} / "
-                             f"{result['plain'][2]}")
-    torch.testing.assert_close(result["kernel"][0], result["plain"][0],
-                               rtol=STEP_LOSS_RTOL, atol=0.0, msg="step loss")
-    step_err = {"grad": 0.0, "update": 0.0}
-    for i, name in enumerate(jax_leaf_names(cfg)[0]):
-        gk, gp = result["kernel"][1][i], result["plain"][1][i]
-        uk = fused_trainer.params[i].detach() - before[i]
-        up = plain.params[i].detach() - before[i]
-        if not (torch.isfinite(gk).all() and torch.isfinite(uk).all()):
-            raise AssertionError(f"same step: non-finite {name}")
-        if name in DEGENERATE:
-            continue
-        step_err["grad"] = max(step_err["grad"], close_rel(
-            gk, gp, STEP_RTOL, STEP_ATOL, f"same step: grad {name}"))
-        step_err["update"] = max(step_err["update"], close_rel(
-            uk, up, STEP_RTOL, STEP_ATOL, f"same step: update {name}"))
-    log(f"[train] kernel step vs plain step (warm Adam, count "
-        f"{fused_trainer.opt_state.count}): loss {float(result['kernel'][0]):.8f}"
-        f" vs {float(result['plain'][0]):.8f}; max abs err grads "
-        f"{step_err['grad']:.3g}, updates {step_err['update']:.3g} (rtol "
-        f"{STEP_RTOL}, atol {STEP_ATOL} x max; {', '.join(DEGENERATE)} "
-        "checked finite only)")
-    del plain, fused_model, fused_trainer, model, trainer
+    idx = torch.randperm(bank.n_queries, generator=gen)[:cfg0.batch_size]
+    same_step(fused_trainer,
+              fused_trainer.batch(idx.to(device),
+                                  torch.ones(cfg0.batch_size, device=device)),
+              args.seed + 7, launches, (4, 1, 1, 0, 0, 0), "mgcn",
+              degenerate=DEGENERATE)
+    del fused_trainer, trainer, model
 
     # one epoch through the CLI entry point (the training main path)
     exp_dir = os.path.join(work.name, "experiments")
+    run_dir = os.path.join(exp_dir, "SYN")
     argv = ["--dataset", "SYN", "--data_dir", corpus_root, "--experiments_dir",
             exp_dir, "--do_train", "--loss_impl", "fused", "--max_epoch", "1",
             "--eval_every", "1", "--seed", str(args.seed)]
     for flag in ("learning_rate", "gcn_drop", "feat_drop", "hidden_drop"):
         argv += [f"--{flag}", str(getattr(cfg0, flag))]   # the WN18RR preset's
-    torch.cuda.synchronize()
-    zero_counts()                                      # the training path starts
-    t0 = time.perf_counter()
-    if cli.main(argv) != 0:
-        raise AssertionError("cli --do_train failed")
-    torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
-    train_launches = counts()                          # the training path ends
-    run_dir = os.path.join(exp_dir, "SYN")
-    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
-        recs = [json.loads(line) for line in f]
-    ep = recs[-1]
-    if not (ep.get("epoch") == 1 and math.isfinite(ep["loss"])
-            and os.path.exists(os.path.join(run_dir, "last.ckpt"))
-            and 0.0 < ep["val"]["mrr"] <= 1.0):
-        raise AssertionError(f"cli epoch: {recs}")
-    k1, k2a, k2b, k7, k8 = train_launches
-    if not (k2a == k2b == steps_per_epoch and k7 == k8 == 0
-            and k1 == 4 * steps_per_epoch + 2):
-        raise AssertionError(f"cli epoch launches {train_launches} for "
-                             f"{steps_per_epoch} steps")
-    log(f"[train] cli --do_train --loss_impl fused --max_epoch 1: "
-        f"{steps_per_epoch} steps + validation in {cli_s:.2f} s (epoch "
-        f"{ep['sec']} s); loss {ep['loss']}; Val {ep['val']}; launches K1 "
-        f"{k1}, K2a {k2a}, K2b {k2b}; last.ckpt written")
+    train_launches, ep = cli_epoch(
+        argv, run_dir, launches,
+        (4 * steps_per_epoch + 2, steps_per_epoch, steps_per_epoch, 0, 0, 0),
+        f"cli --do_train --loss_impl fused --max_epoch 1 ({steps_per_epoch} "
+        "steps)")
+    train["fused"]["cli_epoch_s"] = ep["sec"]
 
     # 6. serving ----------------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -812,7 +1090,7 @@ def main() -> int:
     with open(qfile, "w") as f:
         f.write("".join(f"{id2ent[s]}\t{id2rel[r]}\n" for s, r, _ in test))
 
-    zero_counts()                                      # the serving path starts
+    launches.zero()                                    # the serving path starts
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pred = Predictor(cfg, model, graph, ds.entity2id, ds.relation2id)
@@ -831,7 +1109,7 @@ def main() -> int:
     metrics = evaluate(cfg, model, graph, banks, "test", mark="Test")
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
-    serve_launches = counts()                          # the serving path ends
+    serve_launches = launches.read()                   # the serving path ends
     peak = torch.cuda.max_memory_allocated()
 
     records = [json.loads(x) for x in lines] + [json.loads(x) for x in stream]
@@ -843,7 +1121,7 @@ def main() -> int:
                 math.isfinite(t["score"]) and t["entity"] in ds.entity2id
                 for t in rec["topk"]):
             raise AssertionError(f"bad answer: {rec}")
-    if not (serve_launches == (4, 0, 0, 0, 0)
+    if not (serve_launches == (4, 0, 0, 0, 0, 0)
             and 1.0 <= metrics["mr"] <= ds.num_entity
             and 0.0 < metrics["mrr"] <= 1.0
             and all(0.0 <= metrics[k] <= 1.0 for k in metrics if "hits" in k)):
@@ -852,7 +1130,7 @@ def main() -> int:
         f"serve_file 512 queries in 4 batches: {serve_ms / 4:.2f} ms/batch; "
         f"serve_stream 3 lines; eval {2 * len(ds.test_triples)} queries "
         f"{eval_s:.3f} s {metrics}; launches on the path (K1, K2a, K2b, K7, "
-        "K8) "
+        "K8, K5) "
         f"{serve_launches}; peak memory {peak} B")
 
     # the same encode through the plain segment-sum on the card
@@ -888,7 +1166,7 @@ def main() -> int:
             f"serve_file {serve_warm:.3f} ms/batch; eval {eval_warm:.3f} s")
         log_profile("encode", encode)
         log_profile("top-10 batch", top_k)
-    del pred, model, ref_ent, ref_rel, graph, banks
+    del pred, model, ref_ent, ref_rel
     torch.cuda.empty_cache()
 
     # 7. R-GCN training (BASELINE config 3) -------------------------------------
@@ -914,92 +1192,19 @@ def main() -> int:
         f"gcn_drop {cfg3.gcn_drop}, {cfg3.compute_dtype}, moments "
         f"{cfg3.moment_dtype}; {sum(p.numel() for p in model3.parameters())} "
         "parameters")
-    host_rng = np.random.default_rng(args.seed)
-    trainer3.train_epoch(1, host_rng, max_steps=3)      # one-time set-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    t0 = time.perf_counter()
-    loss = trainer3.train_epoch(1, host_rng, max_steps=TIMED_STEPS)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    got_counts = counts()
-    peak = torch.cuda.max_memory_allocated()
-    want = (2 * TIMED_STEPS, 0, 0, 2 * TIMED_STEPS, 2 * TIMED_STEPS)
-    if got_counts != want or not math.isfinite(loss):
-        raise AssertionError(f"rgcn: launches (K1, K2a, K2b, K7, K8) "
-                             f"{got_counts}, want {want}; loss {loss}")
-    sps = TIMED_STEPS / dt
-    n_msgs3 = graph3.num_messages
-    lr3 = optim.epoch_lr(cfg3, 1)
-    batch3 = trainer3.batch(torch.arange(cfg3.batch_size, device=device),
-                            torch.ones(cfg3.batch_size, device=device))
-    prof = log_profile("one rgcn training step",
-                       lambda: trainer3.train_step(lr3, *batch3), steps=3)
-    phases = phase_ms(trainer3, batch3, lr3)
-    log(f"[train] rgcn step phases (host ms, each ended by a sync): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
-    steps3 = trainer3.steps_per_epoch
-    train["rgcn"] = {"steps_per_s": sps, "edges_per_s": sps * n_msgs3,
-                     "peak_bytes": peak, "loss": loss, **prof,
-                     "phases_ms": phases,
-                     "launches_per_step": dict(zip(
-                         ("K1", "K2a", "K2b", "K7", "K8"),
-                         (c / TIMED_STEPS for c in got_counts)))}
-    log(f"[train] rgcn + distmult, negative sampling: {TIMED_STEPS} warm steps "
-        f"in {dt:.3f} s = {sps:.2f} steps/s, {sps * n_msgs3:.4g} edges/s "
-        f"(2E+N = {n_msgs3}); mean loss {loss:.6f}; launches per step K7 "
-        f"{got_counts[3] / TIMED_STEPS:g}, K8 {got_counts[4] / TIMED_STEPS:g}, "
-        f"K1 {got_counts[0] / TIMED_STEPS:g}; peak memory {peak} B; an epoch "
-        f"of {steps3} steps ~ {steps3 / sps:.1f} s")
+    train["rgcn"] = timed_steps(trainer3, launches, (2, 0, 0, 2, 2, 0),
+                                "rgcn + distmult, negative sampling",
+                                args.seed)
 
     # one kernel step against the same step through the plain versions, from
     # the warm state, with the same negatives and dropout masks
-    plain3 = NegativeSamplingTrainer(cfg3, copy.deepcopy(model3), graph3,
-                                     banks3, plain=True)
-    plain3.opt_state = optim.AdamState(
-        trainer3.opt_state.count,
-        [m.clone() for m in trainer3.opt_state.mu],
-        [v.clone() for v in trainer3.opt_state.nu])
     idx = torch.randperm(trainer3.n_train, generator=gen)[:cfg3.batch_size]
-    batch = trainer3.batch(idx.to(device),
-                           torch.ones(cfg3.batch_size, device=device))
-    before = [p.detach().clone() for p in trainer3.params]
-    result = {}
-    for name, t in (("kernel", trainer3), ("plain", plain3)):
-        t.generator.manual_seed(args.seed + 7)
-        zero_counts()
-        loss = t.loss(*batch)
-        grads = list(torch.autograd.grad(loss, t.params))
-        optim.step(t.params, grads, t.opt_state, cfg3, lr3)
-        result[name] = (loss.detach(), grads, counts())
-        del loss
-        torch.cuda.empty_cache()
-    if (result["kernel"][2] != (2, 0, 0, 2, 2)
-            or result["plain"][2] != (0, 0, 0, 0, 0)):
-        raise AssertionError(f"rgcn same-step launches {result['kernel'][2]} "
-                             f"/ {result['plain'][2]}")
-    torch.testing.assert_close(result["kernel"][0], result["plain"][0],
-                               rtol=STEP_LOSS_RTOL, atol=0.0,
-                               msg="rgcn step loss")
-    step_err3 = {"grad": 0.0, "update": 0.0}
-    for i, name in enumerate(jax_leaf_names(cfg3)[0]):
-        gk, gp = result["kernel"][1][i], result["plain"][1][i]
-        uk = trainer3.params[i].detach() - before[i]
-        up = plain3.params[i].detach() - before[i]
-        if not (torch.isfinite(gk).all() and torch.isfinite(uk).all()):
-            raise AssertionError(f"rgcn same step: non-finite {name}")
-        step_err3["grad"] = max(step_err3["grad"], close_rel(
-            gk, gp, STEP_RTOL, STEP_ATOL, f"rgcn same step: grad {name}"))
-        step_err3["update"] = max(step_err3["update"], close_rel(
-            uk, up, STEP_RTOL, STEP_ATOL, f"rgcn same step: update {name}"))
-    log(f"[train] rgcn kernel step vs plain step (warm Adam, count "
-        f"{trainer3.opt_state.count}, same negatives and dropout masks): loss "
-        f"{float(result['kernel'][0]):.8f} vs {float(result['plain'][0]):.8f}; "
-        f"max abs err grads {step_err3['grad']:.3g}, updates "
-        f"{step_err3['update']:.3g} (rtol {STEP_RTOL}, atol {STEP_ATOL} x max)")
-    est_epoch_s = steps3 / sps
-    del plain3, result, before, trainer3, model3, batch, batch3, grads
+    same_step(trainer3,
+              trainer3.batch(idx.to(device),
+                             torch.ones(cfg3.batch_size, device=device)),
+              args.seed + 7, launches, (2, 0, 0, 2, 2, 0), "rgcn")
+    est_epoch_s = trainer3.steps_per_epoch / train["rgcn"]["steps_per_s"]
+    del trainer3, model3
     torch.cuda.empty_cache()
 
     # one epoch through the CLI entry point (the R-GCN training main path);
@@ -1015,6 +1220,7 @@ def main() -> int:
         log(f"[train] rgcn CLI epoch cut: {est_epoch_s:.1f} s estimated at "
             f"full size > {CLI_EPOCH_LIMIT_S} s; {n_cut} train triples")
     exp3 = os.path.join(work.name, "experiments_rgcn")
+    run3 = os.path.join(exp3, "SYN3")
     # the dataset is not named FB15k-237, so the parser's defaults apply
     # (eval_every 1) and the FB15k-237 preset's lr and dropout are passed
     argv3 = ["--dataset", "SYN3", "--data_dir", cli_root,
@@ -1024,33 +1230,14 @@ def main() -> int:
              "negative_sampling", "--compute_dtype", "float32",
              "--moment_dtype", "float32", "--learning_rate",
              str(cfg3.learning_rate), "--gcn_drop", str(cfg3.gcn_drop)]
-    torch.cuda.synchronize()
-    zero_counts()                                  # the R-GCN training path starts
-    t0 = time.perf_counter()
-    if cli.main(argv3) != 0:
-        raise AssertionError("cli rgcn --do_train failed")
-    torch.cuda.synchronize()
-    cli3_s = time.perf_counter() - t0
-    rgcn_train_launches = counts()                 # the R-GCN training path ends
-    run3 = os.path.join(exp3, "SYN3")
-    with open(os.path.join(run3, "metrics.jsonl")) as f:
-        recs = [json.loads(line) for line in f]
-    ep = recs[-1]
-    if not (ep.get("epoch") == 1 and math.isfinite(ep["loss"])
-            and os.path.exists(os.path.join(run3, "last.ckpt"))
-            and 0.0 < ep["val"]["mrr"] <= 1.0):
-        raise AssertionError(f"cli rgcn epoch: {recs}")
     cli_steps = -(-2 * ds_cli.num_edge // cfg3.batch_size)
-    if rgcn_train_launches != (2 * cli_steps, 0, 0, 2 * cli_steps + 2,
-                               2 * cli_steps):
-        raise AssertionError(f"cli rgcn launches {rgcn_train_launches} for "
-                             f"{cli_steps} steps")
+    rgcn_train_launches, ep = cli_epoch(
+        argv3, run3, launches,
+        (2 * cli_steps, 0, 0, 2 * cli_steps + 2, 2 * cli_steps, 0),
+        f"cli --model rgcn --decoder distmult --num_bases 30 --train_mode "
+        f"negative_sampling --max_epoch 1 ({cli_steps} steps, "
+        f"{ds_cli.num_edge} train triples)")
     train["rgcn"]["cli_epoch_s"] = ep["sec"]
-    log(f"[train] cli --model rgcn --decoder distmult --num_bases 30 "
-        f"--train_mode negative_sampling --max_epoch 1: {cli_steps} steps "
-        f"({ds_cli.num_edge} train triples) + validation in {cli3_s:.2f} s "
-        f"(epoch {ep['sec']} s); loss {ep['loss']}; Val {ep['val']}; launches "
-        f"(K1, K2a, K2b, K7, K8) {rgcn_train_launches}; last.ckpt written")
 
     # 8. R-GCN serving: the checkpoint through the CLI ----------------------------
     id2ent = {i: e for e, i in ds_cli.entity2id.items()}
@@ -1062,81 +1249,82 @@ def main() -> int:
     serve_base = ["--dataset", "SYN3", "--data_dir", cli_root,
                   "--restore_dir", run3, "--experiments_dir",
                   os.path.join(work.name, "serve_rgcn")]
-    captured = _Capture()
-    logging.getLogger().addHandler(captured)
-    zero_counts()                                  # the R-GCN serving path starts
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    if cli.main(serve_base + ["--do_test"]) != 0:
-        raise AssertionError("cli rgcn --do_test failed")
-    torch.cuda.synchronize()
-    test_s = time.perf_counter() - t0
-    out = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        if cli.main(serve_base + ["--do_predict", "--predict_file", qfile3,
-                                  "--top_k", "10"]) != 0:
-            raise AssertionError("cli rgcn --do_predict failed")
-    torch.cuda.synchronize()
-    predict_s = time.perf_counter() - t0
-    rgcn_serve_launches = counts()                 # the R-GCN serving path ends
-    logging.getLogger().removeHandler(captured)
-    answers = [json.loads(x) for x in out.getvalue().splitlines()]
-    if len(answers) != 512 or not all(
-            len(a_["topk"]) == 10 and all(math.isfinite(t_["score"])
-                                          and t_["entity"] in ds_cli.entity2id
-                                          for t_ in a_["topk"])
-            for a_ in answers):
-        raise AssertionError(f"cli rgcn --do_predict: {len(answers)} answers")
-    test_line = [m for m in captured.lines if "Test metrics" in m][-1]
-    metrics3 = {k: float(v) for k, v in (
-        kv.split(": ") for kv in test_line.split("metrics: ")[1].strip()
-        .split("; "))}
-    if not (rgcn_serve_launches == (0, 0, 0, 4, 0)
-            and 1.0 <= metrics3["mr"] <= ds_cli.num_entity
-            and 0.0 < metrics3["mrr"] <= 1.0):
-        raise AssertionError(f"rgcn serving: launches {rgcn_serve_launches}, "
-                             f"metrics {metrics3}")
-    log(f"[serve] rgcn cli --do_test {test_s:.2f} s {metrics3}; --do_predict "
-        f"512 queries {predict_s:.2f} s (both load the corpus and build the "
-        f"graph); launches (K1, K2a, K2b, K7, K8) {rgcn_serve_launches}")
+    rgcn_serve_launches, metrics3 = cli_serve(
+        serve_base, qfile3, len(test3), ds_cli.entity2id, launches,
+        (0, 0, 0, 4, 0, 0), "rgcn")
+    if cli_root != fb_root:
+        graph3 = build_graph(ds_cli.train_triples, ds_cli.num_entity,
+                             ds_cli.num_relation).to(device)
+        banks3 = make_banks(ds_cli, device)
+    served_encode(run3, ds_cli, graph3, banks3, test3[:128], metrics3, "rgcn")
+    del graph3, banks3
+    torch.cuda.empty_cache()
 
-    # the served checkpoint: kernel encode vs plain encode, warm timings
-    cfg_s = Config.from_json(os.path.join(run3, "params.json"))
-    graph_s = (graph3 if cli_root == fb_root else build_graph(
-        ds_cli.train_triples, ds_cli.num_entity, ds_cli.num_relation).to(device))
-    model_s = build_model(cfg_s, ds_cli.num_entity, ds_cli.num_relation,
-                          ds_cli.num_edge)
-    model_s.load_state_dict(load_checkpoint(run3, cfg_s)[0])
-    model_s = model_s.to(device).eval()
-    q3 = torch.as_tensor(test3[:128], device=device).long()
-    with torch.no_grad():
-        ent_k, rel_k = model_s.encode(graph_s)
-        ent_p, rel_p = model_s.encode(graph_s, kernels=PLAIN)
-        torch.testing.assert_close(ent_k, ent_p, rtol=RGCN_ENCODE_TOL,
-                                   atol=RGCN_ENCODE_TOL)
-        torch.testing.assert_close(rel_k, rel_p, rtol=0.0, atol=0.0)
-        got = torch.topk(model_s.decode(ent_k, rel_k, q3[:, 0], q3[:, 1]), 10)
-        want = torch.topk(model_s.decode(ent_p, rel_p, q3[:, 0], q3[:, 1]), 10)
-        assert_topk_match(got.values, got.indices, want.values, want.indices,
-                          tol=1e-4)
-        enc3_err = float((ent_k - ent_p).abs().max())
-        encode3 = lambda: model_s.encode(graph_s)
-        top3 = lambda: torch.topk(model_s.decode(ent_k, rel_k, q3[:, 0],
-                                                 q3[:, 1]), 10)
-        dev3 = time_in_turns({"encode": encode3, "top_k": top3}, n=10,
-                             warmup=1, lead_cycles=10_000_000)
-        log(f"[serve] rgcn kernel encode vs plain encode: all_ent max_abs_err "
-            f"{enc3_err:.3g} (tol {RGCN_ENCODE_TOL}); top-10 of 128 queries "
-            f"agree; warm encode {host_ms(encode3, 5):.3f} ms host, "
-            f"{dev3['encode']:.3f} ms device; top-10 of a 128-query batch "
-            f"{host_ms(top3, 10):.3f} ms host, {dev3['top_k']:.3f} ms device")
-        log_profile("rgcn encode", encode3)
+    # 9. RGAT training (bench.py's rgat_pallas) ---------------------------------
+    cfg_a = dataset_preset("WN18RR", model="rgat", decoder="distmult",
+                           num_heads=4, seed=args.seed)
+    model_a = build_model(cfg_a, ds.num_entity, ds.num_relation, ds.num_edge,
+                          generator=torch.Generator().manual_seed(args.seed)
+                          ).to(device)
+    trainer_a = Trainer(cfg_a, model_a, graph, banks)
+    log(f"[train] rgat config: {cfg_a.num_layers} layer, {cfg_a.num_heads} "
+        f"heads of {cfg_a.gcn_out_dim // cfg_a.num_heads}, d_in "
+        f"{cfg_a.gcn_in_dim}, d_out {cfg_a.gcn_out_dim}, decoder "
+        f"{cfg_a.decoder}, {cfg_a.train_mode} (loss_impl {cfg_a.loss_impl} = "
+        f"{trainer_a.loss_impl}, label smoothing {cfg_a.lbl_smooth}), batch "
+        f"{cfg_a.batch_size}, lr {cfg_a.learning_rate}, gcn_drop "
+        f"{cfg_a.gcn_drop}, {cfg_a.compute_dtype}, moments "
+        f"{cfg_a.moment_dtype}; {sum(p.numel() for p in model_a.parameters())}"
+        " parameters")
+    # per half and layer: K5 once, K1 on expd (E, 4) and on msg (E, 200);
+    # backward K1 for edge_compose's d_h and both gather_rows_sorted
+    train["rgat"] = timed_steps(trainer_a, launches, (10, 0, 0, 0, 0, 2),
+                                "rgat + distmult, 1-vs-all", args.seed)
+
+    # one kernel step against the same step through the plain versions, from
+    # the warm state (non-zero attention bias), with one dropout mask
+    idx = torch.randperm(bank.n_queries, generator=gen)[:cfg_a.batch_size]
+    same_step(trainer_a,
+              trainer_a.batch(idx.to(device),
+                              torch.ones(cfg_a.batch_size, device=device)),
+              args.seed + 7, launches, (10, 0, 0, 0, 0, 2), "rgat",
+              cancelling=RGAT_DEGENERATE)
+    del trainer_a, model_a
+    torch.cuda.empty_cache()
+
+    # one epoch through the CLI entry point (the RGAT training main path):
+    # every step, then the validation encode
+    exp_a = os.path.join(work.name, "experiments_rgat")
+    run_a = os.path.join(exp_a, "SYN")
+    argv_a = ["--dataset", "SYN", "--data_dir", corpus_root,
+              "--experiments_dir", exp_a, "--do_train", "--max_epoch", "1",
+              "--eval_every", "1", "--seed", str(args.seed), "--model", "rgat",
+              "--decoder", "distmult", "--num_heads", str(cfg_a.num_heads),
+              "--learning_rate", str(cfg_a.learning_rate), "--gcn_drop",
+              str(cfg_a.gcn_drop)]
+    rgat_train_launches, ep = cli_epoch(
+        argv_a, run_a, launches,
+        (10 * steps_per_epoch + 4, 0, 0, 0, 0, 2 * steps_per_epoch + 2),
+        f"cli --model rgat --decoder distmult --num_heads {cfg_a.num_heads} "
+        f"--max_epoch 1 ({steps_per_epoch} steps)")
+    train["rgat"]["cli_epoch_s"] = ep["sec"]
+
+    # 10. RGAT serving: the checkpoint through the CLI (one encode for
+    # --do_test, one for --do_predict) ---------------------------------------------
+    serve_a = ["--dataset", "SYN", "--data_dir", corpus_root, "--restore_dir",
+               run_a, "--experiments_dir", os.path.join(work.name, "serve_rgat")]
+    rgat_serve_launches, metrics_a = cli_serve(
+        serve_a, qfile, len(test), ds.entity2id, launches, (8, 0, 0, 0, 0, 4),
+        "rgat")
+    serve_rgat = served_encode(run_a, ds, graph, banks, test[:128], metrics_a,
+                               "rgat")
     work.cleanup()
 
     paths = {"mgcn_train": train_launches, "mgcn_serve": serve_launches,
              "rgcn_train": rgcn_train_launches,
-             "rgcn_serve": rgcn_serve_launches}
+             "rgcn_serve": rgcn_serve_launches,
+             "rgat_train": rgat_train_launches,
+             "rgat_serve": rgat_serve_launches}
     by_path = lambda i: {k: v[i] for k, v in paths.items()}
     main_t = timings["wn18rr_f32"]
     k1_err = max(errs.values())
@@ -1191,7 +1379,21 @@ def main() -> int:
             "launches_by_path": by_path(3 + i),
             "cases": {"max_abs_err": basis_errs[key]},
         })
-    log(json.dumps({"training": train, "few_sum": {
+    t5 = timings["k5_wn18rr_h4"]
+    entries.append({
+        "name": "segment_max (K5)", "route": "cuda",
+        "source": "kgc_gcn_torch/csrc/segment_max.cu",
+        "replaces": "kgc_gcn_tpu/ops/spmm_pallas.py:801",
+        "launches": sum(by_path(5).values()),
+        "max_abs_err": max(max_errs.values()),
+        "ms": t5["ms"], "plain_ms": t5["plain_ms"],
+        "bound_ms": t5["bound_ms"], "bound_by": t5["bound_by"],
+        "library_ms": t5["library_ms"], "library": t5["library"],
+        "ms_without_padding": t5["ms_without_padding"],
+        "launches_by_path": by_path(5),
+        "cases": {"max_abs_err": max_errs},
+    })
+    log(json.dumps({"training": train, "serve_rgat": serve_rgat, "few_sum": {
         k: v for k, v in timings.items() if k.startswith("few_sum")},
         "basis_matmul_ms": t3["basis_matmul"]}))
     print(json.dumps({"kernels": entries}))

@@ -4,13 +4,16 @@
     python -m kgc_gcn_torch.cli --dataset FB15k-237 --do_train --model rgcn \
         --decoder distmult --num_bases 30 --train_mode negative_sampling \
         --compute_dtype float32 --moment_dtype float32
+    python -m kgc_gcn_torch.cli --dataset WN18RR --do_train --model rgat \\
+        --decoder distmult --num_heads 4
     python -m kgc_gcn_torch.cli --dataset Toy --do_test --restore_dir experiments/Toy
     python -m kgc_gcn_torch.cli --dataset Toy --do_predict --predict_file q.txt \\
         --restore_dir experiments/Toy
 
 Every flag of the JAX CLI (and so of the reference driver, main.py:18-46) is
-accepted with the same name and default.  ``--do_train`` trains MGCN + ConvE
-or basis R-GCN + DistMult (``--model rgcn --decoder distmult``), 1-vs-all or
+accepted with the same name and default.  ``--do_train`` trains MGCN + ConvE,
+basis R-GCN + DistMult (``--model rgcn --decoder distmult``) or RGAT +
+DistMult (``--model rgat --decoder distmult --num_heads H``), 1-vs-all or
 on sampled negatives (``--train_mode negative_sampling``), and writes
 ``params.json``, ``train.log``, ``metrics.jsonl`` and, on every validation
 improvement, ``last.ckpt`` under

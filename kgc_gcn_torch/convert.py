@@ -1,8 +1,9 @@
 """Weights carried between the JAX package and the port, both ways.
 
 The port keeps the JAX parameter layout and names, so a JAX ``MGCNParams`` /
-``MGCNState`` pair maps onto ``models.mgcn.MGCN``, and an ``RGCNParams``
-onto ``models.rgcn.RGCN``, by name alone, with no transposes.  Leaves travel
+``MGCNState`` pair maps onto ``models.mgcn.MGCN``, an ``RGCNParams`` onto
+``models.rgcn.RGCN`` and an ``RGATParams`` onto ``models.rgat.RGAT``, by name
+alone, with no transposes.  Leaves travel
 as numpy arrays keyed by their dotted JAX paths (``entity_embedding``,
 ``conv.in_weight``, ``decoder.bn0.scale``, ``layers.0.basis``;
 ``conv_bn.mean``, ``decoder.bn1.var`` for the state).  The optimizer state
@@ -24,10 +25,13 @@ def jax_leaf_names(cfg: Config) -> Tuple[List[str], List[str]]:
     """Dotted paths of the JAX model's parameters and of its state, each in
     the order ``jax.tree.flatten`` lists them (dataclass field order; the
     ``None`` leaves, such as RGCN's ``blocks`` in basis mode, drop out).
-    MGCN+ConvE and RGCN+DistMult (which has no state)."""
-    if cfg.model == "rgcn":
+    MGCN+ConvE, and RGCN+DistMult and RGAT+DistMult (which have no state)."""
+    layer_leaves = {"rgcn": ("basis", "coeff", "self_weight"),
+                    "rgat": ("weight", "rel_mult", "att_src", "att_dst",
+                             "rel_bias", "self_weight")}.get(cfg.model)
+    if layer_leaves:
         layers = [f"layers.{i}.{w}" for i in range(max(1, cfg.num_layers))
-                  for w in ("basis", "coeff", "self_weight")]
+                  for w in layer_leaves]
         return (["entity_embedding", "relation_embedding"] + layers
                 + ["decoder.ent_bias"]), []
     bn = lambda p, leaves=("scale", "bias"): [f"{p}.{x}" for x in leaves]

@@ -4,12 +4,13 @@ import torch
 
 from kgc_gcn_torch.config import Config
 from kgc_gcn_torch.models.mgcn import MGCN
+from kgc_gcn_torch.models.rgat import RGAT
 from kgc_gcn_torch.models.rgcn import RGCN
 
-__all__ = ["MGCN", "RGCN", "build_model"]
+__all__ = ["MGCN", "RGAT", "RGCN", "build_model"]
 
 # the decoder each ported family runs
-_DECODERS = {"mgcn": "conve", "rgcn": "distmult"}
+_DECODERS = {"mgcn": "conve", "rgcn": "distmult", "rgat": "distmult"}
 
 
 def _unported(cfg: Config):
@@ -17,7 +18,6 @@ def _unported(cfg: Config):
     run yet."""
     mgcn = cfg.model == "mgcn"
     return [
-        ("model='rgat'", 6, cfg.model == "rgat"),
         (f"decoder={cfg.decoder!r} with model={cfg.model!r}", 4,
          cfg.model in _DECODERS and cfg.decoder != _DECODERS[cfg.model]),
         (f"num_blocks={cfg.num_blocks} (rgcn block mode)", 7,
@@ -35,8 +35,8 @@ def _unported(cfg: Config):
 def build_model(cfg: Config, n_ent: int, n_rel: int, n_edge: int,
                 e_pad: Optional[int] = None,
                 generator: Optional[torch.Generator] = None
-                ) -> Union[MGCN, RGCN]:
-    """Model factory (``cfg.model``: mgcn | rgcn).  ``e_pad`` must equal the
+                ) -> Union[MGCN, RGCN, RGAT]:
+    """Model factory (``cfg.model``: mgcn | rgcn | rgat).  ``e_pad`` must equal the
     Graph's padded per-half edge count when the graph was built with a
     non-default ``pad_to`` (MGCN's per-edge table); the model is initialized
     on the CPU from ``generator`` (default: seeded from ``cfg.seed``) and
@@ -50,4 +50,6 @@ def build_model(cfg: Config, n_ent: int, n_rel: int, n_edge: int,
                 f"(ROADMAP.md §1 item {item})")
     if cfg.model == "rgcn":
         return RGCN(cfg, n_ent, n_rel, n_edge, generator)
+    if cfg.model == "rgat":
+        return RGAT(cfg, n_ent, n_rel, n_edge, generator)
     return MGCN(cfg, n_ent, n_rel, n_edge, e_pad, generator)

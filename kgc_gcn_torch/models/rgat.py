@@ -1,0 +1,156 @@
+"""Relational graph attention (RGAT) + DistMult (the port's
+``kgc_gcn_tpu/models/rgat.py`` on one device, on its kernel path).
+
+Per layer and direction half, with H heads of ``dh = d_out / H``:
+
+  * ``h = x @ weight``; the edge message ``z = h[src] * rel_mult[rel]``
+    (``ops/sorted_ops.py:edge_compose``, shared by the logits and the
+    aggregation, so both paths' cotangents meet in one backward);
+  * logits ``s = leakyrelu(<z, att_src> + <h[dst], att_dst> + rel_bias[rel])``
+    per head, ``-inf`` on the zero-norm padding edges;
+  * ``alpha = segment_softmax(s)`` over each destination's incoming edges:
+    the max through K5 (``kernels.seg_max``) on the detached logits, the
+    denominator and the per-edge gathers' backward through K1;
+  * the aggregate ``Σ alpha · z`` through K1 (``segment_sum_sorted``).
+
+``encode`` is ``relu(attend(inb) + attend(outb) + x @ self_weight)`` then
+dropout ``layer{i}``, for every layer.  The per-head contractions are the
+flat block-diagonal products of the JAX package's default layout
+(``(E, d_out) @ (d_out, H)``); the alpha weighting broadcasts over the
+``(E, H, dh)`` view of ``z``.  The JAX tests show both layouts compute one
+function (``tests/test_rgat.py:234-261``).
+
+Parameters keep the JAX names and shapes (``RGATLayerParams``), so
+``convert.py`` maps a JAX ``RGATParams`` onto this module by name.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from kgc_gcn_torch.config import Config
+from kgc_gcn_torch.data.graph import Graph, GraphHalf
+from kgc_gcn_torch.models.common import dropout, xavier_uniform
+from kgc_gcn_torch.models.decoders import DistMult
+from kgc_gcn_torch.models.family_base import DecoderFamilyMixin
+from kgc_gcn_torch.ops.kernels import KERNELS, Kernels
+from kgc_gcn_torch.ops.sorted_ops import (
+    edge_compose, gather_rows_few, gather_rows_sorted, segment_sum_sorted)
+
+NEG_SLOPE = 0.2
+
+
+def block_matrix(att: torch.Tensor) -> torch.Tensor:
+    """(H, dh) attention vectors -> the (H·dh, H) block-diagonal matrix
+    whose column h holds head h's vector in its lane block
+    (``rgat.py:_block_mats``)."""
+    nh, dh = att.shape
+    ind = torch.eye(nh, dtype=att.dtype, device=att.device).repeat_interleave(
+        dh, dim=0)                                        # (H·dh, H) 0/1
+    return att.reshape(-1, 1) * ind
+
+
+def segment_softmax(logits: torch.Tensor, seg: torch.Tensor,
+                    indptr: torch.Tensor, n_seg: int,
+                    kernels: Kernels = KERNELS) -> torch.Tensor:
+    """Per-segment softmax of (E, H) logits over non-decreasing ``seg``
+    (``rgat.py:92-134``): ``-inf`` edges get weight 0 and empty segments
+    stay finite.  The max is shift-invariant, so K5 sees detached logits."""
+    smax = kernels.seg_max(logits.detach().contiguous(), seg, indptr, n_seg)
+    smax_e = torch.where(torch.isfinite(smax), smax, 0.0)[seg.long()]
+    expd = torch.where(torch.isfinite(logits), torch.exp(logits - smax_e), 0.0)
+    denom = segment_sum_sorted(expd, seg, indptr, n_seg, kernels.seg_sum)
+    denom_e = gather_rows_sorted(torch.clamp_min(denom, 1e-9), seg, indptr,
+                                 n_seg, kernels.seg_sum)
+    return expd / denom_e
+
+
+class RGATLayer(nn.Module):
+    """``RGATLayerParams`` (``rgat.py:66-74``, init ``:567-579``)."""
+
+    def __init__(self, n_rel2: int, d_in: int, d_out: int, nh: int,
+                 generator: torch.Generator):
+        super().__init__()
+        p = lambda *shape: nn.Parameter(xavier_uniform(shape, generator))
+        dh = d_out // nh
+        self.weight = p(d_in, d_out)
+        self.rel_mult = nn.Parameter(
+            1.0 + 0.1 * xavier_uniform((n_rel2, d_out), generator))
+        self.att_src = p(nh, dh)
+        self.att_dst = p(nh, dh)
+        self.rel_bias = nn.Parameter(torch.zeros(n_rel2, nh))
+        self.self_weight = p(d_in, d_out)
+
+    def attend(self, h: torch.Tensor, half: GraphHalf, n_ent: int,
+               kernels: Kernels) -> torch.Tensor:
+        """One direction's attention aggregation -> (N, d_out)
+        (``rgat.py:_attend_half`` with ``use_pallas``)."""
+        nh, dh = self.att_src.shape
+        seg_sum = kernels.seg_sum
+        z = edge_compose(h, self.rel_mult, half, seg_sum)       # (E, d_out)
+        score_dst = h @ block_matrix(self.att_dst)              # (N, H)
+        sd_e = gather_rows_sorted(score_dst, half.dst, half.indptr, n_ent,
+                                  seg_sum)
+        rb_e = gather_rows_few(self.rel_bias, half.rel,
+                               half.r_indptr.shape[0] - 1,
+                               (half.rperm, half.r_indptr, half.r_rel),
+                               seg_sum)
+        s = z @ block_matrix(self.att_src) + sd_e + rb_e        # (E, H)
+        s = torch.nn.functional.leaky_relu(s, NEG_SLOPE)
+        # padding edges (norm 0) take no part in the softmax
+        s = torch.where(half.norm[:, None] > 0, s, float("-inf"))
+        alpha = segment_softmax(s, half.dst, half.indptr, n_ent, kernels)
+        msg = (z.view(-1, nh, dh) * alpha[:, :, None]).view(-1, nh * dh)
+        return segment_sum_sorted(msg, half.dst, half.indptr, n_ent, seg_sum)
+
+
+class RGAT(DecoderFamilyMixin, nn.Module):
+    """Model family 'rgat' with the DistMult decoder."""
+
+    def __init__(self, cfg: Config, n_ent: int, n_rel: int, n_edge: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.num_heads < 1:
+            raise ValueError(f"num_heads={cfg.num_heads} must be >= 1")
+        self.nh = cfg.num_heads
+        if cfg.gcn_out_dim % self.nh:
+            raise ValueError(f"num_heads={self.nh} must divide "
+                             f"gcn_out_dim={cfg.gcn_out_dim}")
+        if generator is None:
+            generator = torch.Generator().manual_seed(cfg.seed % 2**32)
+        self.cfg = cfg
+        self.n_ent, self.n_rel, self.n_edge = n_ent, n_rel, n_edge
+        n_rel2 = 2 * n_rel
+        d = cfg.gcn_in_dim
+        layers = []
+        for _ in range(max(1, cfg.num_layers)):
+            layers.append(RGATLayer(n_rel2, d, cfg.gcn_out_dim, self.nh,
+                                    generator))
+            d = cfg.gcn_out_dim
+        self.layers = nn.ModuleList(layers)
+        self.entity_embedding = nn.Parameter(
+            xavier_uniform((n_ent, cfg.gcn_in_dim), generator))
+        self.relation_embedding = nn.Parameter(
+            xavier_uniform((n_rel2, cfg.gcn_out_dim), generator))
+        self.decoder = DistMult(cfg, n_ent)
+
+    def encode(self, graph: Graph, train: bool = False,
+               rngs: Optional[Dict[str, torch.Generator]] = None,
+               kernels: Kernels = KERNELS
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-graph encoder -> (all_ent (N, d_out), all_rel (2R, d_out))
+        (``rgat.py:591-657``); ``kernels`` selects K5/K1 or their plain
+        versions."""
+        rngs = rngs or {}
+        x = self.entity_embedding
+        for i, layer in enumerate(self.layers):
+            h = x @ layer.weight
+            agg = (layer.attend(h, graph.inb, self.n_ent, kernels)
+                   + layer.attend(h, graph.outb, self.n_ent, kernels)
+                   + x @ layer.self_weight)
+            x = dropout(torch.relu(agg), self.cfg.gcn_drop,
+                        rngs.get(f"layer{i}"), train)
+        return x, self.relation_embedding

@@ -18,6 +18,7 @@ from kgc_gcn_torch.ops.basis import (
     basis_segment_sum_reference)
 from kgc_gcn_torch.ops.fused_loss import (
     dense_grads, dense_grads_reference, dense_loss, dense_loss_reference)
+from kgc_gcn_torch.ops.segment_max import segment_max, segment_max_reference
 from kgc_gcn_torch.ops.segment_sum import segment_sum, segment_sum_reference
 
 
@@ -28,10 +29,11 @@ class Kernels:
     dense_grads: Callable    # K2b
     basis_sum: Callable      # K7
     basis_bwd: Callable      # K8
+    seg_max: Callable        # K5
 
 
 KERNELS = Kernels(segment_sum, dense_loss, dense_grads, basis_segment_sum,
-                  basis_backward)
+                  basis_backward, segment_max)
 PLAIN = Kernels(segment_sum_reference, dense_loss_reference,
                 dense_grads_reference, basis_segment_sum_reference,
-                basis_backward_reference)
+                basis_backward_reference, segment_max_reference)

@@ -99,6 +99,8 @@ def load_kernels(force_build: bool = False) -> KernelLibrary:
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.kgc_segment_sum.argtypes = [vp, i32, vp, vp, i32, i32, i32, vp]
     lib.kgc_segment_sum.restype = i32
+    lib.kgc_segment_max.argtypes = [vp, vp, vp, i32, i32, i32, vp]
+    lib.kgc_segment_max.restype = i32
     lib.kgc_fused_bce_loss_partials.argtypes = [i32, i32]
     lib.kgc_fused_bce_loss_partials.restype = i32
     lib.kgc_fused_bce_loss.argtypes = [vp, vp, vp, vp, f32, vp, vp, i32, i32,

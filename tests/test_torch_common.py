@@ -82,15 +82,36 @@ def rgcn_cfg(toy_cfg, **kw):
     return toy_cfg.replace(**{**base, **kw})
 
 
+def rgat_cfg(toy_cfg, **kw):
+    """A toy RGAT + DistMult config (d_in 8, d_out 16, H 4), dropout off."""
+    base = dict(model="rgat", decoder="distmult", num_heads=4, gcn_in_dim=8,
+                gcn_out_dim=16, gcn_drop=0.0, batch_size=8, num_negatives=5)
+    return toy_cfg.replace(**{**base, **kw})
+
+
+def randomize_rel_bias(params, rng):
+    """RGAT's per-relation attention bias starts at zero in the JAX init;
+    give every layer's a non-zero value, so that its gradient is tested."""
+    f32 = lambda a: jnp.asarray(a, jnp.float32)
+    return dataclasses.replace(params, layers=[
+        dataclasses.replace(lay, rel_bias=f32(rng.normal(0, 0.5,
+                                                         lay.rel_bias.shape)))
+        for lay in params.layers])
+
+
 def jax_and_port_models(toy, cfg, seed: int = 0):
-    """A JAX model (MGCN or RGCN, by ``cfg.model``) with randomized weights,
-    BN stats and entity bias, and the port's model holding the same weights
-    carried across by convert.params_from_numpy."""
+    """A JAX model (MGCN, RGCN or RGAT, by ``cfg.model``) with randomized
+    weights, BN stats, entity bias and RGAT attention bias, and the port's
+    model holding the same weights carried across by
+    convert.params_from_numpy."""
     ds, graph, _ = toy
     model = jax_build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
                             e_pad=graph.e_pad)
     params, state = model.init(jax.random.PRNGKey(seed))
-    params, state = randomize(params, state, np.random.default_rng(seed))
+    rng = np.random.default_rng(seed)
+    params, state = randomize(params, state, rng)
+    if cfg.model == "rgat":
+        params = randomize_rel_bias(params, rng)
     port = build_model(port_cfg(cfg), ds.num_entity, ds.num_relation,
                        ds.num_edge, e_pad=graph.e_pad)
     port.load_state_dict(params_from_numpy(jax_leaves(params),

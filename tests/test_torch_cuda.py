@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA card: each CUDA kernel against its
-plain PyTorch version on the card, the encoder through the kernels, and one
-training step through the kernels against the same step in plain PyTorch
-(MGCN 1-vs-all, and R-GCN on sampled negatives).
+plain PyTorch version on the card, the encoder through the kernels, the
+RGAT attention wrappers' gradients through K1, and one training step through
+the kernels against the same step in plain PyTorch (MGCN 1-vs-all, R-GCN on
+sampled negatives, RGAT 1-vs-all).
 
 This file imports neither JAX nor kgc_gcn_tpu, so that it runs on a machine
 with a card and no JAX (tests/conftest.py imports JAX, hence --noconftest):
@@ -23,6 +24,7 @@ from kgc_gcn_torch.ops.basis import (
 from kgc_gcn_torch.ops.fused_loss import (
     dense_grads, dense_grads_reference, dense_loss, dense_loss_reference)
 from kgc_gcn_torch.ops.kernels import PLAIN
+from kgc_gcn_torch.ops.segment_max import segment_max, segment_max_reference
 from kgc_gcn_torch.ops.segment_sum import segment_sum, segment_sum_reference
 
 # Exact: the messages are multiples of 2**-8 below 2 in magnitude (also after
@@ -55,6 +57,30 @@ def case_counts():
     wide = rng.integers(0, 5, size=9)                  # D > 256: two column chunks
     return {"empty_rows": (empty, 37), "hub_row": (hub, 100),
             "wide": (wide, 300)}
+
+
+def max_case(counts, h: int, seed: int):
+    """K5's operands (logits (E, H) float32, dst (E,) int32, indptr) with the
+    given per-row edge counts: normal logits, about a fifth of the edges at
+    -inf (the masked padding edges of the RGAT softmax), and the first
+    non-empty row all -inf."""
+    rng = np.random.default_rng(seed)
+    _, dst, indptr = csr_case(counts, 1, seed)
+    logits = rng.normal(size=(len(dst), h)).astype(np.float32)
+    logits[rng.random(len(dst)) < 0.2] = -np.inf
+    first = int(np.flatnonzero(np.asarray(counts))[0])
+    logits[indptr[first]:indptr[first + 1]] = -np.inf
+    return logits, dst, indptr
+
+
+def max_cases():
+    """K5 edge cases, (per-row counts, H): empty rows, a 700-edge hub row,
+    and head counts 1, 4, 5 and 40 (above one register chunk of heads)."""
+    counts = case_counts()
+    return {"empty_rows": (counts["empty_rows"][0], 4),
+            "hub_h1": (counts["hub_row"][0], 1),
+            "hub_h5": (counts["hub_row"][0], 5),
+            "wide_h40": (counts["wide"][0], 40)}
 
 
 @pytest.fixture
@@ -316,6 +342,157 @@ def test_rgcn_kernel_step_matches_plain_step(cuda, neg_loss):
     torch.testing.assert_close(out["kernel"][0], out["plain"][0], rtol=1e-5,
                                atol=0.0)
     for i, (gk, gp) in enumerate(zip(out["kernel"][1], out["plain"][1])):
+        torch.testing.assert_close(gk, gp, rtol=1e-4,
+                                   atol=1e-4 * float(gp.abs().max()))
+        uk = kernel.params[i].detach() - before[i]
+        up = plain.params[i].detach() - before[i]
+        agree = torch.isclose(uk, up, rtol=1e-3, atol=1e-7)
+        assert float(agree.float().mean()) > 0.999
+
+
+def path_max_case(seed: int):
+    """K5 at the RGAT path's shape: WN18RR's 40,943 rows, 86,835 real edges
+    with random destinations and the 205 zero-norm padding edges of E_pad
+    87,040 in row N-1, their logits at -inf; H 4."""
+    rng = np.random.default_rng(seed)
+    n, e_real, e_pad = 40943, 86835, 87040
+    dst = np.concatenate([np.sort(rng.integers(0, n, e_real)),
+                          np.full(e_pad - e_real, n - 1)]).astype(np.int32)
+    indptr = np.searchsorted(dst, np.arange(n + 1)).astype(np.int32)
+    logits = rng.normal(size=(e_pad, 4)).astype(np.float32)
+    logits[e_real:] = -np.inf
+    return logits, dst, indptr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["path", "nan"] + sorted(max_cases()))
+def test_segment_max_kernel_matches_plain(cuda, case):
+    """K5 equals its plain version bit for bit (a max is exact in any
+    order; -0.0 and +0.0 count as equal), NaN included: a NaN logit wins
+    its row and head, as in the plain "amax" reduction."""
+    if case == "path":
+        logits, dst, indptr = path_max_case(7)
+    else:
+        counts, h = max_cases()["hub_h5" if case == "nan" else case]
+        logits, dst, indptr = max_case(counts, h, seed=7)
+        if case == "nan":
+            logits[[3, 40, 41], [0, 2, 4]] = np.nan
+    n_rows = len(indptr) - 1
+    lg, dd, ip = (torch.from_numpy(a).to(cuda) for a in (logits, dst, indptr))
+    before = segment_max.launches
+    got = segment_max(lg, dd, ip, n_rows)
+    torch.cuda.synchronize()
+    assert segment_max.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (n_rows, lg.shape[1])
+    want = segment_max_reference(lg, dd, ip, n_rows)
+    torch.testing.assert_close(got, want, rtol=0.0, atol=0.0,
+                               equal_nan=case == "nan")
+    if case == "nan":
+        assert int(torch.isnan(got).sum()) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,k1_launches", [
+    ("edge_compose", 1), ("segment_sum_sorted", 1), ("gather_rows_sorted", 1),
+    ("gather_rows_few", 0)])
+def test_k6_through_k1_matches_plain(cuda, name, k1_launches):
+    """Each attention wrapper's forward and gradients with K1 against the
+    same with the plain segment-sum, on the card.  Dyadic inputs and
+    cotangents (multiples of 2**-8 below 1): every product and partial sum
+    is exact in float32, so the two agree to the bit."""
+    from kgc_gcn_torch.data.dataset import build_dataset
+    from kgc_gcn_torch.data.graph import build_graph
+    from kgc_gcn_torch.data.toy import toy_triples
+    from kgc_gcn_torch.ops import sorted_ops
+
+    ds = build_dataset("toy", *toy_triples(n_ent=40, n_rel=5, n_train=300))
+    half = build_graph(ds.train_triples, ds.num_entity,
+                       ds.num_relation).to(cuda).outb
+    n, n_rel2 = ds.num_entity, 2 * ds.num_relation
+    n_seg = half.r_indptr.shape[0] - 1
+    rdata = (half.rperm, half.r_indptr, half.r_rel)
+    rng = np.random.default_rng(11)
+    dyadic = lambda *s: torch.from_numpy(
+        (rng.integers(-255, 256, size=s) / 256).astype(np.float32)).to(cuda)
+    calls = {
+        "edge_compose": (lambda s, h, r: sorted_ops.edge_compose(h, r, half, s),
+                         (dyadic(n, 32), dyadic(n_rel2, 32))),
+        "segment_sum_sorted": (lambda s, v: sorted_ops.segment_sum_sorted(
+            v, half.dst, half.indptr, n, s), (dyadic(half.dst.shape[0], 4),)),
+        "gather_rows_sorted": (lambda s, t: sorted_ops.gather_rows_sorted(
+            t, half.dst, half.indptr, n, s), (dyadic(n, 4),)),
+        "gather_rows_few": (lambda s, t: sorted_ops.gather_rows_few(
+            t, half.rel, n_seg, rdata, s), (dyadic(n_rel2, 4),)),
+    }
+    fn, inputs = calls[name]
+    with torch.no_grad():
+        g = dyadic(*fn(PLAIN.seg_sum, *inputs).shape)
+    out = {}
+    for which, seg_sum in (("kernel", segment_sum), ("plain", PLAIN.seg_sum)):
+        args = [a.clone().requires_grad_() for a in inputs]
+        before = segment_sum.launches
+        y = fn(seg_sum, *args)
+        y.backward(g)
+        torch.cuda.synchronize()
+        out[which] = (y.detach(), [a.grad for a in args],
+                      segment_sum.launches - before)
+    assert out["kernel"][2] == k1_launches and out["plain"][2] == 0
+    torch.testing.assert_close(out["kernel"][0], out["plain"][0], rtol=0,
+                               atol=0)
+    for got, want in zip(out["kernel"][1], out["plain"][1]):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_rgat_kernel_step_matches_plain_step(cuda):
+    """One 2-layer, 4-head RGAT + DistMult 1-vs-all step with dropout
+    through K5/K1, and the same step (same weights and dropout masks)
+    through the plain versions: loss, gradients and updates."""
+    import copy
+
+    from kgc_gcn_torch.config import dataset_preset
+    from kgc_gcn_torch.data.batching import make_banks
+    from kgc_gcn_torch.data.dataset import build_dataset
+    from kgc_gcn_torch.data.graph import build_graph
+    from kgc_gcn_torch.data.toy import toy_triples
+    from kgc_gcn_torch.models import build_model
+    from kgc_gcn_torch.train import optim
+    from kgc_gcn_torch.train.loop import Trainer
+
+    ds = build_dataset("toy", *toy_triples(n_ent=40, n_rel=5, n_train=300))
+    graph = build_graph(ds.train_triples, ds.num_entity,
+                        ds.num_relation).to(cuda)
+    banks = make_banks(ds, cuda)
+    cfg = dataset_preset("Toy", model="rgat", decoder="distmult", num_heads=4,
+                         num_layers=2, gcn_in_dim=16, gcn_out_dim=32,
+                         batch_size=16, gcn_drop=0.2, seed=5)
+    model = build_model(cfg, ds.num_entity, ds.num_relation,
+                        ds.num_edge).to(cuda)
+    with torch.no_grad():        # the attention bias starts at zero
+        for layer in model.layers:
+            layer.rel_bias.normal_(0.0, 0.5)
+    kernel = Trainer(cfg, model, graph, banks)
+    plain = Trainer(cfg, copy.deepcopy(model), graph, banks, plain=True)
+    bank = banks["train"]
+    idx = torch.arange(16, device=cuda)
+    batch = (bank.queries[idx], bank.label_idx[idx], torch.ones(16, device=cuda))
+    before = [p.detach().clone() for p in kernel.params]
+    out = {}
+    for name, t in (("kernel", kernel), ("plain", plain)):
+        t.generator.manual_seed(9)
+        launches = (segment_max.launches, segment_sum.launches)
+        loss = t.loss(*batch)
+        grads = torch.autograd.grad(loss, t.params)
+        optim.step(t.params, list(grads), t.opt_state, cfg, 1e-3)
+        out[name] = (loss.detach(), grads, (segment_max.launches - launches[0],
+                                            segment_sum.launches - launches[1]))
+    assert out["kernel"][2] == (4, 20)      # two layers x two halves
+    assert out["plain"][2] == (0, 0)
+    # float32 sums in another order through one forward and backward pass
+    torch.testing.assert_close(out["kernel"][0], out["plain"][0], rtol=1e-5,
+                               atol=0.0)
+    for i, (gk, gp) in enumerate(zip(out["kernel"][1], out["plain"][1])):
+        assert torch.isfinite(gk).all()
         torch.testing.assert_close(gk, gp, rtol=1e-4,
                                    atol=1e-4 * float(gp.abs().max()))
         uk = kernel.params[i].detach() - before[i]

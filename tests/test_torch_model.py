@@ -107,8 +107,9 @@ def test_init_shapes_and_bounds(toy_cfg):
 
 
 @pytest.mark.parametrize("override", [
-    dict(model="rgat"), dict(decoder="distmult"), dict(num_layers=2),
-    dict(composition="sub"), dict(entity_sharded="gather")])
+    dict(model="rgat", decoder="conve"), dict(decoder="distmult"),
+    dict(num_layers=2), dict(composition="sub"),
+    dict(entity_sharded="gather")])
 def test_unported_configurations_raise(toy_cfg, override):
     cfg = dataclasses.replace(port_cfg(toy_cfg), **override)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

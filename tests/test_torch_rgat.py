@@ -1,0 +1,385 @@
+"""RGAT + DistMult in the port against the JAX package
+(kgc_gcn_torch/models/rgat.py, convert.py and train/checkpoint.py for the
+family, the trainers and cli.py): the leaf map, the encoder and its
+gradients on both JAX paths, one training step 1-vs-all (sparse, fused,
+dense) and on sampled negatives, a 3-epoch trajectory, checkpoints both ways
+and a CLI run on Toy.
+
+The toy graph with d_in 8 and d_out 16; weights come from the JAX model's
+init with randomized entity bias and attention bias (both start at zero) and
+cross through convert.py.  Dropout is off.  Tolerances: 1e-4 (rtol, and atol
+relative to the largest element) against the JAX encoder on its kernel path
+in interpret mode (hi/lo bf16 products), 1e-5 against its XLA path.
+"""
+
+import json
+import logging
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+import kgc_gcn_tpu.ops.losses as jl
+from kgc_gcn_tpu.config import Config as JaxConfig
+from kgc_gcn_tpu.data.batching import make_banks as jax_make_banks
+from kgc_gcn_tpu.data.dataset import load_dataset as jax_load_dataset
+from kgc_gcn_tpu.data.graph import build_graph as jax_build_graph
+from kgc_gcn_tpu.data.toy import write_toy
+from kgc_gcn_tpu.models import build_model as jax_build_model
+from kgc_gcn_tpu.train import loop as jloop
+from kgc_gcn_tpu.train.checkpoint import load_checkpoint as jax_load_checkpoint
+from kgc_gcn_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoint
+from kgc_gcn_tpu.train.negative import NegativeSamplingTrainer as JaxNegTrainer
+from kgc_gcn_tpu.train.optim import make_optimizer
+
+from kgc_gcn_torch import cli
+from kgc_gcn_torch.convert import jax_leaf_names, params_from_numpy, params_to_numpy
+from kgc_gcn_torch.models import build_model
+from kgc_gcn_torch.ops.kernels import PLAIN
+from kgc_gcn_torch.ops.segment_max import segment_max
+from kgc_gcn_torch.train import loop as ploop
+from kgc_gcn_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from kgc_gcn_torch.train.negative import NegativeSamplingTrainer
+from test_torch_common import (
+    jax_and_port_models, jax_leaves, port_cfg, port_toy, rgat_cfg)
+
+KERNEL_RTOL = 1e-4
+XLA_RTOL = 1e-5
+# one step's gradients: float32 sums in another order through the encoder,
+# the decoder and the loss, the absolute part relative to each tensor's
+# largest gradient
+GRAD_RTOL, GRAD_ATOL = 2e-4, 2e-5
+LAYER_LEAVES = ("weight", "rel_mult", "att_src", "att_dst", "rel_bias",
+                "self_weight")
+
+
+def close(got, want, rtol, what=""):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=rtol,
+                               atol=rtol * max(np.abs(want).max(), 1e-30),
+                               err_msg=what)
+
+
+def grads_close(names, grads, want):
+    for name, g in zip(names, grads):
+        np.testing.assert_allclose(
+            g.numpy(), want[name], rtol=GRAD_RTOL,
+            atol=max(1e-8, GRAD_ATOL * np.abs(want[name]).max()), err_msg=name)
+    assert np.abs(want["layers.0.rel_bias"]).max() > 0
+    assert np.abs(want["layers.0.att_src"]).max() > 0
+
+
+@pytest.mark.parametrize("layers", [1, 2])
+def test_rgat_leaf_names_pin_the_flatten_order(toy, toy_cfg, layers):
+    cfg = rgat_cfg(toy_cfg, num_layers=layers)
+    ds, graph, _ = toy
+    params, state = jax_build_model(cfg, ds.num_entity, ds.num_relation,
+                                    ds.num_edge).init(jax.random.PRNGKey(0))
+    p_names, s_names = jax_leaf_names(port_cfg(cfg))
+    assert list(jax_leaves(params)) == p_names and s_names == []
+    assert jax_leaves(state) == {}
+    assert p_names[2:8] == [f"layers.0.{w}" for w in LAYER_LEAVES]
+    assert len(p_names) == 3 + 6 * layers
+    port = build_model(port_cfg(cfg), ds.num_entity, ds.num_relation,
+                       ds.num_edge)
+    sd = params_from_numpy(jax_leaves(params), {})
+    assert sorted(sd) == sorted(port.state_dict())
+    for k, v in port.state_dict().items():
+        assert tuple(sd[k].shape) == tuple(v.shape), k
+    assert port.layers[0].att_src.shape == (4, 4)
+    assert port.layers[0].rel_bias.shape == (2 * ds.num_relation, 4)
+
+
+@pytest.mark.parametrize("heads", [1, 4])
+@pytest.mark.parametrize("layers", [1, 2])
+@pytest.mark.parametrize("use_pallas", [True, False],
+                         ids=["pallas_interpret", "xla"])
+def test_rgat_encode_and_grads_match_jax(toy, toy_cfg, use_pallas, layers,
+                                         heads):
+    """all_ent, all_rel and the gradient of every encoder parameter of a
+    weighted sum of both, against JAX ``RGAT.encode`` (its kernel path in
+    interpret mode, or its XLA path)."""
+    cfg = rgat_cfg(toy_cfg, num_layers=layers, num_heads=heads,
+                   use_pallas=use_pallas)
+    model, params, state, port = jax_and_port_models(toy, cfg,
+                                                     seed=layers + heads)
+    _, jgraph, _ = toy
+    _, pgraph, _ = port_toy()
+    rng = np.random.default_rng(7)
+    w_ent = rng.normal(size=(jgraph.n_ent, 16)).astype(np.float32)
+    w_rel = rng.normal(size=(2 * jgraph.n_rel, 16)).astype(np.float32)
+
+    def f(p):
+        ent, rel, _ = model.encode(p, state, jgraph)
+        return jnp.sum(ent * w_ent) + jnp.sum(rel * w_rel), ent
+    (_, want_ent), grads = jax.value_and_grad(f, has_aux=True)(params)
+    want_grads = jax_leaves(grads)
+
+    before = segment_max.launches
+    ent, rel = port.encode(pgraph)
+    loss = (ent * torch.from_numpy(w_ent)).sum() + (rel * torch.from_numpy(w_rel)).sum()
+    loss.backward()
+    assert segment_max.launches == before
+    tol = KERNEL_RTOL if use_pallas else XLA_RTOL
+    close(ent.detach(), want_ent, tol, "all_ent")
+    for name in jax_leaf_names(port.cfg)[0]:
+        if name == "decoder.ent_bias":
+            continue
+        grad = port.get_parameter(name).grad
+        assert torch.isfinite(grad).all(), name
+        close(grad, want_grads[name], tol, name)
+    # the plain bundle gives the same encode on the CPU
+    ent_plain, _ = port.encode(pgraph, kernels=PLAIN)
+    torch.testing.assert_close(ent_plain, ent.detach(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("heads", [0, 5])
+def test_rgat_rejects_bad_heads(toy_cfg, heads):
+    """The JAX ValueErrors: fewer than one head, or a head count that does
+    not divide gcn_out_dim (16)."""
+    cfg = port_cfg(rgat_cfg(toy_cfg, num_heads=heads))
+    with pytest.raises(ValueError, match="num_heads"):
+        build_model(cfg, 12, 4, 40)
+
+
+@pytest.mark.parametrize("override", [
+    dict(decoder="conve"), dict(decoder="transe"),
+    dict(entity_sharded="gather")])
+def test_unported_rgat_configurations_raise(toy_cfg, override):
+    cfg = port_cfg(rgat_cfg(toy_cfg, **override))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        build_model(cfg, 12, 4, 40)
+
+
+@pytest.mark.parametrize("impl", ["sparse", "fused", "dense"])
+def test_rgat_one_vs_all_step_gradients_match_jax(toy, toy_cfg, impl):
+    """1-vs-all training of RGAT + DistMult (``dense`` through ``decode``):
+    loss and every gradient against JAX ``Trainer._train_step`` with an
+    identity optimizer (grad = (p - new) / lr)."""
+    lr = 1e4
+    cfg = rgat_cfg(toy_cfg, loss_impl=impl, lbl_smooth=0.1, batch_size=4)
+    model, params, state, port = jax_and_port_models(toy, cfg, seed=4)
+    _, jgraph, jbanks = toy
+    _, pgraph, pbanks = port_toy()
+    bank = jbanks["train"]
+    idx = np.array([5, 2, 7, 0])                 # the last row is padding
+    mask = np.array([1, 1, 1, 0], np.float32)
+    q, li = np.asarray(bank.queries)[idx], np.asarray(bank.label_idx)[idx]
+    p0 = {k: np.array(v, copy=True) for k, v in jax_leaves(params).items()}
+    trainer = jloop.Trainer(cfg, model, jgraph, jbanks)
+    trainer.tx = optax.identity()
+    new_p, _, _, j_loss = trainer._train_step_jit(
+        params, state, trainer.tx.init(params), jgraph, jnp.float32(lr),
+        jnp.asarray(q), jnp.asarray(li), jnp.asarray(mask),
+        jax.random.PRNGKey(0))
+    want = {k: (p0[k].astype(np.float64) - v.astype(np.float64)) / lr
+            for k, v in jax_leaves(new_p).items()}
+    ptrainer = ploop.Trainer(port_cfg(cfg), port, pgraph, pbanks)
+    assert ptrainer.loss_impl == impl
+    loss = ptrainer.loss(*(torch.from_numpy(a) for a in (q, li, mask)))
+    grads = torch.autograd.grad(loss, ptrainer.params)
+    np.testing.assert_allclose(float(loss.detach()), float(j_loss), rtol=1e-5)
+    grads_close(jax_leaf_names(port.cfg)[0], grads, want)
+
+
+def test_rgat_negative_step_gradients_match_jax(toy, toy_cfg, monkeypatch):
+    """One self-adversarial negative-sampling step of a 2-layer RGAT against
+    the JAX trainer's ``_neg_loss_and_update`` with an identity optimizer
+    and its negative draw replaced by ours."""
+    lr = 1e3
+    cfg = rgat_cfg(toy_cfg, train_mode="negative_sampling",
+                   neg_loss="self_adversarial", neg_margin=0.5,
+                   neg_adversarial_temp=2.0, num_layers=2)
+    model, params, state, port = jax_and_port_models(toy, cfg, seed=6)
+    _, jgraph, jbanks = toy
+    _, pgraph, pbanks = port_toy()
+    rng = np.random.default_rng(4)
+    idx = rng.permutation(2 * jgraph.n_edge)[:8]
+    mask = np.array([1, 1, 1, 1, 1, 1, 0, 0], np.float32)
+    neg = rng.integers(0, jgraph.n_ent, size=(8, cfg.num_negatives))
+
+    jtr = JaxNegTrainer(cfg, model, jgraph, jbanks)
+    jtr.tx = optax.identity()
+    monkeypatch.setattr(jax.random, "randint",
+                        lambda key, shape, lo, hi: jnp.asarray(neg, jnp.int32))
+    p0 = {k: np.array(v, copy=True) for k, v in jax_leaves(params).items()}
+    new_p, _, _, j_loss = jtr._neg_loss_and_update(
+        params, state, jtr.tx.init(params), jgraph, jnp.float32(lr),
+        jtr.pos_triples[idx], jnp.asarray(mask), jax.random.PRNGKey(0))
+    want = {k: (p0[k].astype(np.float64) - v.astype(np.float64)) / lr
+            for k, v in jax_leaves(new_p).items()}
+
+    ptr = NegativeSamplingTrainer(port_cfg(cfg), port, pgraph, pbanks)
+    loss = ptr.loss(ptr.pos_triples[torch.from_numpy(idx)],
+                    torch.from_numpy(mask), torch.from_numpy(neg))
+    grads = torch.autograd.grad(loss, ptr.params)
+    np.testing.assert_allclose(float(loss.detach()), float(j_loss), rtol=1e-5)
+    names = jax_leaf_names(port.cfg)[0]
+    assert len(names) == len(grads) == 15
+    grads_close(names, grads, want)
+
+
+def test_rgat_three_epoch_trajectory_matches_jax(toy, toy_cfg, tmp_path):
+    """3 dropout-free 1-vs-all epochs through both packages'
+    ``train_and_evaluate`` with one seed (so one batch plan): per-epoch
+    losses and Val metrics, the best measure and the final parameters.
+    StepLR fires after epoch 2."""
+    cfg = rgat_cfg(toy_cfg, max_epoch=3, eval_every=1, learning_rate=0.01,
+                   lr_step_size=2, lr_gamma=0.5)
+    model, params, state, port = jax_and_port_models(toy, cfg, seed=8)
+    _, jgraph, jbanks = toy
+    _, pgraph, pbanks = port_toy()
+    jtr = jloop.Trainer(cfg, model, jgraph, jbanks)
+    jp, _, _, jbest = jloop.train_and_evaluate(
+        jtr, params, state, make_optimizer(cfg).init(params),
+        model_dir=str(tmp_path), seed=11)
+    (tmp_path / "port").mkdir()
+    ptr = ploop.Trainer(port_cfg(cfg), port, pgraph, pbanks)
+    pbest = ploop.train_and_evaluate(ptr, model_dir=str(tmp_path / "port"),
+                                     seed=11)
+    read = lambda p: [json.loads(x) for x in p.read_text().splitlines()][1:]
+    got, want = read(tmp_path / "port" / "metrics.jsonl"), read(
+        tmp_path / "metrics.jsonl")
+    assert [r["epoch"] for r in got] == [r["epoch"] for r in want] == [1, 2, 3]
+    for g, w in zip(got, want):
+        # metrics.jsonl rounds losses to 6 digits and metrics to 5
+        assert g["loss"] == pytest.approx(w["loss"], rel=1e-4, abs=2e-6)
+        for k, v in w["val"].items():
+            assert g["val"][k] == pytest.approx(v, abs=1e-4), (g["epoch"], k)
+    assert pbest == pytest.approx(jbest, abs=1e-4)
+    for name, v in jax_leaves(jp).items():
+        got_p = port.get_parameter(name).detach().numpy()
+        np.testing.assert_allclose(got_p, v, rtol=1e-4,
+                                   atol=1e-4 * np.abs(v).max(), err_msg=name)
+
+
+def _port_trained(toy_cfg, moment_dtype):
+    """A port RGAT + its 1-vs-all Trainer after two steps."""
+    cfg = port_cfg(rgat_cfg(toy_cfg, moment_dtype=moment_dtype, seed=3))
+    ds, graph, banks = port_toy()
+    model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge)
+    trainer = ploop.Trainer(cfg, model, graph, banks)
+    for s in range(2):
+        trainer.train_step(1e-2, *trainer.batch(torch.arange(8 * s, 8 * s + 8),
+                                                torch.ones(8)))
+    return cfg, model, trainer
+
+
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_jax_reads_the_port_rgat_checkpoint(toy, toy_cfg, tmp_path,
+                                            moment_dtype):
+    cfg, model, trainer = _port_trained(toy_cfg, moment_dtype)
+    save_checkpoint(str(tmp_path), model, trainer.opt_state, cfg, 0.25)
+    ds, _, _ = toy
+    jcfg = rgat_cfg(toy_cfg, moment_dtype=moment_dtype)
+    params, state = jax_build_model(jcfg, ds.num_entity, ds.num_relation,
+                                    ds.num_edge).init(jax.random.PRNGKey(0))
+    tree, measure = jax_load_checkpoint(str(tmp_path), {
+        "params": params, "state": state,
+        "opt_state": make_optimizer(jcfg).init(params)})
+    assert measure == 0.25
+    ours = params_to_numpy(model, cfg)[0]
+    want = jax_leaves(tree["params"])
+    assert list(want) == list(ours)
+    for name, v in want.items():
+        np.testing.assert_array_equal(v, ours[name], err_msg=name)
+    adam = tree["opt_state"][-1]
+    assert int(adam.count) == trainer.opt_state.count == 2
+    names = jax_leaf_names(cfg)[0]
+    for moments, mine in ((adam.mu, trainer.opt_state.mu),
+                          (adam.nu, trainer.opt_state.nu)):
+        leaves = jax_leaves(moments)
+        assert list(leaves) == names
+        for name, t in zip(names, mine):
+            np.testing.assert_array_equal(np.asarray(leaves[name], np.float32),
+                                          t.float().numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_port_reads_the_jax_rgat_checkpoint(toy, toy_cfg, tmp_path,
+                                            moment_dtype):
+    """A 2-layer JAX tree after two Adam updates of random gradients: the
+    port's parameters and moments land on the leaves of the same name."""
+    ds, _, _ = toy
+    jcfg = rgat_cfg(toy_cfg, moment_dtype=moment_dtype, num_layers=2)
+    params, state = jax_build_model(jcfg, ds.num_entity, ds.num_relation,
+                                    ds.num_edge).init(jax.random.PRNGKey(1))
+    tx = make_optimizer(jcfg)
+    opt = tx.init(params)
+    rng = np.random.default_rng(9)
+    for _ in range(2):
+        g = jax.tree.map(lambda p: jnp.asarray(
+            rng.normal(size=p.shape).astype(np.float32)), params)
+        upd, opt = tx.update(g, opt, params)
+        params = optax.apply_updates(params, upd)
+    jax_save_checkpoint(str(tmp_path), {"params": params, "state": state,
+                                        "opt_state": opt}, 0.5)
+    cfg = port_cfg(jcfg)
+    sd, measure, adam = load_checkpoint(str(tmp_path), cfg,
+                                        with_opt_state=True)
+    assert measure == 0.5 and adam.count == 2
+    port = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge)
+    port.load_state_dict(sd)
+    for name, v in jax_leaves(params).items():
+        np.testing.assert_array_equal(port.get_parameter(name).detach().numpy(),
+                                      v, err_msg=name)
+    names = jax_leaf_names(cfg)[0]
+    for moments, mine in ((opt[-1].mu, adam.mu), (opt[-1].nu, adam.nu)):
+        leaves = jax_leaves(moments)
+        for name, t in zip(names, mine):
+            np.testing.assert_array_equal(t.float().numpy(),
+                                          np.asarray(leaves[name], np.float32),
+                                          err_msg=name)
+
+
+def test_cli_trains_rgat_then_serves(tmp_path, caplog, capsys):
+    """``--model rgat --decoder distmult --num_heads 4 --device cpu`` trains
+    1-vs-all and writes last.ckpt; ``--do_test`` reports the metrics the JAX
+    package computes from that checkpoint, and ``--do_predict`` answers
+    from it."""
+    data_dir, exp = str(tmp_path / "data"), str(tmp_path / "exp")
+    write_toy(data_dir, "Toy")
+    base = ["--dataset", "Toy", "--data_dir", data_dir, "--device", "cpu"]
+    model = ["--model", "rgat", "--decoder", "distmult", "--num_heads", "4",
+             "--gcn_in_dim", "16", "--gcn_out_dim", "32"]
+    assert cli.main(base + model + [
+        "--do_train", "--max_epoch", "2", "--batch_size", "16",
+        "--experiments_dir", exp]) == 0
+    run = tmp_path / "exp" / "Toy"
+    lines = (run / "metrics.jsonl").read_text().splitlines()
+    assert len(lines) == 3 and (run / "last.ckpt").exists()
+    assert all(np.isfinite(json.loads(x)["loss"]) for x in lines[1:])
+
+    with caplog.at_level(logging.INFO):
+        assert cli.main(base + ["--do_test", "--restore_dir", str(run),
+                                "--experiments_dir", str(tmp_path / "t")]) == 0
+    line = next(r.getMessage() for r in caplog.records
+                if "Test metrics" in r.getMessage())
+    got = dict(kv.split(": ") for kv in line.split("metrics: ")[1].strip()
+               .split("; "))
+    jcfg = JaxConfig.from_json(str(run / "params.json"))
+    assert (jcfg.model, jcfg.num_heads, jcfg.gcn_out_dim) == ("rgat", 4, 32)
+    ds = jax_load_dataset("Toy", data_dir)
+    graph = jax_build_graph(ds.train_triples, ds.num_entity, ds.num_relation)
+    jmodel = jax_build_model(jcfg, ds.num_entity, ds.num_relation, ds.num_edge)
+    params, state = jmodel.init(jax.random.PRNGKey(0))
+    tree, _ = jax_load_checkpoint(str(run), {
+        "params": params, "state": state,
+        "opt_state": make_optimizer(jcfg).init(params)})
+    want = jloop.Trainer(jcfg, jmodel, graph, jax_make_banks(ds)).evaluate(
+        tree["params"], tree["state"], "test", mark="Test")
+    for k, v in want.items():
+        assert float(got[k]) == pytest.approx(v, abs=1e-3), k   # log: 3 digits
+
+    qf = tmp_path / "q.txt"
+    qf.write_text("e0\tr1\ne3\tr0\n")
+    capsys.readouterr()
+    assert cli.main(base + ["--do_predict", "--predict_file", str(qf),
+                            "--top_k", "3", "--restore_dir", str(run),
+                            "--experiments_dir", str(tmp_path / "p")]) == 0
+    answers = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [(a["subject"], len(a["topk"])) for a in answers] == [("e0", 3),
+                                                                ("e3", 3)]

@@ -208,7 +208,8 @@ def test_cli_predict_and_test_on_cpu(tmp_path, toy_cfg, capsys, caplog):
 
 def test_cli_refuses_what_it_cannot_run(tmp_path):
     base = ["--dataset", "Toy", "--experiments_dir", str(tmp_path)]
-    for flags in (["--model", "rgat"], ["--model", "rgcn", "--num_blocks", "2"],
+    for flags in (["--model", "rgat", "--decoder", "transe"],
+                  ["--model", "rgcn", "--num_blocks", "2"],
                   ["--edge_sample_size", "8"], ["--ckpt_every", "1"],
                   ["--profile_dir", str(tmp_path)]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
