@@ -11,10 +11,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      K1 (segment-sum) in dst, src and rel order and at RGAT's widths 4 and
      200, K2a / K2b (fused score + BCE, forward and backward), K7 / K8
      (basis R-GCN aggregation and its backward; bit-equal on dyadic inputs,
-     then real values), K5 (segment-max);
+     then real values), K5 (segment-max), K4a / K4b (the one-pass compose
+     and backward products, bit-equal on any input, also ragged and
+     misaligned), K3 (the stacked fused compose + segment-sum; bit-equal on
+     dyadic inputs, then real values, and edge cases);
   4. timing: each kernel, its plain version and the one-call library
      equivalent or yardstick, with CUDA events, beside the least time the
-     card needs (K1, K5, K7, K8 also without the graph's padding edges);
+     card needs (K1, K3, K5, K7, K8 also without the graph's padding edges);
   5. training: the reference model (MGCN + ConvE at full width, WN18RR
      preset and dropout, random weights from --seed) on a WN18RR-shaped
      synthetic corpus: timed steps with loss_impl fused and auto (steps/s,
@@ -40,10 +43,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      epoch through the CLI, which writes last.ckpt;
  10. RGAT serving: that checkpoint through the CLI (--do_test,
      --do_predict), the kernel encode held against the plain encode, warm
-     encode and top-10 times.
-K1, K7 and K8 checks use dyadic inputs, whose float32 sums are exact in any
-order, so kernel and plain version must agree to the bit; K5 (segment-max,
-phase 3: the RGAT path's shape and edge cases) is exact on any input.
+     encode and top-10 times;
+ 11. MGCN's aggregation schedules (ew_impl=pallas, spmm_mode stacked and
+     stacked_xla) with the WN18RR preset on the corpus of phase 5: per
+     schedule 50 timed steps through Trainer (launches per step asserted:
+     K4a 2, K4b 2, K1 4; K3 1, K1 1; K1 2) and one kernel step against the
+     same step through the plain versions; then one CLI epoch with
+     --use_pallas --spmm_mode stacked, its checkpoint served through the CLI
+     (--do_test, --do_predict) and its kernel encode held against the plain
+     encode.
+K1, K3, K7 and K8 checks use dyadic inputs, whose float32 sums are exact in
+any order, so kernel and plain version must agree to the bit; K5
+(segment-max, phase 3: the RGAT path's shape and edge cases), K4a and K4b
+(products in the plain version's order) are exact on any input.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Nothing of JAX is imported.
 """
@@ -95,6 +107,10 @@ DEGENERATE = ("decoder.bn0.scale", "decoder.bn0.bias")
 # bases (d_msg) or the columns (d_a) in another order; the absolute part is
 # relative to the largest element
 BASIS_RTOL, BASIS_ATOL = 1e-5, 1e-5
+# K3 on real (normal) values: float32 sums over a row's edges in another
+# order than the plain version's index_add_; the absolute part is relative
+# to the largest element
+K3_RTOL, K3_ATOL = 1e-5, 1e-5
 # R-GCN and RGAT encode through the kernels vs through the plain versions,
 # trained weights: float32 sums in another order
 ENCODE_TOL = 1e-5
@@ -168,6 +184,22 @@ def max_bound(e: int, h: int, n_rows: int):
     """Segment-max: each logit, indptr entry and output element moved once;
     one comparison per logit."""
     return bound_of(4 * e * h + 4 * (n_rows + 1) + 4 * n_rows * h, e * h)
+
+
+def ew_bound(n: int, out_bytes: int, backward: bool):
+    """K4a: three float32 arrays of n elements read, one written in the out
+    type; two multiplies each.  K4b: four read, two written in the out type
+    and one in float32; five multiplies each."""
+    if not backward:
+        return bound_of(n * (12 + out_bytes), 2.0 * n)
+    return bound_of(n * (20 + 2 * out_bytes), 5.0 * n)
+
+
+def k3_bound(n_ent: int, n_rel_rows: int, e: int, n_rows: int, d: int):
+    """K3: x, rel_all, etab, src, rel, norm and indptr read once, out
+    written once; three multiplies and one add per edge element."""
+    return bound_of(4 * ((n_ent + n_rel_rows + e + n_rows) * d + 3 * e
+                         + n_rows + 1), 4.0 * e * d)
 
 
 def k2_bound(b: int, n: int, d: int, backward: bool):
@@ -374,7 +406,7 @@ def close_rel(got, want, rtol, atol_rel, what) -> float:
 class Launches:
     """The launch counts of the kernel wrappers, in the order of NAMES."""
 
-    NAMES = ("K1", "K2a", "K2b", "K7", "K8", "K5")
+    NAMES = ("K1", "K2a", "K2b", "K7", "K8", "K5", "K3", "K4a", "K4b")
 
     def __init__(self, wrappers):
         self.wrappers = wrappers
@@ -647,6 +679,11 @@ def main() -> int:
     from kgc_gcn_torch.ops.basis import (
         basis_backward, basis_backward_reference, basis_segment_sum,
         basis_segment_sum_reference)
+    from kgc_gcn_torch.ops.elementwise import (
+        bwd_products, bwd_products_reference, compose_msg,
+        compose_msg_reference)
+    from kgc_gcn_torch.ops.fused_compose import (
+        fused_compose, fused_compose_reference)
     from kgc_gcn_torch.ops.fused_loss import (
         dense_grads, dense_grads_reference, dense_loss, dense_loss_reference)
     from kgc_gcn_torch.ops.kernels import PLAIN
@@ -667,7 +704,8 @@ def main() -> int:
         f"CUDA {torch.version.cuda}; count {torch.cuda.device_count()}")
     log(smi)
     launches = Launches((segment_sum, dense_loss, dense_grads,
-                         basis_segment_sum, basis_backward, segment_max))
+                         basis_segment_sum, basis_backward, segment_max,
+                         fused_compose, compose_msg, bwd_products))
 
     # 2. build ----------------------------------------------------------------
     kernels = load_kernels(force_build=True)
@@ -851,6 +889,87 @@ def main() -> int:
             f"{max_errs[name]:.3g} (tol 0: bit-equal, -inf where the plain "
             "version has it)")
 
+    # K4a / K4b at the WN18RR half shape (the ew_impl=pallas path: E_pad x
+    # d_in float32 operands, float32 and bf16 outputs) and an edge case whose
+    # E*d is no multiple of 4, a view at a row offset that is not 16-byte
+    # aligned (the scalar path).  The kernels multiply in the plain version's
+    # order and round once, so they agree to the bit on any input.
+    def ew_operands(e: int, d: int, offset: int = 0):
+        return [torch.randn(e + offset, d, generator=gen).to(device)[offset:]
+                for _ in range(4)]
+
+    ew_cases = {"wn18rr": ew_operands(graph.inb.dst.shape[0], d_in),
+                "edge_misaligned": ew_operands(1001, 37, offset=1)}
+    ew_errs = {"K4a": {}, "K4b": {}}
+    for name, (a, b, c, g) in ew_cases.items():
+        for dt in (torch.float32, torch.bfloat16):
+            case = f"{name}_{str(dt).split('.')[-1]}"
+            got = compose_msg(a, b, c, dt)
+            want = compose_msg_reference(a, b, c, dt)
+            got_b = bwd_products(g, a, b, c, dt)
+            want_b = bwd_products_reference(g, a, b, c, dt)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=0.0, atol=0.0,
+                                       msg=f"K4a {case}")
+            for x, y, w in zip(got_b, want_b, ("contrib", "d_rel_in",
+                                                "d_etab")):
+                torch.testing.assert_close(x, y, rtol=0.0, atol=0.0,
+                                           msg=f"K4b {case} {w}")
+            ew_errs["K4a"][case] = float((got.float() - want.float()).abs().max())
+            ew_errs["K4b"][case] = max(float((x.float() - y.float()).abs().max())
+                                       for x, y in zip(got_b, want_b))
+            log(f"[K4 check] {case}: E={a.shape[0]} d={a.shape[1]} (16-byte "
+                f"aligned: {a.data_ptr() % 16 == 0}, E*d % 4 = "
+                f"{a.numel() % 4}): K4a max_abs_err {ew_errs['K4a'][case]:.3g},"
+                f" K4b max_abs_err {ew_errs['K4b'][case]:.3g} (tol 0: "
+                "bit-equal)")
+
+    # K3 at the stacked WN18RR shape (both halves' 2 E_pad edges over 2N
+    # rows, the 2R+1 relation rows; rows N-1 and 2N-1 hold the padding
+    # edges) and an edge case on the hub counts above at d 37 (empty rows, a
+    # 5,000-edge hub row): dyadic operands first (multiples of 2**-3 below
+    # 1: every product and partial sum exact in float32, so bit-equal), then
+    # normal values with the graph's own norms (K3_RTOL, K3_ATOL x max).
+    st = graph.stacked
+    n_rel_rows = 2 * ds.num_relation + 1
+    n_hub = hub_dst.shape[0]
+    k3_shapes = {
+        "wn18rr_stacked": (st.src, st.rel, st.norm, st.dst2, st.indptr,
+                           ds.num_entity, d_in),
+        "edge_d37": (torch.randint(0, 40, (n_hub,), generator=gen).int(),
+                     torch.randint(0, n_rel_rows, (n_hub,), generator=gen).int(),
+                     None, hub_dst, hub_ptr, 40, 37)}
+    k3_errs, k3_args = {}, {}
+    for name, (src_, rel_, norm_, dst_, ip_, n_x, d) in k3_shapes.items():
+        for real in (False, True):
+            draw = ((lambda *sh: torch.randn(*sh, generator=gen)) if real else
+                    (lambda *sh: torch.randint(-7, 8, sh, generator=gen) / 8))
+            e = src_.shape[0]
+            nm = norm_ if real and norm_ is not None else draw(e)
+            args_ = [t.to(device) for t in (draw(n_x, d), src_, nm,
+                                            draw(n_rel_rows, d), rel_,
+                                            draw(e, d), dst_, ip_)]
+            args_.append(ip_.shape[0] - 1)
+            got = fused_compose(*args_)
+            want = fused_compose_reference(*args_)
+            torch.cuda.synchronize()
+            case = f"{name}_{'real' if real else 'dyadic'}"
+            if real:
+                k3_errs[case] = close_rel(got, want, K3_RTOL, K3_ATOL,
+                                          f"K3 {case}")
+            else:
+                torch.testing.assert_close(got, want, rtol=0.0, atol=0.0,
+                                           msg=f"K3 {case}")
+                k3_errs[case] = float((got - want).abs().max())
+            k3_args[case] = args_
+            counts = (ip_[1:] - ip_[:-1]).long()
+            log(f"[K3 check] {case}: E={e} rows={ip_.shape[0] - 1} d={d} "
+                f"relation rows {n_rel_rows} (empty rows "
+                f"{int((counts == 0).sum())}, largest row {int(counts.max())}"
+                f" edges): max_abs_err {k3_errs[case]:.3g} (tol "
+                + (f"rtol {K3_RTOL}, atol {K3_ATOL} x max)" if real
+                   else "0: bit-equal)"))
+
     # 4. timing -----------------------------------------------------------------
     # The graph pads each half with zero-norm edges, all in row N-1 of the
     # dst order (and in row 0 of the src order): one serial hub row.
@@ -1023,6 +1142,79 @@ def main() -> int:
     del msg, a, g, expansion, sel, lib_out, agg, cut
     torch.cuda.empty_cache()
 
+    # K4a / K4b at the WN18RR half shape, float32 and bf16 outputs; no one
+    # PyTorch call computes either function (no library time)
+    a, b, c, g = ew_cases["wn18rr"]
+    bf16 = torch.bfloat16
+    t = time_in_turns({
+        "K4a": lambda: compose_msg(a, b, c),
+        "K4a_plain": lambda: compose_msg_reference(a, b, c),
+        "K4a_bf16": lambda: compose_msg(a, b, c, bf16),
+        "K4a_bf16_plain": lambda: compose_msg_reference(a, b, c, bf16),
+        "K4b": lambda: bwd_products(g, a, b, c),
+        "K4b_plain": lambda: bwd_products_reference(g, a, b, c),
+        "K4b_bf16": lambda: bwd_products(g, a, b, c, bf16),
+        "K4b_bf16_plain": lambda: bwd_products_reference(g, a, b, c, bf16),
+    })
+    for key, out_bytes, backward in (("K4a", 4, False), ("K4a_bf16", 2, False),
+                                     ("K4b", 4, True), ("K4b_bf16", 2, True)):
+        t[f"{key}_bound"], t[f"{key}_bound_by"] = ew_bound(a.numel(),
+                                                           out_bytes, backward)
+        log(f"[{key[:3]} time] wn18rr half (E {a.shape[0]}, d {a.shape[1]}, "
+            f"{'bf16' if out_bytes == 2 else 'float32'} out): kernel "
+            f"{t[key]:.4f} ms, plain {t[key + '_plain']:.4f} ms, bound "
+            f"{t[key + '_bound']:.4f} ms ({t[key + '_bound_by']}), "
+            f"{t[key + '_bound'] / t[key]:.1%} of bound; no one-call library "
+            "equivalent")
+    timings["ew_wn18rr"] = t
+    log_profile("K4a at the WN18RR half shape", lambda: compose_msg(a, b, c),
+                steps=5)
+    log_profile("K4b at the WN18RR half shape",
+                lambda: bwd_products(g, a, b, c), steps=5)
+    del a, b, c, g, ew_cases
+
+    # K3 at the stacked WN18RR shape on real operands.  "without padding"
+    # runs it on the edge list without the 410 zero-norm padding edges of
+    # rows N-1 and 2N-1 (same rows, same result); the yardstick is
+    # index_add_ of the precomposed (2 E_pad, d) messages into the 2N rows,
+    # as K7's is (no one PyTorch call composes and sums)
+    k3 = k3_args["wn18rr_stacked_real"]
+    x, src_, nm, rel_all, rel_, et, dst_, ip_, n_rows2 = k3
+    keep = torch.cat([torch.arange(graph.inb.e_real),
+                      graph.e_pad + torch.arange(graph.outb.e_real)]).to(device)
+    dst_cut = dst_[keep].contiguous()
+    ip_cut = torch.zeros_like(ip_)
+    ip_cut[1:] = torch.cumsum(torch.bincount(dst_cut.long(),
+                                             minlength=n_rows2), 0)
+    k3_cut = (x, src_[keep].contiguous(), nm[keep].contiguous(), rel_all,
+              rel_[keep].contiguous(), et[keep].contiguous(), dst_cut, ip_cut,
+              n_rows2)
+    if not torch.equal(fused_compose(*k3_cut), fused_compose(*k3)):
+        raise AssertionError("K3 without the padding edges changed the sums")
+    msg_pre = ((x[src_.long()] * nm[:, None]) * rel_all[rel_.long()]) * et
+    lib_out = torch.zeros(n_rows2, d_in, device=device)
+    dst_long = dst_.long()
+    t = time_in_turns({
+        "K3": lambda: fused_compose(*k3),
+        "K3_plain": lambda: fused_compose_reference(*k3),
+        "K3_yardstick": lambda: lib_out.index_add_(0, dst_long, msg_pre),
+        "K3_without_padding": lambda: fused_compose(*k3_cut),
+    })
+    t["K3_bound"], t["K3_bound_by"] = k3_bound(
+        ds.num_entity, n_rel_rows, et.shape[0], n_rows2, d_in)
+    timings["k3_wn18rr_stacked"] = t
+    log(f"[K3 time] wn18rr stacked (E {et.shape[0]}, rows {n_rows2}, d "
+        f"{d_in}, {n_rel_rows} relation rows): kernel {t['K3']:.4f} ms, plain "
+        f"{t['K3_plain']:.4f} ms, yardstick (index_add_ of the precomposed "
+        f"messages) {t['K3_yardstick']:.4f} ms, bound {t['K3_bound']:.4f} ms "
+        f"({t['K3_bound_by']}), {t['K3_bound'] / t['K3']:.1%} of bound; "
+        f"without the {et.shape[0] - keep.shape[0]} padding edges "
+        f"{t['K3_without_padding']:.4f} ms")
+    log_profile("K3 at the stacked WN18RR shape", lambda: fused_compose(*k3),
+                steps=5)
+    del k3, k3_cut, k3_args, msg_pre, lib_out, x, et
+    torch.cuda.empty_cache()
+
     # 5. training ---------------------------------------------------------------
     graph = graph.to(device)
     banks = make_banks(ds, device)
@@ -1036,9 +1228,9 @@ def main() -> int:
                             ).to(device)
         trainer = Trainer(cfg, model, graph, banks)
         fused = int(impl == "fused")
-        train[impl] = timed_steps(trainer, launches, (4, fused, fused, 0, 0, 0),
-                                  f"loss_impl={impl} ({trainer.loss_impl})",
-                                  args.seed)
+        train[impl] = timed_steps(
+            trainer, launches, (4, fused, fused, 0, 0, 0, 0, 0, 0),
+            f"loss_impl={impl} ({trainer.loss_impl})", args.seed)
         if fused:
             fused_trainer = trainer
 
@@ -1049,7 +1241,7 @@ def main() -> int:
     same_step(fused_trainer,
               fused_trainer.batch(idx.to(device),
                                   torch.ones(cfg0.batch_size, device=device)),
-              args.seed + 7, launches, (4, 1, 1, 0, 0, 0), "mgcn",
+              args.seed + 7, launches, (4, 1, 1, 0, 0, 0, 0, 0, 0), "mgcn",
               degenerate=DEGENERATE)
     del fused_trainer, trainer, model
 
@@ -1063,7 +1255,8 @@ def main() -> int:
         argv += [f"--{flag}", str(getattr(cfg0, flag))]   # the WN18RR preset's
     train_launches, ep = cli_epoch(
         argv, run_dir, launches,
-        (4 * steps_per_epoch + 2, steps_per_epoch, steps_per_epoch, 0, 0, 0),
+        (4 * steps_per_epoch + 2, steps_per_epoch, steps_per_epoch, 0, 0, 0, 0,
+         0, 0),
         f"cli --do_train --loss_impl fused --max_epoch 1 ({steps_per_epoch} "
         "steps)")
     train["fused"]["cli_epoch_s"] = ep["sec"]
@@ -1121,7 +1314,7 @@ def main() -> int:
                 math.isfinite(t["score"]) and t["entity"] in ds.entity2id
                 for t in rec["topk"]):
             raise AssertionError(f"bad answer: {rec}")
-    if not (serve_launches == (4, 0, 0, 0, 0, 0)
+    if not (serve_launches == (4, 0, 0, 0, 0, 0, 0, 0, 0)
             and 1.0 <= metrics["mr"] <= ds.num_entity
             and 0.0 < metrics["mrr"] <= 1.0
             and all(0.0 <= metrics[k] <= 1.0 for k in metrics if "hits" in k)):
@@ -1129,9 +1322,8 @@ def main() -> int:
     log(f"[serve] first calls: encode {encode_ms:.2f} ms (K1 launches 2); "
         f"serve_file 512 queries in 4 batches: {serve_ms / 4:.2f} ms/batch; "
         f"serve_stream 3 lines; eval {2 * len(ds.test_triples)} queries "
-        f"{eval_s:.3f} s {metrics}; launches on the path (K1, K2a, K2b, K7, "
-        "K8, K5) "
-        f"{serve_launches}; peak memory {peak} B")
+        f"{eval_s:.3f} s {metrics}; launches on the path "
+        f"{Launches.show(serve_launches)}; peak memory {peak} B")
 
     # the same encode through the plain segment-sum on the card
     q = torch.as_tensor(test[:128], device=device).long()
@@ -1192,7 +1384,8 @@ def main() -> int:
         f"gcn_drop {cfg3.gcn_drop}, {cfg3.compute_dtype}, moments "
         f"{cfg3.moment_dtype}; {sum(p.numel() for p in model3.parameters())} "
         "parameters")
-    train["rgcn"] = timed_steps(trainer3, launches, (2, 0, 0, 2, 2, 0),
+    train["rgcn"] = timed_steps(trainer3, launches,
+                                (2, 0, 0, 2, 2, 0, 0, 0, 0),
                                 "rgcn + distmult, negative sampling",
                                 args.seed)
 
@@ -1202,7 +1395,7 @@ def main() -> int:
     same_step(trainer3,
               trainer3.batch(idx.to(device),
                              torch.ones(cfg3.batch_size, device=device)),
-              args.seed + 7, launches, (2, 0, 0, 2, 2, 0), "rgcn")
+              args.seed + 7, launches, (2, 0, 0, 2, 2, 0, 0, 0, 0), "rgcn")
     est_epoch_s = trainer3.steps_per_epoch / train["rgcn"]["steps_per_s"]
     del trainer3, model3
     torch.cuda.empty_cache()
@@ -1233,7 +1426,7 @@ def main() -> int:
     cli_steps = -(-2 * ds_cli.num_edge // cfg3.batch_size)
     rgcn_train_launches, ep = cli_epoch(
         argv3, run3, launches,
-        (2 * cli_steps, 0, 0, 2 * cli_steps + 2, 2 * cli_steps, 0),
+        (2 * cli_steps, 0, 0, 2 * cli_steps + 2, 2 * cli_steps, 0, 0, 0, 0),
         f"cli --model rgcn --decoder distmult --num_bases 30 --train_mode "
         f"negative_sampling --max_epoch 1 ({cli_steps} steps, "
         f"{ds_cli.num_edge} train triples)")
@@ -1251,7 +1444,7 @@ def main() -> int:
                   os.path.join(work.name, "serve_rgcn")]
     rgcn_serve_launches, metrics3 = cli_serve(
         serve_base, qfile3, len(test3), ds_cli.entity2id, launches,
-        (0, 0, 0, 4, 0, 0), "rgcn")
+        (0, 0, 0, 4, 0, 0, 0, 0, 0), "rgcn")
     if cli_root != fb_root:
         graph3 = build_graph(ds_cli.train_triples, ds_cli.num_entity,
                              ds_cli.num_relation).to(device)
@@ -1278,7 +1471,8 @@ def main() -> int:
         " parameters")
     # per half and layer: K5 once, K1 on expd (E, 4) and on msg (E, 200);
     # backward K1 for edge_compose's d_h and both gather_rows_sorted
-    train["rgat"] = timed_steps(trainer_a, launches, (10, 0, 0, 0, 0, 2),
+    train["rgat"] = timed_steps(trainer_a, launches,
+                                (10, 0, 0, 0, 0, 2, 0, 0, 0),
                                 "rgat + distmult, 1-vs-all", args.seed)
 
     # one kernel step against the same step through the plain versions, from
@@ -1287,7 +1481,7 @@ def main() -> int:
     same_step(trainer_a,
               trainer_a.batch(idx.to(device),
                               torch.ones(cfg_a.batch_size, device=device)),
-              args.seed + 7, launches, (10, 0, 0, 0, 0, 2), "rgat",
+              args.seed + 7, launches, (10, 0, 0, 0, 0, 2, 0, 0, 0), "rgat",
               cancelling=RGAT_DEGENERATE)
     del trainer_a, model_a
     torch.cuda.empty_cache()
@@ -1304,7 +1498,8 @@ def main() -> int:
               str(cfg_a.gcn_drop)]
     rgat_train_launches, ep = cli_epoch(
         argv_a, run_a, launches,
-        (10 * steps_per_epoch + 4, 0, 0, 0, 0, 2 * steps_per_epoch + 2),
+        (10 * steps_per_epoch + 4, 0, 0, 0, 0, 2 * steps_per_epoch + 2, 0, 0,
+         0),
         f"cli --model rgat --decoder distmult --num_heads {cfg_a.num_heads} "
         f"--max_epoch 1 ({steps_per_epoch} steps)")
     train["rgat"]["cli_epoch_s"] = ep["sec"]
@@ -1314,17 +1509,68 @@ def main() -> int:
     serve_a = ["--dataset", "SYN", "--data_dir", corpus_root, "--restore_dir",
                run_a, "--experiments_dir", os.path.join(work.name, "serve_rgat")]
     rgat_serve_launches, metrics_a = cli_serve(
-        serve_a, qfile, len(test), ds.entity2id, launches, (8, 0, 0, 0, 0, 4),
-        "rgat")
+        serve_a, qfile, len(test), ds.entity2id, launches,
+        (8, 0, 0, 0, 0, 4, 0, 0, 0), "rgat")
     serve_rgat = served_encode(run_a, ds, graph, banks, test[:128], metrics_a,
                                "rgat")
+
+    # 11. MGCN's aggregation schedules (the WN18RR preset, 1-vs-all with
+    # loss_impl auto; ew_impl is a Config field, reached through Trainer) --
+    paths = {}
+    for name, field, per_step in (
+            ("ew_pallas", dict(ew_impl="pallas"), (4, 0, 0, 0, 0, 0, 0, 2, 2)),
+            ("stacked", dict(spmm_mode="stacked"), (1, 0, 0, 0, 0, 0, 1, 0, 0)),
+            ("stacked_xla", dict(spmm_mode="stacked_xla"),
+             (2, 0, 0, 0, 0, 0, 0, 0, 0))):
+        cfg_s = dataset_preset("WN18RR", seed=args.seed, **field)
+        model_s = build_model(cfg_s, ds.num_entity, ds.num_relation,
+                              ds.num_edge, e_pad=graph.e_pad,
+                              generator=torch.Generator().manual_seed(
+                                  args.seed)).to(device)
+        trainer_s = Trainer(cfg_s, model_s, graph, banks)
+        train[f"mgcn_{name}"] = timed_steps(
+            trainer_s, launches, per_step,
+            f"mgcn {name} (loss_impl {trainer_s.loss_impl})", args.seed)
+        paths[f"mgcn_{name}_steps"] = tuple(TIMED_STEPS * c for c in per_step)
+        idx = torch.randperm(bank.n_queries, generator=gen)[:cfg_s.batch_size]
+        same_step(trainer_s,
+                  trainer_s.batch(idx.to(device),
+                                  torch.ones(cfg_s.batch_size, device=device)),
+                  args.seed + 7, launches, per_step, f"mgcn {name}",
+                  degenerate=DEGENERATE)
+        del trainer_s, model_s
+        torch.cuda.empty_cache()
+
+    # one epoch of the stacked schedule through the CLI, then its checkpoint
+    # served through the CLI with the same flags
+    exp_s = os.path.join(work.name, "experiments_stacked")
+    run_s = os.path.join(exp_s, "SYN")
+    flags_s = ["--use_pallas", "--spmm_mode", "stacked"]
+    argv_s = ["--dataset", "SYN", "--data_dir", corpus_root,
+              "--experiments_dir", exp_s, "--do_train", "--max_epoch", "1",
+              "--eval_every", "1", "--seed", str(args.seed)] + flags_s
+    for flag in ("learning_rate", "gcn_drop", "feat_drop", "hidden_drop"):
+        argv_s += [f"--{flag}", str(getattr(cfg0, flag))]
+    paths["mgcn_stacked_train"], ep = cli_epoch(
+        argv_s, run_s, launches,
+        (steps_per_epoch, 0, 0, 0, 0, 0, steps_per_epoch + 1, 0, 0),
+        f"cli {' '.join(flags_s)} --max_epoch 1 ({steps_per_epoch} steps)")
+    train["mgcn_stacked"]["cli_epoch_s"] = ep["sec"]
+    serve_s = ["--dataset", "SYN", "--data_dir", corpus_root, "--restore_dir",
+               run_s, "--experiments_dir",
+               os.path.join(work.name, "serve_stacked")] + flags_s
+    paths["mgcn_stacked_serve"], metrics_s = cli_serve(
+        serve_s, qfile, len(test), ds.entity2id, launches,
+        (0, 0, 0, 0, 0, 0, 2, 0, 0), "mgcn stacked")
+    serve_stacked = served_encode(run_s, ds, graph, banks, test[:128],
+                                  metrics_s, "mgcn stacked")
     work.cleanup()
 
-    paths = {"mgcn_train": train_launches, "mgcn_serve": serve_launches,
-             "rgcn_train": rgcn_train_launches,
-             "rgcn_serve": rgcn_serve_launches,
-             "rgat_train": rgat_train_launches,
-             "rgat_serve": rgat_serve_launches}
+    paths.update({"mgcn_train": train_launches, "mgcn_serve": serve_launches,
+                  "rgcn_train": rgcn_train_launches,
+                  "rgcn_serve": rgcn_serve_launches,
+                  "rgat_train": rgat_train_launches,
+                  "rgat_serve": rgat_serve_launches})
     by_path = lambda i: {k: v[i] for k, v in paths.items()}
     main_t = timings["wn18rr_f32"]
     k1_err = max(errs.values())
@@ -1393,9 +1639,45 @@ def main() -> int:
         "launches_by_path": by_path(5),
         "cases": {"max_abs_err": max_errs},
     })
-    log(json.dumps({"training": train, "serve_rgat": serve_rgat, "few_sum": {
-        k: v for k, v in timings.items() if k.startswith("few_sum")},
-        "basis_matmul_ms": t3["basis_matmul"]}))
+    t3k = timings["k3_wn18rr_stacked"]
+    entries.append({
+        "name": "fused_compose (K3)", "route": "cuda",
+        "source": "kgc_gcn_torch/csrc/fused_compose.cu",
+        "replaces": "kgc_gcn_tpu/ops/spmm_pallas.py:267",
+        "launches": sum(by_path(6).values()),
+        "max_abs_err": max(k3_errs.values()),
+        "ms": t3k["K3"], "plain_ms": t3k["K3_plain"],
+        "bound_ms": t3k["K3_bound"], "bound_by": t3k["K3_bound_by"],
+        "library_ms": None,
+        "yardstick": "index_add_ of the precomposed messages",
+        "yardstick_ms": t3k["K3_yardstick"],
+        "ms_without_padding": t3k["K3_without_padding"],
+        "launches_by_path": by_path(6),
+        "cases": {"max_abs_err": k3_errs},
+    })
+    tew = timings["ew_wn18rr"]
+    for i, (key, fn_name, line) in enumerate((("K4a", "compose_msg", 37),
+                                              ("K4b", "bwd_products", 71))):
+        entries.append({
+            "name": f"{fn_name} ({key})", "route": "cuda",
+            "source": "kgc_gcn_torch/csrc/elementwise.cu",
+            "replaces": f"kgc_gcn_tpu/ops/elementwise_pallas.py:{line}",
+            "launches": sum(by_path(7 + i).values()),
+            "max_abs_err": max(ew_errs[key].values()),
+            "ms": tew[key], "plain_ms": tew[f"{key}_plain"],
+            "bound_ms": tew[f"{key}_bound"],
+            "bound_by": tew[f"{key}_bound_by"],
+            "library_ms": None, "yardstick": "none",
+            "bf16_out": {k: tew[f"{key}_bf16{k}"] for k in (
+                "", "_plain", "_bound")},
+            "launches_by_path": by_path(7 + i),
+            "cases": {"max_abs_err": ew_errs[key]},
+        })
+    log(json.dumps({"training": train, "serve_rgat": serve_rgat,
+                    "serve_mgcn_stacked": serve_stacked, "few_sum": {
+                        k: v for k, v in timings.items()
+                        if k.startswith("few_sum")},
+                    "basis_matmul_ms": t3["basis_matmul"]}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,11 +21,12 @@ improvement, ``last.ckpt`` under
 checkpoint, optimizer state included.  ``--do_test`` and ``--do_predict``
 serve a checkpoint that either package wrote (``--restore_dir``, whose
 ``params.json`` supplies the model-shape flags).  ``--device`` (default
-``cuda``) picks the card or, when asked for, the CPU.  The flags that steer
-only the JAX package's TPU schedules (``--prng_impl``,
-``--compile_cache_dir``, ``--spmm_mode``, ``--bwd_perm``, ``--rel_compose``,
-``--remat``, ``--no_scan_epoch``, ``--use_pallas``, ``--no_use_pallas``) are
-accepted and have no effect.
+``cuda``) picks the card or, when asked for, the CPU.  ``--spmm_mode`` picks
+MGCN's aggregation schedule (``ew_impl``, as in the JAX CLI, has no flag: it
+is a ``Config`` field).  The flags that steer only the JAX package's TPU
+schedules (``--prng_impl``, ``--compile_cache_dir``, ``--bwd_perm``,
+``--rel_compose``, ``--remat``, ``--no_scan_epoch``, ``--use_pallas``,
+``--no_use_pallas``) are accepted and have no effect.
 """
 
 from __future__ import annotations
@@ -140,7 +141,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_use_pallas", dest="use_pallas",
                    action="store_const", const=False, help=_NO_EFFECT)
     p.add_argument("--spmm_mode", default="halves",
-                   choices=["halves", "stacked", "stacked_xla"], help=_NO_EFFECT)
+                   choices=["halves", "stacked", "stacked_xla"],
+                   help="MGCN's aggregation schedule: per direction half "
+                        "(K1), both halves over 2N rows (stacked_xla: K1) or "
+                        "fused (stacked: K3)")
     p.add_argument("--remat", action="store_true", help=_NO_EFFECT)
     p.add_argument("--no_scan_epoch", action="store_true", help=_NO_EFFECT)
     p.add_argument("--eval_batch_size", default=0, type=int)

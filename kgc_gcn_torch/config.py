@@ -4,11 +4,15 @@ One frozen dataclass carries every flag of the reference driver with the same
 name and default, plus the JAX package's own fields, so that a ``params.json``
 written by either package loads in the other.
 
+``spmm_mode`` (``halves``, ``stacked``, ``stacked_xla``) and ``ew_impl``
+(``xla``, ``pallas``) pick MGCN's aggregation schedule, as in the JAX package
+(``models/mgcn.py``, ``ops/scatter.py``).  The JAX package takes them only
+with ``use_pallas``; the port always runs its kernels on the card, so it
+reads them whatever ``use_pallas`` says.
+
 Fields that only steer the JAX package's TPU schedules are accepted and have
 no effect here: ``prng_impl``, ``compile_cache_dir``, ``conv_impl``,
-``spmm_mode``, ``ew_impl``, ``rel_compose``, ``bwd_perm``, ``remat``,
-``scan_epoch`` and ``use_pallas`` (the port always aggregates through its
-CSR segment-sum kernel on the card, ``ops/segment_sum.py``).
+``rel_compose``, ``bwd_perm``, ``remat``, ``scan_epoch`` and ``use_pallas``.
 """
 
 from __future__ import annotations
@@ -82,9 +86,9 @@ class Config:
     moment_dtype: str = "float32"    # Adam moment storage (training)
     conv_impl: str = "im2col"        # no effect on the port
     use_pallas: bool = False         # no effect on the port
-    spmm_mode: str = "halves"        # no effect on the port
+    spmm_mode: str = "halves"        # halves | stacked | stacked_xla (MGCN)
     agg_schedule: str = "fused"      # fused | reference (bench-only schedule)
-    ew_impl: str = "xla"             # no effect on the port
+    ew_impl: str = "xla"             # xla | pallas (MGCN halves: K4a/K4b)
     bwd_perm: str = "contrib"        # no effect on the port
     rel_compose: str = "gather"      # no effect on the port
     loss_impl: str = "auto"          # auto | dense | sparse | fused (training)

@@ -16,7 +16,9 @@ Built once on the host with numpy, then moved to a device with ``.to``:
 Every field of the JAX ``GraphHalf`` is kept, including the src-order and
 rel-order views that the backward pass will need, and the padded layout
 matches the JAX graph's one to one, so the ``(2, E_pad, d)`` per-edge table
-carries across without remapping.
+carries across without remapping.  ``Graph.stacked`` is the JAX package's
+``GraphStacked``: both halves as one dst-sorted edge list over ``[0, 2N)``,
+which the ``spmm_mode`` schedules ``stacked`` and ``stacked_xla`` aggregate.
 """
 
 from __future__ import annotations
@@ -60,9 +62,45 @@ class GraphHalf:
 
 
 @dataclass(frozen=True)
+class GraphStacked:
+    """Both direction halves as ONE edge list (``kgc_gcn_tpu/data/graph.py:
+    GraphStacked``).
+
+    The out-half's destination ids are offset by ``n_ent``, so the segment
+    ids span ``[0, 2N)`` and the concatenation [in-half; out-half] of the two
+    dst-sorted halves is globally dst-sorted.  Stacked position k is row k of
+    the per-edge table viewed as ``(2 * E_pad, d)``."""
+
+    src: torch.Tensor       # int32 (2*E_pad,) — source ids (both halves)
+    dst2: torch.Tensor      # int32 (2*E_pad,) — dst + N * is_out_half; sorted
+    rel: torch.Tensor       # int32 (2*E_pad,) — relation ids (out half: rel + R)
+    norm: torch.Tensor      # float32 (2*E_pad,) — degree norms; 0 on padding
+    indptr: torch.Tensor    # int32 (2N + 1,) — CSR pointers over dst2
+    sperm: torch.Tensor     # int32 (2*E_pad,) — permutation sorting src (both
+                            #   halves together: d_x sums over src globally)
+    s_indptr: torch.Tensor  # int32 (N + 1,) — CSR pointers over src[sperm]
+    s_src: torch.Tensor     # int32 (2*E_pad,) — src[sperm]
+    rperm: torch.Tensor     # int32 (2*E_pad,) — rel-sorted permutation (d_rel)
+    r_indptr: torch.Tensor  # int32 (2R + 2,)
+    r_rel: torch.Tensor     # int32 (2*E_pad,) — rel[rperm]
+
+    @property
+    def dst(self) -> torch.Tensor:
+        """``dst2``, under the name the per-half aggregation reads, so that
+        ``ops/scatter.py:_Aggregate`` sums the stacked view over 2N rows."""
+        return self.dst2
+
+    def to(self, device) -> "GraphStacked":
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)})
+
+
+@dataclass(frozen=True)
 class Graph:
     inb: GraphHalf       # original orientation (src, rel, dst)
     outb: GraphHalf      # reversed orientation (dst, rel + R, src)
+    stacked: GraphStacked  # both halves as one dst-sorted edge list
     n_ent: int = 0
     n_rel: int = 0       # R; relation tables hold 2R (+1 loop)
     n_edge: int = 0      # E = true (unpadded) edges per half
@@ -79,7 +117,8 @@ class Graph:
 
     def to(self, device) -> "Graph":
         return dataclasses.replace(self, inb=self.inb.to(device),
-                                   outb=self.outb.to(device))
+                                   outb=self.outb.to(device),
+                                   stacked=self.stacked.to(device))
 
 
 def padded_edge_count(n_edge: int, pad_to: int = EDGE_PAD) -> int:
@@ -183,5 +222,29 @@ def build_graph(
     inb = _build_half(src, dst, rel, eid, n_ent, 2 * e, n_rel_rows, pad_to)
     outb = _build_half(dst, src, rel + n_rel, eid + e, n_ent, 2 * e,
                        n_rel_rows, pad_to)
-    return Graph(inb=inb, outb=outb, n_ent=n_ent, n_rel=n_rel, n_edge=e,
+    return Graph(inb=inb, outb=outb, stacked=_build_stacked(inb, outb, n_ent,
+                                                            n_rel_rows),
+                 n_ent=n_ent, n_rel=n_rel, n_edge=e,
                  e_pad=int(inb.src.shape[0]))
+
+
+def _build_stacked(inb: GraphHalf, outb: GraphHalf, n_ent: int,
+                   n_rel_rows: int) -> GraphStacked:
+    """Concatenate the (already dst-sorted) halves, offsetting the
+    out-half's dst by N: the result is globally sorted over [0, 2N)
+    (``kgc_gcn_tpu/data/graph.py:278-297``)."""
+    cat = lambda name: np.concatenate([getattr(inb, name).numpy(),
+                                       getattr(outb, name).numpy()])
+    src, rel, norm = cat("src"), cat("rel"), cat("norm")
+    dst2 = np.concatenate([inb.dst.numpy(),
+                           outb.dst.numpy() + n_ent]).astype(np.int32)
+    sperm = np.argsort(src, kind="stable").astype(np.int32)
+    rperm = np.argsort(rel, kind="stable").astype(np.int32)
+    i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))
+    return GraphStacked(
+        src=i32(src), dst2=i32(dst2), rel=i32(rel),
+        norm=torch.from_numpy(np.ascontiguousarray(norm, np.float32)),
+        indptr=i32(_csr_pointers(dst2, 2 * n_ent)), sperm=i32(sperm),
+        s_indptr=i32(_csr_pointers(src, n_ent)), s_src=i32(src[sperm]),
+        rperm=i32(rperm), r_indptr=i32(_csr_pointers(rel, n_rel_rows)),
+        r_rel=i32(rel[rperm]))

@@ -5,8 +5,11 @@
     ``(2, E_pad, d_in)``: ``[0]`` holds the in-half's edges in its dst-sorted
     order, ``[1]`` the out-half's (reference model.py:16-18).
   * One relational conv layer: per-edge messages ``x[src] * rel * edge``
-    aggregated per direction half through the CSR segment-sum kernel, the
-    direction weights applied after aggregation, a dense self-loop term,
+    aggregated per direction half through the CSR segment-sum kernel K1
+    (``spmm_mode=halves``; with ``ew_impl=pallas`` the compose and the
+    backward's products run through K4a/K4b), or both halves at once over
+    the stacked view (``stacked_xla``: K1 over 2N rows; ``stacked``: K3),
+    the direction weights applied after aggregation, a dense self-loop term,
     ``(in + out + loop) / 3``, BatchNorm, tanh; relations projected by
     ``rels_weight`` without the appended loop relation (model.py:82-118).
   * ``encode`` runs once per graph (per step in training); ``decode``,
@@ -24,6 +27,7 @@ used as ``x @ W``), so ``convert.py`` maps a JAX model onto this one by name.
 
 from __future__ import annotations
 
+import logging
 import math
 from typing import Dict, Optional, Tuple
 
@@ -35,8 +39,10 @@ from kgc_gcn_torch.data.graph import Graph, padded_edge_count
 from kgc_gcn_torch.models.common import BatchNorm, dropout, mm, xavier_uniform
 from kgc_gcn_torch.models.decoders import ConvE
 from kgc_gcn_torch.models.family_base import DecoderFamilyMixin
+from kgc_gcn_torch.ops.fused_compose import aggregate_stacked
 from kgc_gcn_torch.ops.kernels import KERNELS, Kernels
-from kgc_gcn_torch.ops.scatter import aggregate_half, loop_messages
+from kgc_gcn_torch.ops.scatter import (
+    aggregate_half, aggregate_stacked_xla, loop_messages)
 
 
 class MGCNConv(nn.Module):
@@ -82,23 +88,57 @@ class MGCN(DecoderFamilyMixin, nn.Module):
         b = math.sqrt(6.0 / (2 * n_edge + d_in))
         self.edge_embeddings = nn.Parameter(torch.empty(
             2, self.e_pad, d_in).uniform_(-b, b, generator=generator))
+        # the JAX package's two warnings (mgcn.py:143-157)
+        if cfg.spmm_mode == "stacked_xla" and cfg.compute_dtype == "bfloat16":
+            logging.warning(
+                "spmm_mode=stacked_xla with compute_dtype=bfloat16: the JAX "
+                "package measured this slower than spmm_mode=halves on its "
+                "TPU at FB15k scale (BENCH_NOTES round 3); use "
+                "spmm_mode=halves with bfloat16.")
+        if cfg.spmm_mode != "halves" and (cfg.bwd_perm != "contrib"
+                                          or cfg.ew_impl != "xla"):
+            logging.warning(
+                "spmm_mode=%s uses the contrib backward and the plain "
+                "elementwise path; non-default bwd_perm/ew_impl are IGNORED "
+                "(A/B those flags with spmm_mode=halves)", cfg.spmm_mode)
 
     def encode(self, graph: Graph, train: bool = False,
                rngs: Optional[Dict[str, torch.Generator]] = None,
                kernels: Kernels = KERNELS
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-graph encoder -> (all_ent (N, d_out), all_rel (2R, d_out)).
-        ``kernels`` selects the segment-sum (default: K1 on the card)."""
+        The aggregation follows ``cfg.spmm_mode`` and ``cfg.ew_impl``
+        (``mgcn.py:272-316,456-488``); ``kernels`` selects the kernels or
+        their plain versions (default: the kernels on the card)."""
         cfg = self.cfg
         rngs = rngs or {}
         c = self.conv
         dt = cfg.compute_dtype
         x = self.entity_embedding
         rel_all = torch.cat([self.relation_embedding, c.loop_rel], dim=0)
-        in_agg, out_agg = (
-            aggregate_half(x, rel_all, self.edge_embeddings[i], half,
-                           self.n_ent, dt, kernels.seg_sum)
-            for i, half in enumerate((graph.inb, graph.outb)))
+        if cfg.spmm_mode in ("stacked", "stacked_xla"):
+            # the whole positional table as (2*E_pad, d_in), a view:
+            # stacked position k is its row k
+            etab2 = self.edge_embeddings.reshape(2 * self.e_pad, -1)
+            if cfg.spmm_mode == "stacked":
+                # one K3 launch for both halves, float32 messages whatever
+                # compute_dtype is (mgcn.py:286-299)
+                in_agg, out_agg = aggregate_stacked(
+                    x, rel_all, etab2, graph.stacked, self.n_ent,
+                    kernels.fused_compose, kernels.seg_sum)
+            else:
+                # one K1 launch over 2N rows, messages in compute_dtype
+                # (mgcn.py:272-285)
+                in_agg, out_agg = aggregate_stacked_xla(
+                    x, rel_all, etab2, graph.stacked, self.n_ent, dt,
+                    kernels.seg_sum)
+        else:
+            ew = ((kernels.compose_msg, kernels.bwd_products)
+                  if cfg.ew_impl == "pallas" else None)
+            in_agg, out_agg = (
+                aggregate_half(x, rel_all, self.edge_embeddings[i], half,
+                               self.n_ent, dt, kernels.seg_sum, ew=ew)
+                for i, half in enumerate((graph.inb, graph.outb)))
         loop_res = mm(loop_messages(x, c.loop_rel, c.loop_edge),
                       c.loop_weight, dt)
         # (drop(in) + drop(out) + loop) / 3 — the loop term is NOT dropped

@@ -16,6 +16,10 @@ from typing import Callable
 from kgc_gcn_torch.ops.basis import (
     basis_backward, basis_backward_reference, basis_segment_sum,
     basis_segment_sum_reference)
+from kgc_gcn_torch.ops.elementwise import (
+    bwd_products, bwd_products_reference, compose_msg, compose_msg_reference)
+from kgc_gcn_torch.ops.fused_compose import (
+    fused_compose, fused_compose_reference)
 from kgc_gcn_torch.ops.fused_loss import (
     dense_grads, dense_grads_reference, dense_loss, dense_loss_reference)
 from kgc_gcn_torch.ops.segment_max import segment_max, segment_max_reference
@@ -30,10 +34,16 @@ class Kernels:
     basis_sum: Callable      # K7
     basis_bwd: Callable      # K8
     seg_max: Callable        # K5
+    fused_compose: Callable  # K3
+    compose_msg: Callable    # K4a
+    bwd_products: Callable   # K4b
 
 
 KERNELS = Kernels(segment_sum, dense_loss, dense_grads, basis_segment_sum,
-                  basis_backward, segment_max)
+                  basis_backward, segment_max, fused_compose, compose_msg,
+                  bwd_products)
 PLAIN = Kernels(segment_sum_reference, dense_loss_reference,
                 dense_grads_reference, basis_segment_sum_reference,
-                basis_backward_reference, segment_max_reference)
+                basis_backward_reference, segment_max_reference,
+                fused_compose_reference, compose_msg_reference,
+                bwd_products_reference)

@@ -1,17 +1,35 @@
 """Relational message aggregation with its backward (the ``mult`` composition
 of ``kgc_gcn_tpu/ops/scatter.py`` and ``kgc_gcn_tpu/ops/spmm_pallas.py:
-_aggregate_cvjp``, ``_agg_fwd``, ``_agg_bwd``, ``_segment_sum_few``).
+_aggregate_cvjp``, ``_agg_fwd``, ``_agg_bwd``, ``_segment_sum_few``,
+``aggregate_stacked_xla``).
 
 Per edge the message is ``x[src] * rel_all[rel] * etab`` scaled by the degree
 norm; the dense projection comes after aggregation (``(Σ m) @ W == Σ (m @ W)``),
 so the segment-sum runs in ``d_in`` and the projection is one (N, d_in) matmul.
 Self-loop messages need no scatter: their aggregation is a dense product.
 
-The backward keeps the JAX package's default schedule (``bwd_perm=contrib``,
-``ew_impl=xla``, ``rel_compose=gather``): the three cotangent products are
-composed in dst order, ``contrib`` is permuted into src order and summed by K1
-over ``s_indptr`` into d_x, and the relation gradient is a sum into the
-``2R+1`` relation rows (``segment_sum_few``).
+The MGCN schedules of ``spmm_mode`` and ``ew_impl`` (``models/mgcn.py``):
+
+  * ``halves`` (default): ``aggregate_half`` per direction half.  The message
+    is composed in plain tensor ops and summed by K1 over dst; the backward's
+    three cotangent products are composed in dst order, ``contrib`` is
+    permuted into src order and summed by K1 over ``s_indptr`` into d_x, and
+    the relation gradient is a sum into the ``2R+1`` relation rows
+    (``segment_sum_few``).
+  * ``halves`` with ``ew_impl=pallas``: the same, with the forward's compose
+    in one pass of K4a and the backward's three products in one pass of K4b
+    (``ops/elementwise.py``).  Unlike the JAX package, which falls back to
+    XLA for an edge count with no 128-multiple tile, the card's kernels take
+    any E.
+  * ``stacked_xla``: ``aggregate_stacked_xla``, the halves path over the
+    stacked view (``Graph.stacked``): one K1 launch over 2N rows forward, one
+    over the stacked src order for d_x.
+  * ``stacked``: ``ops/fused_compose.py:aggregate_stacked`` (K3).
+
+The JAX package's other backward schedules (``bwd_perm`` ``operands`` and
+``fwdw``) and its one-hot relation rows (``rel_compose=onehot``) compute the
+same gradients in another order of operations on the TPU; the port runs
+``contrib`` and the gather.
 """
 
 from __future__ import annotations
@@ -63,17 +81,26 @@ def segment_sum_few(vals: torch.Tensor, ids: torch.Tensor, n_seg: int,
 
 
 class _Aggregate(torch.autograd.Function):
-    """Compose + segment-sum of one direction half, with the gradients with
-    respect to ``x``, ``rel_all`` and ``etab``."""
+    """Compose + segment-sum of one direction half (or of the stacked view,
+    over 2N rows), with the gradients with respect to ``x``, ``rel_all`` and
+    ``etab``.  ``ew`` is None (compose in plain tensor ops) or the pair
+    ``(compose_msg, bwd_products)`` (K4a and K4b, ``ew_impl=pallas``)."""
 
     @staticmethod
-    def forward(ctx, x, rel_all, etab, half: GraphHalf, n_ent: int,
-                msg_dtype: torch.dtype, seg_sum: Callable, few_limit: int):
-        msg = compose_messages(x, rel_all, etab, half).to(msg_dtype)
+    def forward(ctx, x, rel_all, etab, half: GraphHalf, n_rows: int,
+                msg_dtype: torch.dtype, seg_sum: Callable, few_limit: int,
+                ew: Optional[Tuple[Callable, Callable]]):
+        if ew is None:
+            msg = compose_messages(x, rel_all, etab, half).to(msg_dtype)
+        else:
+            # one pass from the norm-folded source rows, in the order of
+            # spmm_pallas.py:565-567 ((x[src] * norm) * rg * etab)
+            xgn = x[half.src.long()] * half.norm[:, None]
+            msg = ew[0](xgn, rel_all[half.rel.long()], etab, msg_dtype)
         ctx.save_for_backward(x, rel_all, etab)
-        ctx.half, ctx.msg_dtype = half, msg_dtype
+        ctx.half, ctx.msg_dtype, ctx.ew = half, msg_dtype, ew
         ctx.seg_sum, ctx.few_limit = seg_sum, few_limit
-        return seg_sum(msg, half.dst, half.indptr, n_ent)
+        return seg_sum(msg, half.dst, half.indptr, n_rows)
 
     @staticmethod
     def backward(ctx, g):
@@ -82,22 +109,30 @@ class _Aggregate(torch.autograd.Function):
         xg = x[half.src.long()]
         rg = rel_all[half.rel.long()]
         gd = g[half.dst.long()] * half.norm[:, None]    # (E, D) per-edge cotangent
-        contrib = gd * rg * etab
-        d_rel_in = gd * xg * etab
-        # the table slice is stored in this edge order (positional), so its
-        # gradient is the dense per-edge product; padding rows have norm 0
-        d_etab = gd * xg * rg
-        if ctx.msg_dtype != torch.float32:
-            # bf16 message mode: cast before the permutation gather, which
-            # halves the bytes it moves (BF16_CAST='pre', spmm_pallas.py:669-677)
-            contrib = contrib.to(ctx.msg_dtype)
-            d_rel_in = d_rel_in.to(ctx.msg_dtype)
+        if ctx.ew is not None:
+            # the three products in one pass (spmm_pallas.py:651-658);
+            # contrib and d_rel_in come out in the message type
+            contrib, d_rel_in, d_etab = ctx.ew[1](gd, xg, rg, etab,
+                                                  ctx.msg_dtype)
+        else:
+            contrib = gd * rg * etab
+            d_rel_in = gd * xg * etab
+            # the table slice is stored in this edge order (positional), so
+            # its gradient is the dense per-edge product; padding rows have
+            # norm 0
+            d_etab = gd * xg * rg
+            if ctx.msg_dtype != torch.float32:
+                # bf16 message mode: cast before the permutation gather,
+                # which halves the bytes it moves (BF16_CAST='pre',
+                # spmm_pallas.py:669-677)
+                contrib = contrib.to(ctx.msg_dtype)
+                d_rel_in = d_rel_in.to(ctx.msg_dtype)
         dx = seg_sum(contrib[half.sperm.long()], half.s_src, half.s_indptr,
                      x.shape[0])
         d_rel = segment_sum_few(d_rel_in, half.rel, rel_all.shape[0],
                                 (half.rperm, half.r_indptr, half.r_rel),
                                 seg_sum, ctx.few_limit)
-        return dx, d_rel, d_etab, None, None, None, None, None
+        return dx, d_rel, d_etab, None, None, None, None, None, None
 
 
 def aggregate_half(
@@ -109,6 +144,7 @@ def aggregate_half(
     msg_dtype: str = "float32",
     seg_sum: Callable = segment_sum,
     few_limit: Optional[int] = None,
+    ew: Optional[Tuple[Callable, Callable]] = None,
 ) -> torch.Tensor:
     """Compose + segment-sum one direction half -> ``(N, d_in)`` float32,
     differentiable in ``x``, ``rel_all`` and ``etab``.
@@ -118,10 +154,33 @@ def aggregate_half(
     package's ``compute_dtype=bfloat16`` message mode); sums accumulate in
     float32 either way.  ``seg_sum`` lets a caller run the same aggregation
     through the plain segment-sum on any device; ``few_limit`` overrides
-    ``ONEHOT_LIMIT`` for the relation gradient's sum."""
+    ``ONEHOT_LIMIT`` for the relation gradient's sum.  ``ew`` is the pair
+    ``(compose_msg, bwd_products)`` of ``ew_impl=pallas`` (K4a and K4b, or
+    their plain versions), or None."""
     return _Aggregate.apply(
         x, rel_all, etab, half, n_ent, _DTYPES[msg_dtype], seg_sum,
-        ONEHOT_LIMIT if few_limit is None else few_limit)
+        ONEHOT_LIMIT if few_limit is None else few_limit, ew)
+
+
+def aggregate_stacked_xla(
+    x: torch.Tensor,
+    rel_all: torch.Tensor,
+    etab2: torch.Tensor,      # (2 * E_pad, d): the whole table, stacked order
+    stacked,                  # data.graph.GraphStacked
+    n_ent: int,
+    msg_dtype: str = "float32",
+    seg_sum: Callable = segment_sum,
+    few_limit: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both halves through one K1 launch (``spmm_pallas.py:
+    aggregate_stacked_xla``): the per-half aggregation over the stacked view
+    with ``n_rows = 2N``, whose dst ids span [0, 2N); the backward's d_x sums
+    both halves' cotangents over the stacked src order in one K1 launch.
+    Returns ``(in_agg, out_agg)``, each ``(N, d)`` float32."""
+    out = _Aggregate.apply(
+        x, rel_all, etab2, stacked, 2 * n_ent, _DTYPES[msg_dtype], seg_sum,
+        ONEHOT_LIMIT if few_limit is None else few_limit, None)
+    return out[:n_ent], out[n_ent:]
 
 
 def loop_messages(

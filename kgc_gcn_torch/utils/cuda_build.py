@@ -114,6 +114,14 @@ def load_kernels(force_build: bool = False) -> KernelLibrary:
     lib.kgc_basis_bwd.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
                                   vp]
     lib.kgc_basis_bwd.restype = i32
+    lib.kgc_fused_compose.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32,
+                                      i32, i32, i32, i32, vp]
+    lib.kgc_fused_compose.restype = i32
+    i64 = ctypes.c_int64
+    lib.kgc_compose_msg.argtypes = [vp, vp, vp, vp, i32, i64, vp]
+    lib.kgc_compose_msg.restype = i32
+    lib.kgc_bwd_products.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i64, vp]
+    lib.kgc_bwd_products.restype = i32
     lib.kgc_cuda_error_string.argtypes = [i32]
     lib.kgc_cuda_error_string.restype = ctypes.c_char_p
     _LOADED = KernelLibrary(lib, path, seconds, log)

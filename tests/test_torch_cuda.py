@@ -1,8 +1,9 @@
 """Tests of the port that need an NVIDIA card: each CUDA kernel against its
 plain PyTorch version on the card, the encoder through the kernels, the
 RGAT attention wrappers' gradients through K1, and one training step through
-the kernels against the same step in plain PyTorch (MGCN 1-vs-all, R-GCN on
-sampled negatives, RGAT 1-vs-all).
+the kernels against the same step in plain PyTorch (MGCN 1-vs-all, also
+under each aggregation schedule; R-GCN on sampled negatives, RGAT
+1-vs-all).
 
 This file imports neither JAX nor kgc_gcn_tpu, so that it runs on a machine
 with a card and no JAX (tests/conftest.py imports JAX, hence --noconftest):
@@ -499,3 +500,151 @@ def test_rgat_kernel_step_matches_plain_step(cuda):
         up = plain.params[i].detach() - before[i]
         agree = torch.isclose(uk, up, rtol=1e-3, atol=1e-7)
         assert float(agree.float().mean()) > 0.999
+
+
+# K4a / K4b: elementwise products in the plain version's order, each rounded
+# once, so kernel and plain version agree to the bit on any input.  Cases:
+# the path's shape (a multiple of 4 elements, float4 path), a tail of
+# (E*d) % 4 elements, and views at a row offset that are not 16-byte aligned
+# (the scalar path).
+EW_CASES = {"path": (4096, 100, 0), "tail": (1001, 37, 0),
+            "misaligned": (1001, 37, 1), "misaligned_d100": (257, 100, 3)}
+
+
+def ew_operands(n: int, case: str, cuda):
+    e, d, offset = EW_CASES[case]
+    gen = torch.Generator().manual_seed(e + d)
+    return [torch.randn(e + offset, d, generator=gen).to(cuda)[offset:]
+            for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(EW_CASES))
+def test_elementwise_kernels_match_plain(cuda, case, out_dtype):
+    from kgc_gcn_torch.ops.elementwise import (
+        bwd_products, bwd_products_reference, compose_msg,
+        compose_msg_reference)
+    dt = getattr(torch, out_dtype)
+    xgn, rg, etab = ew_operands(3, case, cuda)
+    gdn, xg = ew_operands(2, case, cuda)
+    before = (compose_msg.launches, bwd_products.launches)
+    got = compose_msg(xgn, rg, etab, dt)
+    got_b = bwd_products(gdn, xg, rg, etab, dt)
+    torch.cuda.synchronize()
+    assert (compose_msg.launches, bwd_products.launches) == (before[0] + 1,
+                                                             before[1] + 1)
+    assert got.dtype == dt and got.shape == xgn.shape
+    torch.testing.assert_close(got, compose_msg_reference(xgn, rg, etab, dt),
+                               rtol=0, atol=0)
+    want_b = bwd_products_reference(gdn, xg, rg, etab, dt)
+    assert [t.dtype for t in got_b] == [dt, dt, torch.float32]
+    for a, b in zip(got_b, want_b):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def stacked_case(counts, d: int, seed: int, real: bool):
+    """K3's operands on the card over CSR rows with the given edge counts:
+    x (40, d), rel_all (7, d), etab (E, d), norm (E,), random src and rel;
+    multiples of 2**-3 below 1 (every product and partial sum exact in
+    float32), or normal values with ``real``."""
+    rng = np.random.default_rng(seed)
+    _, dst, indptr = csr_case(counts, 1, seed)
+    e = len(dst)
+    draw = ((lambda *s: rng.normal(size=s)) if real else
+            (lambda *s: rng.integers(-7, 8, size=s) / 8))
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32))
+    return [t.to("cuda") for t in (
+        f32(draw(40, d)), i32(rng.integers(0, 40, e)), f32(draw(e)),
+        f32(draw(7, d)), i32(rng.integers(0, 7, e)), f32(draw(e, d)),
+        i32(dst), i32(indptr))] + [len(counts)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("real", [False, True])
+@pytest.mark.parametrize("case", sorted(case_counts()))
+def test_fused_compose_kernel_matches_plain(cuda, case, real):
+    """K3 against its plain version: bit-equal on dyadic inputs; on normal
+    values float32 sums in another order (rtol 1e-5, atol 1e-5 x max)."""
+    from kgc_gcn_torch.ops.fused_compose import (
+        fused_compose, fused_compose_reference)
+    counts, d = case_counts()[case]
+    args = stacked_case(counts, d, seed=2, real=real)
+    before = fused_compose.launches
+    got = fused_compose(*args)
+    torch.cuda.synchronize()
+    assert fused_compose.launches == before + 1
+    want = fused_compose_reference(*args)
+    tol = 1e-5 if real else 0.0
+    torch.testing.assert_close(got, want, rtol=tol,
+                               atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule,per_step", [
+    ("stacked", dict(K1=1, K3=1)), ("stacked_xla", dict(K1=2)),
+    ("ew_pallas", dict(K1=4, K4a=2, K4b=2))])
+def test_mgcn_schedule_kernel_step_matches_plain_step(cuda, schedule,
+                                                      per_step):
+    """One MGCN 1-vs-all step with dropout under one aggregation schedule,
+    through the kernels and through the plain versions (same weights and
+    dropout masks): launches, loss, gradients and updates."""
+    import copy
+
+    from kgc_gcn_torch.config import dataset_preset
+    from kgc_gcn_torch.convert import jax_leaf_names
+    from kgc_gcn_torch.data.batching import make_banks
+    from kgc_gcn_torch.data.dataset import build_dataset
+    from kgc_gcn_torch.data.graph import build_graph
+    from kgc_gcn_torch.data.toy import toy_triples
+    from kgc_gcn_torch.models import build_model
+    from kgc_gcn_torch.ops.elementwise import bwd_products, compose_msg
+    from kgc_gcn_torch.ops.fused_compose import fused_compose
+    from kgc_gcn_torch.train import optim
+    from kgc_gcn_torch.train.loop import Trainer
+
+    field = ({"ew_impl": "pallas"} if schedule == "ew_pallas"
+             else {"spmm_mode": schedule})
+    counters = {"K1": segment_sum, "K3": fused_compose, "K4a": compose_msg,
+                "K4b": bwd_products}
+    ds = build_dataset("toy", *toy_triples(n_ent=40, n_rel=5, n_train=300))
+    graph = build_graph(ds.train_triples, ds.num_entity,
+                        ds.num_relation).to(cuda)
+    banks = make_banks(ds, cuda)
+    cfg = dataset_preset("Toy", gcn_in_dim=16, gcn_out_dim=32, k_w=4, k_h=8,
+                         num_filter=4, kernel_size=3, batch_size=16,
+                         gcn_drop=0.2, feat_drop=0.2, hidden_drop=0.3, seed=5,
+                         **field)
+    model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
+                        e_pad=graph.e_pad).to(cuda)
+    kernel = Trainer(cfg, model, graph, banks)
+    plain = Trainer(cfg, copy.deepcopy(model), graph, banks, plain=True)
+    bank = banks["train"]
+    idx = torch.arange(16, device=cuda)
+    batch = (bank.queries[idx], bank.label_idx[idx], torch.ones(16, device=cuda))
+    before = [p.detach().clone() for p in kernel.params]
+    out = {}
+    for name, t in (("kernel", kernel), ("plain", plain)):
+        t.generator.manual_seed(9)
+        start = {k: f.launches for k, f in counters.items()}
+        loss = t.loss(*batch)
+        grads = torch.autograd.grad(loss, t.params)
+        optim.step(t.params, list(grads), t.opt_state, cfg, 1e-3)
+        out[name] = (loss.detach(), grads, {
+            k: f.launches - start[k] for k, f in counters.items()})
+    assert out["kernel"][2] == {k: per_step.get(k, 0) for k in counters}
+    assert not any(out["plain"][2].values())
+    # float32 sums in another order through one forward and backward pass
+    torch.testing.assert_close(out["kernel"][0], out["plain"][0], rtol=1e-5,
+                               atol=0.0)
+    for i, name in enumerate(jax_leaf_names(cfg)[0]):
+        if name in ("decoder.bn0.scale", "decoder.bn0.bias"):
+            continue   # BN1 cancels them: float noise on both sides
+        gk, gp = out["kernel"][1][i], out["plain"][1][i]
+        torch.testing.assert_close(gk, gp, rtol=1e-3,
+                                   atol=1e-4 * float(gp.abs().max()), msg=name)
+        uk = kernel.params[i].detach() - before[i]
+        up = plain.params[i].detach() - before[i]
+        agree = torch.isclose(uk, up, rtol=1e-3, atol=1e-7)
+        assert float(agree.float().mean()) > 0.999, name

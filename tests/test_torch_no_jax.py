@@ -45,7 +45,8 @@ def test_importing_the_port_loads_no_jax():
             "kgc_gcn_torch.ops.scatter, kgc_gcn_torch.ops.basis, "
             "kgc_gcn_torch.ops.kernels, kgc_gcn_torch.models.rgcn, "
             "kgc_gcn_torch.train.negative, kgc_gcn_torch.ops.segment_max, "
-            "kgc_gcn_torch.ops.sorted_ops, kgc_gcn_torch.models.rgat\n"
+            "kgc_gcn_torch.ops.sorted_ops, kgc_gcn_torch.models.rgat, "
+            "kgc_gcn_torch.ops.elementwise, kgc_gcn_torch.ops.fused_compose\n"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'kgc_gcn_tpu'))\n"
             "print(bad)\n")
