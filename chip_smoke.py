@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of kgc_gcn_torch, the PyTorch/CUDA port, on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--kernels-only]
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: require a CUDA card, print its name and power limit;
   2. build: compile the port's CUDA kernels from kgc_gcn_torch/csrc;
   3. kernels: hold each kernel against its plain PyTorch version on the card
      at the shapes the training and serving paths give it, plus an edge case:
-     K1 (segment-sum) in dst, src and rel order and at RGAT's widths 4 and
-     200, K2a / K2b (fused score + BCE, forward and backward), K7 / K8
+     K1 (segment-sum) in dst, src and rel order, at RGAT's widths 4 and 200,
+     on a power-law graph at FB15k-237's counts and in that graph's rel
+     order, and twice on normal values (bit-identical calls), K2a / K2b
+     (fused score + BCE, forward and backward), K7 / K8
      (basis R-GCN aggregation and its backward; bit-equal on dyadic inputs,
      then real values), K5 (segment-max), K4a / K4b (the one-pass compose
      and backward products, bit-equal on any input, also ragged and
@@ -58,6 +60,10 @@ any order, so kernel and plain version must agree to the bit; K5
 (products in the plain version's order) are exact on any input.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Nothing of JAX is imported.
+
+--kernels-only runs phases 1-3 and K1's time rows (each with its two
+passes' device times), then prints K1's entry and the last line: a quick
+check of the kernels that drives no path (K1's launch counts are 0).
 """
 
 from __future__ import annotations
@@ -358,6 +364,59 @@ def half_case(half, n_rows: int, d: int, dtype, gen, order: str = "dst"):
                       "rel": (half.rperm, half.r_rel, half.r_indptr)}[order]
     return (msg[perm.cuda().long()].contiguous(), ids.cuda(), ptr.cuda(),
             int(ptr.shape[0]) - 1)
+
+
+def synthetic_graphs(seed: int, corpus_root: str):
+    """The WN18RR-shaped corpus, written under ``corpus_root``, as a dataset
+    and its graph; a graph of random triples at FB15k-237's counts; and
+    in-degrees of a power law at FB15k-237's counts (row ~ rank**-1.1)."""
+    from kgc_gcn_torch.data.dataset import load_dataset
+    from kgc_gcn_torch.data.graph import build_graph
+    write_corpus(os.path.join(corpus_root, "SYN"), seed, WN18RR)
+    ds = load_dataset("SYN", corpus_root)
+    graph = build_graph(ds.train_triples, ds.num_entity, ds.num_relation)
+    n_fb, r_fb, e_fb = FB15K237[:3]
+    rng = np.random.default_rng(seed + 1)
+    fb_tri = np.stack([rng.integers(n_fb, size=e_fb),
+                       rng.integers(r_fb, size=e_fb),
+                       rng.integers(n_fb, size=e_fb)], axis=1)
+    fb_graph = build_graph(fb_tri, n_fb, r_fb)
+    rank_w = (rng.permutation(n_fb) + 1.0) ** -1.1
+    power_counts = np.bincount(rng.choice(n_fb, size=e_fb,
+                                          p=rank_w / rank_w.sum()),
+                               minlength=n_fb)
+    return ds, graph, fb_graph, power_counts
+
+
+def k1_cases(ds, graph, fb_graph, power_counts, d: int, gen) -> dict:
+    """K1's operands on the card, dyadic messages of width ``d`` unless
+    stated, at the shapes the paths give it."""
+    n_wn, n_fb = ds.num_entity, FB15K237[0]
+    f32, bf16 = torch.float32, torch.bfloat16
+    return {
+        "wn18rr_f32": half_case(graph.inb, n_wn, d, f32, gen),
+        "fb15k237_bf16": half_case(fb_graph.inb, n_fb, d, bf16, gen),
+        # the backward's uses: d_x over src-sorted edges, d_rel over
+        # rel-sorted edges (the K1 branch of segment_sum_few)
+        "wn18rr_src_f32": half_case(graph.inb, n_wn, d, f32, gen, "src"),
+        "wn18rr_rel_f32": half_case(graph.outb, n_wn, d, f32, gen, "rel"),
+        "fb15k237_src_bf16": half_case(fb_graph.inb, n_fb, d, bf16, gen,
+                                       "src"),
+        "fb15k237_rel_bf16": half_case(fb_graph.outb, n_fb, d, bf16, gen,
+                                       "rel"),
+        # RGAT's widths: D 4 (the softmax denominator, and the per-edge
+        # gathers' backward), D 200 (the aggregation; src order: the edge
+        # message's d_h)
+        "wn18rr_d4_f32": half_case(graph.inb, n_wn, 4, f32, gen),
+        "wn18rr_d200_f32": half_case(graph.inb, n_wn, 200, f32, gen),
+        "wn18rr_src_d200_f32": half_case(graph.inb, n_wn, 200, f32, gen,
+                                         "src"),
+        # power-law hubs (no padding) and FB15k-237's rel order in float32
+        "fb15k237_powerlaw_f32": csr_case(power_counts, d, f32, gen),
+        "fb15k237_powerlaw_bf16": csr_case(power_counts, d, bf16, gen),
+        "fb15k237_rel_f32": half_case(fb_graph.outb, n_fb, d, f32, gen,
+                                      "rel"),
+    }
 
 
 def k2_case(b: int, n: int, d: int, masked, gen):
@@ -665,6 +724,8 @@ def served_encode(run_dir: str, ds, graph, banks, queries, logged: dict,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="phases 1-3 and K1's time rows only")
     args = ap.parse_args()
 
     # 1. device ---------------------------------------------------------------
@@ -719,14 +780,9 @@ def main() -> int:
     t0 = time.perf_counter()
     work = tempfile.TemporaryDirectory()
     corpus_root = os.path.join(work.name, "data")
-    write_corpus(os.path.join(corpus_root, "SYN"), args.seed, WN18RR)
-    ds = load_dataset("SYN", corpus_root)
-    graph = build_graph(ds.train_triples, ds.num_entity, ds.num_relation)
-    n_fb, r_fb, e_fb = FB15K237[:3]
-    rng = np.random.default_rng(args.seed + 1)
-    fb_tri = np.stack([rng.integers(n_fb, size=e_fb), rng.integers(r_fb, size=e_fb),
-                       rng.integers(n_fb, size=e_fb)], axis=1)
-    fb_graph = build_graph(fb_tri, n_fb, r_fb)
+    ds, graph, fb_graph, power_counts = synthetic_graphs(args.seed,
+                                                         corpus_root)
+    n_fb = FB15K237[0]
     log(f"[data] {ds.num_entity} entities, {ds.num_relation} relations, "
         f"{ds.num_edge} train edges (E_pad {graph.e_pad}), "
         f"{ds.num_train_queries} train queries; FB15k-237-shaped graph E_pad "
@@ -736,31 +792,10 @@ def main() -> int:
     hub = torch.randint(0, 4, (1001,), generator=gen)
     hub[[0, 500, 1000]] = 0
     hub[123] = 5000
-    cases = {
-        "wn18rr_f32": half_case(graph.inb, ds.num_entity, d_in, torch.float32, gen),
-        "fb15k237_bf16": half_case(fb_graph.inb, n_fb, d_in, torch.bfloat16, gen),
-        "edge_f32": csr_case(hub, 37, torch.float32, gen),
-        "edge_bf16": csr_case(hub, 37, torch.bfloat16, gen),
-        # the backward's uses: d_x over src-sorted edges, d_rel over
-        # rel-sorted edges (the K1 branch of segment_sum_few)
-        "wn18rr_src_f32": half_case(graph.inb, ds.num_entity, d_in,
-                                    torch.float32, gen, "src"),
-        "wn18rr_rel_f32": half_case(graph.outb, ds.num_entity, d_in,
-                                    torch.float32, gen, "rel"),
-        "fb15k237_src_bf16": half_case(fb_graph.inb, n_fb, d_in,
-                                       torch.bfloat16, gen, "src"),
-        "fb15k237_rel_bf16": half_case(fb_graph.outb, n_fb, d_in,
-                                       torch.bfloat16, gen, "rel"),
-        # RGAT's widths: D 4 (the softmax denominator, and the per-edge
-        # gathers' backward), D 200 (the aggregation; src order: the edge
-        # message's d_h)
-        "wn18rr_d4_f32": half_case(graph.inb, ds.num_entity, 4, torch.float32,
-                                   gen),
-        "wn18rr_d200_f32": half_case(graph.inb, ds.num_entity, 200,
-                                     torch.float32, gen),
-        "wn18rr_src_d200_f32": half_case(graph.inb, ds.num_entity, 200,
-                                         torch.float32, gen, "src"),
-    }
+    cases = k1_cases(ds, graph, fb_graph, power_counts, d_in, gen)
+    timed = list(cases)
+    cases["edge_f32"] = csr_case(hub, 37, torch.float32, gen)
+    cases["edge_bf16"] = csr_case(hub, 37, torch.bfloat16, gen)
     errs = {}
     for name, (msg, dst, indptr, n_rows) in cases.items():
         got = segment_sum(msg, dst, indptr, n_rows)
@@ -770,7 +805,22 @@ def main() -> int:
         torch.testing.assert_close(got, want, rtol=KERNEL_TOL, atol=KERNEL_TOL,
                                    msg=name)
         log(f"[K1 check] {name}: E={msg.shape[0]} D={msg.shape[1]} "
-            f"rows={n_rows} max_abs_err={errs[name]:.3g} (tol {KERNEL_TOL})")
+            f"rows={n_rows} largest row {int((indptr[1:] - indptr[:-1]).max())}"
+            f" edges; max_abs_err={errs[name]:.3g} (tol {KERNEL_TOL})")
+    # normal values, whose float32 sums depend on their order: each row's
+    # order is fixed, so two calls give the same bits
+    msg, dst, indptr, n_rows = cases["fb15k237_powerlaw_f32"]
+    real = torch.randn(msg.shape, generator=gen).to(device)
+    first = segment_sum(real, dst, indptr, n_rows)
+    if not torch.equal(first, segment_sum(real, dst, indptr, n_rows)):
+        raise AssertionError("K1: two calls on the same inputs differ")
+    k1_real_err = close_rel(first, segment_sum_reference(real, dst, indptr,
+                                                         n_rows),
+                            BASIS_RTOL, BASIS_ATOL, "K1 real values")
+    log(f"[K1 check] fb15k237_powerlaw_f32 on normal values: two calls "
+        f"bit-identical; max_abs_err vs index_add_ {k1_real_err:.3g} (rtol "
+        f"{BASIS_RTOL}, atol {BASIS_ATOL} x max)")
+    del real, first
 
     cfg0 = dataset_preset("WN18RR")
     b_main, d_out = cfg0.batch_size, cfg0.gcn_out_dim
@@ -972,18 +1022,16 @@ def main() -> int:
 
     # 4. timing -----------------------------------------------------------------
     # The graph pads each half with zero-norm edges, all in row N-1 of the
-    # dst order (and in row 0 of the src order): one serial hub row.
+    # dst order (and in row 0 of the src order): one hub row.
     # "ms_without_padding" times the forward with those edges cut off
     # (indptr[-1] = e_real, same messages) to size that row's cost.
     timings = {}
-    for name, e_real in (("wn18rr_f32", graph.inb.e_real),
-                         ("fb15k237_bf16", fb_graph.inb.e_real),
-                         ("wn18rr_src_f32", None), ("wn18rr_rel_f32", None),
-                         ("fb15k237_src_bf16", None),
-                         ("fb15k237_rel_bf16", None),
-                         ("wn18rr_d4_f32", graph.inb.e_real),
-                         ("wn18rr_d200_f32", graph.inb.e_real),
-                         ("wn18rr_src_d200_f32", None)):
+    padded = {"wn18rr_f32": graph.inb.e_real,
+              "fb15k237_bf16": fb_graph.inb.e_real,
+              "wn18rr_d4_f32": graph.inb.e_real,
+              "wn18rr_d200_f32": graph.inb.e_real}
+    for name in timed:
+        e_real = padded.get(name)
         msg, dst, indptr, n_rows = cases[name]
         dst_long, msg_f32 = dst.long(), msg.float()
         lib_out = torch.zeros(n_rows, msg.shape[1], device=device)
@@ -998,13 +1046,25 @@ def main() -> int:
             fns["ms_without_padding"] = lambda: segment_sum(msg, dst, cut, n_rows)
         t = time_in_turns(fns)
         t["bound_ms"], t["bound_by"] = bound(msg, n_rows)
+        # each pass's device µs per call: pass A chunk_sums, pass B row_fixup
+        top = profile_kernels(fns["ms"], 5)[2]
+        t["pass_a_us"], t["pass_b_us"] = (
+            sum(us for kernel, us in top if kind in kernel)
+            for kind in ("chunk_sums", "row_fixup"))
         timings[name] = t
         pad = (f"; without the {msg.shape[0] - e_real} padding edges: "
                f"{t['ms_without_padding']:.4f} ms" if e_real is not None else "")
-        log(f"[K1 time] {name}: kernel {t['ms']:.4f} ms, plain "
+        log(f"[K1 time] {name}: kernel {t['ms']:.4f} ms (passes A / B "
+            f"{t['pass_a_us']:.1f} / {t['pass_b_us']:.1f} µs), plain "
             f"{t['plain_ms']:.4f} ms, index_add_ {t['library_ms']:.4f} ms, "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
             f"{t['bound_ms'] / t['ms']:.1%} of bound{pad}")
+    if args.kernels_only:
+        print(json.dumps({"kernels": [k1_entry(errs, timings, {})]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # the relation gradient below the one-hot limit: one PyTorch call, the
     # float32 one-hot product or index_add_ (segment_sum_few uses index_add_)
@@ -1572,21 +1632,7 @@ def main() -> int:
                   "rgat_train": rgat_train_launches,
                   "rgat_serve": rgat_serve_launches})
     by_path = lambda i: {k: v[i] for k, v in paths.items()}
-    main_t = timings["wn18rr_f32"]
-    k1_err = max(errs.values())
-    entries = [{
-        "name": "segment_sum (K1)", "route": "cuda",
-        "source": "kgc_gcn_torch/csrc/segment_sum.cu",
-        "replaces": "kgc_gcn_tpu/ops/spmm_pallas.py:126",
-        "launches": sum(by_path(0).values()),
-        "max_abs_err": k1_err,
-        "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
-        "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
-        "library_ms": main_t["library_ms"],
-        "launches_by_path": by_path(0),
-        "cases": {name: {**timings.get(name, {}), "max_abs_err": err}
-                  for name, err in errs.items()},
-    }]
+    entries = [k1_entry(errs, timings, by_path(0))]
     k2_main = timings["k2_main"]
     for i, (key, fn_name, line) in enumerate((
             ("K2a", "fused_bce_loss", 125), ("K2b", "fused_bce_grads", 145))):
@@ -1683,6 +1729,25 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def k1_entry(errs: dict, timings: dict, launches_by_path: dict) -> dict:
+    """K1's entry of the kernels line: the WN18RR dst-order case's times,
+    every case's times and errors, and the launches of the paths driven."""
+    main_t = timings["wn18rr_f32"]
+    return {
+        "name": "segment_sum (K1)", "route": "cuda",
+        "source": "kgc_gcn_torch/csrc/segment_sum.cu",
+        "replaces": "kgc_gcn_tpu/ops/spmm_pallas.py:126",
+        "launches": sum(launches_by_path.values()),
+        "max_abs_err": max(errs.values()),
+        "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
+        "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
+        "library_ms": main_t["library_ms"],
+        "launches_by_path": launches_by_path,
+        "cases": {name: {**timings.get(name, {}), "max_abs_err": err}
+                  for name, err in errs.items()},
+    }
 
 
 class _Capture(logging.Handler):

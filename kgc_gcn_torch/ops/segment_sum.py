@@ -7,11 +7,18 @@ destination ids ``dst`` are non-decreasing with CSR pointers ``indptr``,
 
 with zeros for rows that have no edges — what
 ``kgc_gcn_tpu/ops/spmm_pallas.py:segment_sum_pallas`` computes.  On a CUDA
-tensor it launches the hand-written kernel ``csrc/segment_sum.cu`` (one warp
-per destination row, float32 accumulation; its header states its bound) or
-raises; on a CPU tensor it runs the plain version.  There is no fallback from
-the card to the plain version.
-"""
+tensor it launches the hand-written kernel ``csrc/segment_sum.cu`` or raises;
+on a CPU tensor it runs the plain version.  There is no fallback from the
+card to the plain version.
+
+The kernel sums fixed chunks of edges, closing a row where ``dst`` changes
+(pass A), then adds the partial sums of rows that span chunks in chunk order
+(pass B, from ``indptr``).  Pass A walks at most one chunk per lane group
+whatever the degrees; pass B walks a split row's partials in series, one per
+chunk the row spans.  Each row's summation order is fixed: the output is the
+same bits from run to run (``index_add_``'s atomics are not).  One call is two CUDA launches;
+``segment_sum.launches`` counts calls.  The kernel's header states its
+bound."""
 
 from __future__ import annotations
 
@@ -53,8 +60,8 @@ def segment_sum(msg: torch.Tensor, dst: torch.Tensor, indptr: torch.Tensor,
                 n_rows: int) -> torch.Tensor:
     """(E, D) float32/bfloat16 messages sorted by ``dst`` -> (n_rows, D) float32.
 
-    ``segment_sum.launches`` counts the kernel launches (never the plain
-    version's calls)."""
+    ``segment_sum.launches`` counts the kernel's calls, each two CUDA
+    launches (never the plain version's calls)."""
     _check(msg, dst, indptr, n_rows)
     if msg.device.type == "cpu":
         if n_rows and int(indptr[-1]) > msg.shape[0]:
@@ -62,8 +69,9 @@ def segment_sum(msg: torch.Tensor, dst: torch.Tensor, indptr: torch.Tensor,
         return segment_sum_reference(msg, dst, indptr, n_rows)
     if msg.device.type != "cuda":
         raise ValueError(f"segment_sum runs on cpu or cuda, not {msg.device}")
-    if not (msg.is_contiguous() and indptr.is_contiguous()):
-        raise ValueError("msg and indptr must be contiguous")
+    if not (msg.is_contiguous() and dst.is_contiguous()
+            and indptr.is_contiguous()):
+        raise ValueError("msg, dst and indptr must be contiguous")
     d = msg.shape[1]
     out = torch.empty(n_rows, d, dtype=torch.float32, device=msg.device)
     if n_rows == 0 or d == 0:
@@ -71,12 +79,14 @@ def segment_sum(msg: torch.Tensor, dst: torch.Tensor, indptr: torch.Tensor,
     # indptr[-1] <= E is asserted inside the kernel (a host check here would
     # synchronise the stream on every launch)
     kernels = load_kernels()
+    carry = torch.empty(-(-msg.shape[0] // kernels.segment_sum_chunk), 2, d,
+                        dtype=torch.float32, device=msg.device)
     with torch.cuda.device(msg.device):
         stream = torch.cuda.current_stream(msg.device).cuda_stream
         code = kernels.lib.kgc_segment_sum(
-            msg.data_ptr(), int(msg.dtype == torch.bfloat16),
-            indptr.data_ptr(), out.data_ptr(), n_rows, msg.shape[0], d,
-            stream)
+            msg.data_ptr(), int(msg.dtype == torch.bfloat16), dst.data_ptr(),
+            indptr.data_ptr(), out.data_ptr(), carry.data_ptr(), n_rows,
+            msg.shape[0], d, stream)
     check_launch(kernels.lib, code, "segment_sum")
     segment_sum.launches += 1
     return out

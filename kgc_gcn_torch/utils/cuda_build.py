@@ -32,6 +32,7 @@ class KernelLibrary:
     path: Path
     build_seconds: float   # 0.0 when an up-to-date build was reused
     build_log: str         # nvcc / ptxas -v output of the build ("" if reused)
+    segment_sum_chunk: int   # K1's edges per chunk: its carry has ceil(E/C) rows
 
 
 _LOADED: Optional[KernelLibrary] = None
@@ -97,7 +98,10 @@ def load_kernels(force_build: bool = False) -> KernelLibrary:
     path, seconds, log = build(force_build)
     lib = ctypes.CDLL(str(path))
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.kgc_segment_sum.argtypes = [vp, i32, vp, vp, i32, i32, i32, vp]
+    lib.kgc_segment_sum_chunk.argtypes = []
+    lib.kgc_segment_sum_chunk.restype = i32
+    lib.kgc_segment_sum.argtypes = [vp, i32, vp, vp, vp, vp, i32, i32, i32,
+                                    vp]
     lib.kgc_segment_sum.restype = i32
     lib.kgc_segment_max.argtypes = [vp, vp, vp, i32, i32, i32, vp]
     lib.kgc_segment_max.restype = i32
@@ -124,7 +128,8 @@ def load_kernels(force_build: bool = False) -> KernelLibrary:
     lib.kgc_bwd_products.restype = i32
     lib.kgc_cuda_error_string.argtypes = [i32]
     lib.kgc_cuda_error_string.restype = ctypes.c_char_p
-    _LOADED = KernelLibrary(lib, path, seconds, log)
+    _LOADED = KernelLibrary(lib, path, seconds, log,
+                            lib.kgc_segment_sum_chunk())
     return _LOADED
 
 

@@ -48,16 +48,30 @@ def csr_case(counts, d: int, seed: int):
 
 
 def case_counts():
-    """Per-row edge counts: empty first/inner/last rows, D=37, a row count
-    that is no multiple of the kernel's 8 rows per block; and a hub row."""
+    """Per-row edge counts and D: empty first/inner/last rows, D=37, a row
+    count that is no multiple of 8; a hub row; D > 256 (two column chunks);
+    one row holding every edge (the relation order's extreme); no edges at
+    all; rows of 16, 32, 64 and 128 edges and one more or fewer, so that
+    rows start and end on the kernel's chunk boundaries; D 1 and D 4 (lane
+    groups narrower than a warp) with a hub row; Zipf in-degrees."""
     rng = np.random.default_rng(0)
     empty = rng.integers(0, 4, size=50)
     empty[[0, 7, 8, 49]] = 0
     hub = rng.integers(0, 3, size=19)
     hub[11] = 700
     wide = rng.integers(0, 5, size=9)                  # D > 256: two column chunks
+    bounds = np.array([16, 15, 17, 32, 31, 33, 0, 64, 63, 65, 1, 128, 127,
+                       129, 0, 48, 96, 32, 33, 31])
+    narrow = rng.integers(0, 4, size=45)
+    narrow[[3, 30]] = (500, 97)
+    ranks = rng.permutation(300) + 1                   # in-degree ~ rank**-1.1
+    zipf = np.bincount(rng.choice(300, size=3000, p=ranks**-1.1
+                                  / (ranks**-1.1).sum()), minlength=300)
     return {"empty_rows": (empty, 37), "hub_row": (hub, 100),
-            "wide": (wide, 300)}
+            "wide": (wide, 300), "single_row": (np.array([3000]), 100),
+            "no_edges": (np.zeros(10, np.int64), 8),
+            "chunk_bounds": (bounds, 20), "hub_d1": (narrow, 1),
+            "hub_d4": (narrow, 4), "zipf": (zipf, 16)}
 
 
 def max_case(counts, h: int, seed: int):
@@ -106,6 +120,30 @@ def test_segment_sum_kernel_matches_plain(cuda, case, dtype):
     assert got.dtype == torch.float32 and got.shape == (len(counts), d)
     want = segment_sum_reference(m, dd, ip, len(counts))
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hub_row", "zipf", "single_row"])
+def test_segment_sum_kernel_is_deterministic(cuda, case):
+    """Normal (non-dyadic) values, whose float32 sums depend on their order:
+    two calls give the same bits (each row's order is fixed), within the
+    error bound of float32 summation in any order of the float64 sums,
+    g / (1 - g) * sum |msg| with g = (n - 1) * 2**-24 for a row of n edges."""
+    counts, d = case_counts()[case]
+    _, dst, indptr = csr_case(counts, d, seed=4)
+    msg = np.random.default_rng(4).normal(size=(len(dst), d)).astype(np.float32)
+    m = torch.from_numpy(msg).to(cuda)
+    dd, ip = torch.from_numpy(dst).to(cuda), torch.from_numpy(indptr).to(cuda)
+    first = segment_sum(m, dd, ip, len(counts))
+    second = segment_sum(m, dd, ip, len(counts))
+    assert torch.equal(first, second)
+    exact = np.zeros((len(counts), d))
+    np.add.at(exact, dst, msg.astype(np.float64))
+    mass = np.zeros((len(counts), d))
+    np.add.at(mass, dst, np.abs(msg.astype(np.float64)))
+    g = np.maximum(np.asarray(counts) - 1, 0)[:, None] * 2.0**-24
+    limit = g / (1 - g) * mass
+    assert (np.abs(first.cpu().numpy() - exact) <= limit).all()
 
 
 @pytest.mark.cuda

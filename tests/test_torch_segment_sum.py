@@ -27,7 +27,9 @@ def test_plain_matches_pallas_and_jax_segment_sum(case, dtype):
     n_rows = len(counts)
     msg, dst, indptr = csr_case(counts, d, seed=1)
     jmsg = jnp.asarray(msg).astype(dtype)
-    want_pallas = np.asarray(segment_sum_pallas(
+    # the TPU kernel cannot take E = 0 (its edge tiles are sliced from the
+    # messages): that case is held against jax.ops.segment_sum alone
+    want_pallas = None if len(dst) == 0 else np.asarray(segment_sum_pallas(
         jmsg, jnp.asarray(dst), jnp.asarray(indptr), n_rows, interpret=True))
     want_xla = np.asarray(jax.ops.segment_sum(
         jmsg.astype(jnp.float32), jnp.asarray(dst), num_segments=n_rows))
@@ -40,7 +42,8 @@ def test_plain_matches_pallas_and_jax_segment_sum(case, dtype):
     assert got.dtype == torch.float32 and got.shape == (n_rows, d)
     got = got.numpy()
     np.testing.assert_allclose(got, want_xla, rtol=RTOL, atol=ATOL)
-    np.testing.assert_allclose(got, want_pallas, rtol=RTOL, atol=ATOL)
+    if want_pallas is not None:
+        np.testing.assert_allclose(got, want_pallas, rtol=RTOL, atol=ATOL)
     assert not got[np.asarray(counts) == 0].any()   # empty rows are zeros
 
 
