@@ -12,14 +12,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      on a power-law graph at FB15k-237's counts and in that graph's rel
      order, and twice on normal values (bit-identical calls), K2a / K2b
      (fused score + BCE, forward and backward), K7 / K8
-     (basis R-GCN aggregation and its backward; bit-equal on dyadic inputs,
-     then real values), K5 (segment-max), K4a / K4b (the one-pass compose
+     (basis R-GCN aggregation and its backward at config 3, on an edge
+     case and on the power-law graph; bit-equal on dyadic inputs, then real
+     values), K5 (segment-max), K4a / K4b (the one-pass compose
      and backward products, bit-equal on any input, also ragged and
      misaligned), K3 (the stacked fused compose + segment-sum; bit-equal on
      dyadic inputs, then real values, and edge cases);
   4. timing: each kernel, its plain version and the one-call library
      equivalent or yardstick, with CUDA events, beside the least time the
-     card needs (K1, K3, K5, K7, K8 also without the graph's padding edges);
+     card needs (K1, K3, K5, K7, K8 also without the graph's padding edges,
+     K1, K7, K8 also on the power-law graph, K8 also at a second layer's
+     d 200);
   5. training: the reference model (MGCN + ConvE at full width, WN18RR
      preset and dropout, random weights from --seed) on a WN18RR-shaped
      synthetic corpus: timed steps with loss_impl fused and auto (steps/s,
@@ -61,9 +64,10 @@ any order, so kernel and plain version must agree to the bit; K5
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Nothing of JAX is imported.
 
---kernels-only runs phases 1-3 and K1's time rows (each with its two
-passes' device times), then prints K1's entry and the last line: a quick
-check of the kernels that drives no path (K1's launch counts are 0).
+--kernels-only runs phases 1-3 and the time rows of K1 (each with its two
+passes' device times), K7 and K8, then prints their entries and the last
+line: a quick check of the kernels that drives no path (their launch
+counts are 0).
 """
 
 from __future__ import annotations
@@ -175,14 +179,18 @@ def bound(msg: torch.Tensor, n_rows: int):
                     + 4 * n_rows * d, e * d)
 
 
-def basis_bound(e: int, n_rows: int, d: int, nb: int, backward: bool):
-    """K7: msg, a and indptr read once, out written once; 2*E*B*d
-    operations.  K8: g, msg, a, indptr read, d_msg and d_a written; twice
-    the operations."""
-    if not backward:
-        return bound_of(4 * (e * d + e * nb + n_rows + 1 + n_rows * nb * d),
-                        2.0 * e * nb * d)
-    return bound_of(4 * (n_rows * nb * d + 2 * e * d + 2 * e * nb + n_rows + 1),
+def basis_sum_bound(e: int, n_rows: int, d: int, nb: int):
+    """K7: msg, a and indptr read once, out (n_rows, B*d) written once;
+    2*E*B*d operations."""
+    return bound_of(4 * (e * d + e * nb + n_rows + 1 + n_rows * nb * d),
+                    2.0 * e * nb * d)
+
+
+def basis_bwd_bound(e: int, rows: int, d: int, nb: int):
+    """K8: dst, msg and a read once, g read once for each of the ``rows``
+    rows that have edges (K8 reads no other row of g), d_msg and d_a
+    written once; 4*E*B*d operations."""
+    return bound_of(4 * (rows * nb * d + 2 * e * d + 2 * e * nb + e),
                     4.0 * e * nb * d)
 
 
@@ -417,6 +425,129 @@ def k1_cases(ds, graph, fb_graph, power_counts, d: int, gen) -> dict:
         "fb15k237_rel_f32": half_case(fb_graph.outb, n_fb, d, f32, gen,
                                       "rel"),
     }
+
+
+def time_basis(fb_in, pl_dst, pl_ptr, cfg3, gen) -> dict:
+    """K7 / K8 time rows at config 3 (FB15k-237 in-half, B 30, d 100): the
+    kernel, its plain version, its yardstick and its bound, and the kernel
+    without the 269 zero-norm padding edges (msg, a and dst cut to the first
+    e_real edges, indptr[-1] = e_real).  Yardsticks (no one PyTorch call
+    computes either function): K7, index_add_ of the pre-built (E, B*d)
+    expansion; K8, the two einsums on a pre-gathered sel = g[dst].  The
+    basis contraction that follows K7 in the encoder, (N, B*d) @ (B*d,
+    d_out), is timed beside them, and K8 at a second layer's d 200 on the
+    same graph.  Then both kernels and their bounds on the power-law graph
+    at config 3's widths."""
+    from kgc_gcn_torch.ops.basis import (
+        basis_backward, basis_backward_reference, basis_segment_sum,
+        basis_segment_sum_reference)
+    n_fb, nb3, d3 = FB15K237[0], cfg3.num_bases, cfg3.gcn_in_dim
+    d2 = cfg3.gcn_out_dim
+    msg, a, dd, ip, g = basis_case(fb_in.dst, fb_in.indptr, n_fb, d3, nb3,
+                                   gen, real=True)
+    msg2 = torch.randn(msg.shape[0], d2, generator=gen).cuda()
+    g2 = torch.randn(n_fb, nb3 * d2, generator=gen).cuda()
+    e3, e_real = msg.shape[0], fb_in.e_real
+    rows = int((ip[1:] > ip[:-1]).sum())
+    cut = ip.clone()
+    cut[-1] = e_real
+    msg_r, a_r, dd_r = msg[:e_real], a[:e_real], dd[:e_real]
+    expansion = (msg[:, None, :] * a[:, :, None]).reshape(e3, -1)
+    sel = g[dd.long()].view(e3, nb3, d3)
+    lib_out = torch.zeros(n_fb, nb3 * d3, device=msg.device)
+    dst_long = dd.long()
+    basis_w = torch.randn(nb3 * d3, d2, generator=gen).to(msg.device)
+    agg = basis_segment_sum(msg, a, dd, ip, n_fb)
+    t = time_in_turns({
+        "K7": lambda: basis_segment_sum(msg, a, dd, ip, n_fb),
+        "K7_plain": lambda: basis_segment_sum_reference(msg, a, dd, ip, n_fb),
+        "K7_yardstick": lambda: lib_out.index_add_(0, dst_long, expansion),
+        "K7_without_padding": lambda: basis_segment_sum(msg_r, a_r, dd_r, cut,
+                                                        n_fb),
+        "K8": lambda: basis_backward(g, msg, a, dd, ip),
+        "K8_plain": lambda: basis_backward_reference(g, msg, a, dd, ip),
+        "K8_yardstick": lambda: (torch.einsum("ebd,eb->ed", sel, a),
+                                 torch.einsum("ebd,ed->eb", sel, msg)),
+        "K8_without_padding": lambda: basis_backward(g, msg_r, a_r, dd_r, cut),
+        "K8_d200": lambda: basis_backward(g2, msg2, a, dd, ip),
+        "basis_matmul": lambda: agg @ basis_w,
+    }, n=50)
+    t["K7_bound"], t["K7_bound_by"] = basis_sum_bound(e3, n_fb, d3, nb3)
+    t["K8_bound"], t["K8_bound_by"] = basis_bwd_bound(e3, rows, d3, nb3)
+    t["K8_d200_bound"], _ = basis_bwd_bound(e3, rows, d2, nb3)
+    log_profile("K7 at config 3", lambda: basis_segment_sum(msg, a, dd, ip, n_fb),
+                steps=5)
+    log_profile("K8 at config 3", lambda: basis_backward(g, msg, a, dd, ip),
+                steps=5)
+    for key, what in (("K7", "index_add_ of the pre-built expansion"),
+                      ("K8", "two einsums on a pre-gathered sel")):
+        log(f"[{key} time] config 3 (E {e3}, N {n_fb}, {n_fb - rows} rows "
+            f"without edges, B {nb3}, d {d3}): "
+            f"kernel {t[key]:.4f} ms, plain {t[f'{key}_plain']:.4f} ms, "
+            f"yardstick ({what}) {t[f'{key}_yardstick']:.4f} ms, bound "
+            f"{t[f'{key}_bound']:.4f} ms ({t[f'{key}_bound_by']}), "
+            f"{t[f'{key}_bound'] / t[key]:.1%} of bound; without the "
+            f"{e3 - e_real} padding edges {t[f'{key}_without_padding']:.4f}"
+            " ms")
+    log(f"[K8 time] config 3's graph at d {d2} (B {nb3}): kernel "
+        f"{t['K8_d200']:.4f} ms, bound {t['K8_d200_bound']:.4f} ms, "
+        f"{t['K8_d200_bound'] / t['K8_d200']:.1%} of bound")
+    log(f"[basis contraction] (N {n_fb}, {nb3 * d3}) @ ({nb3 * d3}, "
+        f"{d2}) float32: {t['basis_matmul']:.4f} ms "
+        f"({2 * n_fb * nb3 * d3 * d2 / t['basis_matmul'] / 1e9:.1f}"
+        " TFLOP/s)")
+    del msg, a, g, msg2, g2, expansion, sel, lib_out, agg, msg_r, a_r, dd_r
+    msg, a, dd, ip, g = basis_case(pl_dst, pl_ptr, n_fb, d3, nb3, gen,
+                                   real=True)
+    e_pl = msg.shape[0]
+    rows = int((ip[1:] > ip[:-1]).sum())
+    tp = time_in_turns({
+        "K7": lambda: basis_segment_sum(msg, a, dd, ip, n_fb),
+        "K8": lambda: basis_backward(g, msg, a, dd, ip),
+    }, n=50)
+    for key in ("K7", "K8"):
+        b_ms, b_by = (basis_bwd_bound(e_pl, rows, d3, nb3) if key == "K8" else
+                      basis_sum_bound(e_pl, n_fb, d3, nb3))
+        t[f"{key}_powerlaw"] = tp[key]
+        t[f"{key}_powerlaw_bound"] = b_ms
+        log(f"[{key} time] power law (E {e_pl}, N {n_fb}, {n_fb - rows} rows "
+            f"without edges, largest row {int((ip[1:] - ip[:-1]).max())} "
+            f"edges, B {nb3}, d {d3}): kernel {tp[key]:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), {b_ms / tp[key]:.1%} of bound")
+    del msg, a, g
+    torch.cuda.empty_cache()
+    return t
+
+
+def basis_entries(basis_errs: dict, t: dict, by_path7: dict,
+                  by_path8: dict) -> list:
+    """K7's and K8's entries of the kernels line, from ``time_basis``'s
+    rows and the launches of the paths driven."""
+    entries = []
+    for key, fn_name, line, yard, by_path in (
+            ("K7", "basis_sum", 918, "index_add_ of the pre-built expansion",
+             by_path7),
+            ("K8", "basis_bwd", 1181, "two einsums on a pre-gathered sel",
+             by_path8)):
+        entries.append({
+            "name": f"{fn_name} ({key})", "route": "cuda",
+            "source": "kgc_gcn_torch/csrc/basis_rgcn.cu",
+            "replaces": f"kgc_gcn_tpu/ops/spmm_pallas.py:{line}",
+            "launches": sum(by_path.values()),
+            "max_abs_err": max(basis_errs[key].values()),
+            "ms": t[key], "plain_ms": t[f"{key}_plain"],
+            "bound_ms": t[f"{key}_bound"], "bound_by": t[f"{key}_bound_by"],
+            "library_ms": None, "yardstick": yard,
+            "yardstick_ms": t[f"{key}_yardstick"],
+            "ms_without_padding": t[f"{key}_without_padding"],
+            "ms_powerlaw": t[f"{key}_powerlaw"],
+            "bound_ms_powerlaw": t[f"{key}_powerlaw_bound"],
+            **({"ms_d200": t["K8_d200"], "bound_ms_d200": t["K8_d200_bound"]}
+               if key == "K8" else {}),
+            "launches_by_path": by_path,
+            "cases": {"max_abs_err": basis_errs[key]},
+        })
+    return entries
 
 
 def k2_case(b: int, n: int, d: int, masked, gen):
@@ -725,7 +856,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
-                    help="phases 1-3 and K1's time rows only")
+                    help="phases 1-3 and the K1, K7 and K8 time rows only")
     args = ap.parse_args()
 
     # 1. device ---------------------------------------------------------------
@@ -855,8 +986,9 @@ def main() -> int:
             f"{k2_errs['K2b'][name]:.3g} (rtol {K2_GRAD_RTOL}, atol "
             f"{K2_GRAD_ATOL} x max)")
 
-    # K7 / K8 at BASELINE config 3's shape (FB15k-237 in-half, B 30, d 100)
-    # and an edge case (empty rows, a hub row, B = 1, d 37)
+    # K7 / K8 at BASELINE config 3's shape (FB15k-237 in-half, B 30, d 100),
+    # an edge case (empty rows, a hub row, B = 1, d 37) and the power-law
+    # graph at config 3's widths
     cfg3 = dataset_preset("FB15k-237", model="rgcn", decoder="distmult",
                           num_bases=30, train_mode="negative_sampling",
                           compute_dtype="float32", moment_dtype="float32",
@@ -866,8 +998,14 @@ def main() -> int:
     hub_ptr[1:] = torch.cumsum(hub, 0)
     hub_dst = torch.repeat_interleave(torch.arange(hub.shape[0]), hub).int()
     fb_in = fb_graph.inb
+    # the power-law in-degrees (largest row 40,644 edges, no padding)
+    pl_counts = torch.as_tensor(power_counts, dtype=torch.int64)
+    pl_ptr = torch.zeros(n_fb + 1, dtype=torch.int32)
+    pl_ptr[1:] = torch.cumsum(pl_counts, 0)
+    pl_dst = torch.repeat_interleave(torch.arange(n_fb), pl_counts).int()
     basis_shapes = {"config3": (fb_in.dst, fb_in.indptr, n_fb, d3, nb3),
-                    "edge": (hub_dst, hub_ptr, hub.shape[0], 37, 1)}
+                    "edge": (hub_dst, hub_ptr, hub.shape[0], 37, 1),
+                    "powerlaw": (pl_dst, pl_ptr, n_fb, d3, nb3)}
     basis_errs = {"K7": {}, "K8": {}}
     for name, (dst_, ptr_, n_rows, d, nb) in basis_shapes.items():
         for real in (False, True):
@@ -1059,8 +1197,10 @@ def main() -> int:
             f"{t['plain_ms']:.4f} ms, index_add_ {t['library_ms']:.4f} ms, "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
             f"{t['bound_ms'] / t['ms']:.1%} of bound{pad}")
+    timings["basis_config3"] = time_basis(fb_in, pl_dst, pl_ptr, cfg3, gen)
     if args.kernels_only:
-        print(json.dumps({"kernels": [k1_entry(errs, timings, {})]}))
+        print(json.dumps({"kernels": [k1_entry(errs, timings, {})] + basis_entries(
+            basis_errs, timings["basis_config3"], {}, {})}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -1149,58 +1289,6 @@ def main() -> int:
             f"{t['K2b_bound']:.4f} ms ({t['K2b_bound_by']}), "
             f"{t['K2b_bound'] / t['K2b']:.1%} of bound; yardstick "
             f"addmm(bias, h, ent.T) {t['addmm']:.4f} ms")
-
-    # K7 / K8 at config 3: "ms_without_padding" cuts the 269 zero-norm
-    # padding edges of row N-1 off (indptr[-1] = e_real, same operands).
-    # Yardsticks (no one PyTorch call computes either function): K7,
-    # index_add_ of the pre-built (E, B*d) expansion; K8, the two einsums on
-    # a pre-gathered sel = g[dst].  The basis contraction that follows K7 in
-    # the encoder, (N, B*d) @ (B*d, d_out), is timed beside them.
-    msg, a, dd, ip, g = basis_case(fb_in.dst, fb_in.indptr, n_fb, d3, nb3, gen,
-                                   real=True)
-    e3 = msg.shape[0]
-    cut = ip.clone()
-    cut[-1] = fb_in.e_real
-    expansion = (msg[:, None, :] * a[:, :, None]).reshape(e3, -1)
-    sel = g[dd.long()].view(e3, nb3, d3)
-    lib_out = torch.zeros(n_fb, nb3 * d3, device=device)
-    dst_long = dd.long()
-    basis_w = torch.randn(nb3 * d3, cfg3.gcn_out_dim, generator=gen).to(device)
-    agg = basis_segment_sum(msg, a, dd, ip, n_fb)
-    t = time_in_turns({
-        "K7": lambda: basis_segment_sum(msg, a, dd, ip, n_fb),
-        "K7_plain": lambda: basis_segment_sum_reference(msg, a, dd, ip, n_fb),
-        "K7_yardstick": lambda: lib_out.index_add_(0, dst_long, expansion),
-        "K7_without_padding": lambda: basis_segment_sum(msg, a, dd, cut, n_fb),
-        "K8": lambda: basis_backward(g, msg, a, dd, ip),
-        "K8_plain": lambda: basis_backward_reference(g, msg, a, dd, ip),
-        "K8_yardstick": lambda: (torch.einsum("ebd,eb->ed", sel, a),
-                                 torch.einsum("ebd,ed->eb", sel, msg)),
-        "K8_without_padding": lambda: basis_backward(g, msg, a, dd, cut),
-        "basis_matmul": lambda: agg @ basis_w,
-    }, n=50)
-    t["K7_bound"], t["K7_bound_by"] = basis_bound(e3, n_fb, d3, nb3, False)
-    t["K8_bound"], t["K8_bound_by"] = basis_bound(e3, n_fb, d3, nb3, True)
-    timings["basis_config3"] = t
-    log_profile("K7 at config 3", lambda: basis_segment_sum(msg, a, dd, ip, n_fb),
-                steps=5)
-    log_profile("K8 at config 3", lambda: basis_backward(g, msg, a, dd, ip),
-                steps=5)
-    for key, what in (("K7", "index_add_ of the pre-built expansion"),
-                      ("K8", "two einsums on a pre-gathered sel")):
-        log(f"[{key} time] config 3 (E {e3}, N {n_fb}, B {nb3}, d {d3}): "
-            f"kernel {t[key]:.4f} ms, plain {t[f'{key}_plain']:.4f} ms, "
-            f"yardstick ({what}) {t[f'{key}_yardstick']:.4f} ms, bound "
-            f"{t[f'{key}_bound']:.4f} ms ({t[f'{key}_bound_by']}), "
-            f"{t[f'{key}_bound'] / t[key]:.1%} of bound; without the "
-            f"{e3 - fb_in.e_real} padding edges {t[f'{key}_without_padding']:.4f}"
-            " ms")
-    log(f"[basis contraction] (N {n_fb}, {nb3 * d3}) @ ({nb3 * d3}, "
-        f"{cfg3.gcn_out_dim}) float32: {t['basis_matmul']:.4f} ms "
-        f"({2 * n_fb * nb3 * d3 * cfg3.gcn_out_dim / t['basis_matmul'] / 1e9:.1f}"
-        " TFLOP/s)")
-    del msg, a, g, expansion, sel, lib_out, agg, cut
-    torch.cuda.empty_cache()
 
     # K4a / K4b at the WN18RR half shape, float32 and bf16 outputs; no one
     # PyTorch call computes either function (no library time)
@@ -1654,23 +1742,7 @@ def main() -> int:
                       "max_abs_err": k2_errs[key]},
         })
     t3 = timings["basis_config3"]
-    for i, (key, fn_name, line, yard) in enumerate((
-            ("K7", "basis_sum", 918, "index_add_ of the pre-built expansion"),
-            ("K8", "basis_bwd", 1181, "two einsums on a pre-gathered sel"))):
-        entries.append({
-            "name": f"{fn_name} ({key})", "route": "cuda",
-            "source": "kgc_gcn_torch/csrc/basis_rgcn.cu",
-            "replaces": f"kgc_gcn_tpu/ops/spmm_pallas.py:{line}",
-            "launches": sum(by_path(3 + i).values()),
-            "max_abs_err": max(basis_errs[key].values()),
-            "ms": t3[key], "plain_ms": t3[f"{key}_plain"],
-            "bound_ms": t3[f"{key}_bound"], "bound_by": t3[f"{key}_bound_by"],
-            "library_ms": None, "yardstick": yard,
-            "yardstick_ms": t3[f"{key}_yardstick"],
-            "ms_without_padding": t3[f"{key}_without_padding"],
-            "launches_by_path": by_path(3 + i),
-            "cases": {"max_abs_err": basis_errs[key]},
-        })
+    entries += basis_entries(basis_errs, t3, by_path(3), by_path(4))
     t5 = timings["k5_wn18rr_h4"]
     entries.append({
         "name": "segment_max (K5)", "route": "cuda",

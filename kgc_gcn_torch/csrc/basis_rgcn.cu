@@ -8,7 +8,7 @@
 // _basis_fused_call).
 //
 // K8 (backward), g (n_rows, B*d) f32 -> d_msg (E, d) f32, d_a (E, B) f32; for
-// each edge e of row n, with sel = g[n] viewed as (B, d):
+// each edge e with row n = dst[e], with sel = g[n] viewed as (B, d):
 //   d_msg[e, j] = sum_b a[e, b] * sel[b, j]
 //   d_a[e, b]   = sum_j sel[b, j] * msg[e, j]
 // Replaces kgc_gcn_tpu/ops/spmm_pallas.py:_basis_bwd_kernel (called through
@@ -17,35 +17,48 @@
 // What is left of the TPU kernels is what they compute.  The 128-lane
 // padding, the hi/lo bf16 split for near-float32 MXU products, the one-hot
 // row selection and the per-tile padded edge plan (build_basis_bwd_plan) are
-// not carried over: a block that walks one destination row's CSR range owns
-// exactly that row's edges, so K8 reads the dst-sorted edges directly and
-// every output element is written by one block, with no atomics and no
-// memset.  Sums run in float32 in a fixed order, so results are
-// deterministic.
+// not carried over.  K7 walks one destination row's CSR range per block; K8
+// reads the dst-sorted edges in fixed spans.  Every output element is
+// written by one block, with no atomics and no memset.  Sums run in float32
+// in a fixed order, so results are deterministic.
 //
 // Bound: memory.  K7 must read msg and a once and write out once,
 //   4*(E*d + E*B + n_rows+1 + n_rows*B*d) bytes
-// against 2*E*B*d operations; K8 reads g, msg, a and writes d_msg, d_a,
-//   4*(n_rows*B*d + 2*E*d + 2*E*B + n_rows+1) bytes
+// against 2*E*B*d operations; K8 reads dst, msg, a and the rows of g that
+// have edges (n_used of them) and writes d_msg, d_a,
+//   4*(n_used*B*d + 2*E*d + 2*E*B + E) bytes
 // against 4*E*B*d operations.  Both sit below the card's float32 balance of
-// operations per byte (67e12 / 3.35e12 = 20), so bytes bound them.  The
-// design reads each input byte from device memory once:
-//   * one block per destination row stages the row's msg and a rows (one
-//     contiguous range each, since edges are dst-sorted) in shared memory,
-//     in chunks of up to 32 edges;
-//   * K7: each thread owns kSlots (column j, group of 8 bases) slots and
-//     keeps their 8*kSlots sums in registers; per edge it reads msg[e, j]
-//     once and the 8 coefficients as two float4 broadcasts;
-//   * K8: the row's cotangent g[n] (B*d floats) is staged once.  Per edge
-//     chunk, d_a and d_msg are two small products with G, computed from
-//     register tiles (2 edges x 4 bases, 4 edges x 4 columns) fed by float4
-//     shared-memory reads laid out to avoid bank conflicts, so each read
-//     serves 4-8 multiply-adds; warps split between the two products;
-//   * block x takes row n_rows-1-x, so the zero-norm padding edges, which all
-//     sit in the last row, start in the first wave instead of the last.
+// operations per byte (67e12 / 3.35e12 = 20), so bytes bound them.
+//   * K7: one block per destination row stages the row's msg and a rows
+//     (one contiguous range each, since edges are dst-sorted) in shared
+//     memory, in chunks of up to 32 edges.  Each thread owns kSlots (column
+//     j, group of 8 bases) slots and keeps their 8*kSlots sums in
+//     registers; per edge it reads msg[e, j] once and the 8 coefficients as
+//     two float4 broadcasts.  Block x takes row n_rows-1-x, so the
+//     zero-norm padding edges, which all sit in the last row, start in the
+//     first wave.  A hub row is one block's serial walk.
+//   * K8: each edge's outputs need only its own row's cotangent, so no sum
+//     crosses edges and a row split between blocks needs no carry.  Block
+//     x takes the span of kSpan = 64 edges from 64x and cuts it into runs
+//     of one row each where dst changes: a row of any degree is spread over
+//     ceil(deg/64) + 1 blocks at most, and rows without edges are never
+//     read.  The span's msg and a rows and each run's g row are contiguous
+//     and arrive by 16-byte cp.async (4-byte where d or B is no multiple of
+//     4).  One buffer holds G: each run's g row is copied once the run
+//     before it is done, and the blocks sharing an SM (4 at config 3, B 30
+//     d 100) hide each other's copies; a second buffer, which overlapped
+//     the copy with the run before it, halved the blocks an SM at d 200 and
+//     was slower at every shape timed.  Per run, D_msg = A.G and D_a =
+//     M.G^T come from one staged G, as register tiles fed by float4
+//     shared-memory reads (8 or 5.3 multiply-adds per read), the block's
+//     threads taking the d_msg tiles, then from the next warp boundary the
+//     d_a tiles.  d_msg rows go out as float4 stores; d_a through shared
+//     memory as the span's one contiguous range.  A row split between
+//     spans has its g row read once per span (from L2 after the first):
+//     about E/64 extra rows, +11 % of the bytes at config 3.
 // K8's shared memory grows with B*d (bwd_smem_bytes); the launcher refuses a
-// shape whose row does not fit in one block's opt-in maximum (kMaxSmem), and
-// the Python wrapper checks the same bound before it launches.
+// shape whose span does not fit in one block's opt-in maximum (kMaxSmem),
+// and the Python wrapper checks the same bound before it launches.
 
 #include <cassert>
 #include <cstdint>
@@ -138,14 +151,19 @@ basis_sum_kernel(const float* __restrict__ msg, const float* __restrict__ a,
   }
 }
 
-// K8 shared-memory layout (floats): the row's cotangent G (nb_pad x S), the
-// chunk's messages M (kBwdChunk x S) and its coefficients transposed, A_T
-// (nb_pad x kAtStride).  S = d rounded up to a multiple of 4 whose quotient
-// by 4 is odd, so that float4 reads of 8 different rows hit 8 different
-// bank groups; columns d..S-1 and rows nb..nb_pad-1 of G are zeros.
-constexpr int kBwdChunk = 32;               // edges staged per pass
-constexpr int kAtStride = kBwdChunk + 4;    // A_T row stride (float4-aligned)
-constexpr int kBasisTile = 32;              // bases per d_a task
+// K8 works on spans of kSpan consecutive edges, one block each.  Its shared
+// memory (floats): one row's cotangent G (nb4 x S), the span's messages M
+// (kSpan x S), its coefficients A (kSpan x nb4) and its d_a rows (kSpan x
+// nb), then the span's rows and run starts (ints).  nb4 is B rounded up to
+// 4; S is d rounded up to a multiple of 4 whose quotient by 4 is odd, so
+// that float4 reads of 8 different rows of G or M hit 8 different bank
+// groups.  Columns d..S-1 and rows nb..nb4-1 of G, columns
+// d..S-1 of M and columns nb..nb4-1 of A are zeros.
+constexpr int kSpan = 64;                    // edges per span
+constexpr int kSpanWarps = kSpan / 32;       // warps that cut a span into runs
+constexpr int kSpanInts = 2 * kSpan + 4;     // rows, run starts + end, ballots
+static_assert(kSpan % 32 == 0 && kSpanWarps <= 3 && kSpan <= kBwdThreads,
+              "a span is cut into runs by whole warps");
 
 __host__ __device__ inline int bwd_stride(int d) {
   const int s = round_up(d, 4);
@@ -153,9 +171,56 @@ __host__ __device__ inline int bwd_stride(int d) {
 }
 
 __host__ __device__ inline int64_t bwd_smem_bytes(int d, int nb) {
-  const int64_t nb_pad = round_up(nb, kBasisTile);
+  const int64_t nb4 = round_up(nb, 4);
   const int64_t s = bwd_stride(d);
-  return 4 * (nb_pad * s + kBwdChunk * s + nb_pad * kAtStride);
+  return 4 * (nb4 * s + kSpan * s + kSpan * nb4 + kSpan * nb + kSpanInts);
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits for all of this thread's copies.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Starts copying `rows` rows of `cols` floats (global row stride gs) to
+// shared memory at row stride ss: warps over rows, lanes over columns,
+// 16 bytes a copy when kVec (cols, gs, ss and both bases multiples of 4
+// floats), else 4.
+template <bool kVec>
+__device__ __forceinline__ void copy_rows(float* s, int ss, const float* g,
+                                          int gs, int rows, int cols) {
+  constexpr int w = kVec ? 4 : 1;
+  for (int r = threadIdx.x >> 5; r < rows; r += kBwdThreads / 32) {
+    for (int c = (threadIdx.x & 31) * w; c < cols; c += 32 * w) {
+      if (kVec) {
+        cp_async16(s + r * ss + c, g + static_cast<int64_t>(r) * gs + c);
+      } else {
+        cp_async4(s + r * ss + c, g + static_cast<int64_t>(r) * gs + c);
+      }
+    }
+  }
+}
+
+// Zeros columns c0..c1-1 of `rows` rows at stride ss.
+__device__ __forceinline__ void zero_cols(float* s, int ss, int rows, int c0,
+                                          int c1) {
+  for (int r = threadIdx.x >> 5; r < rows; r += kBwdThreads / 32)
+    for (int c = c0 + (threadIdx.x & 31); c < c1; c += 32) s[r * ss + c] = 0.f;
 }
 
 __device__ __forceinline__ void fma4(float& acc, const float4& x,
@@ -166,131 +231,195 @@ __device__ __forceinline__ void fma4(float& acc, const float4& x,
   acc = fmaf(x.w, y.w, acc);
 }
 
-__global__ void __launch_bounds__(kBwdThreads)
-basis_bwd_kernel(const float* __restrict__ g, const float* __restrict__ msg,
-                 const float* __restrict__ a, const int* __restrict__ indptr,
-                 float* __restrict__ d_msg, float* __restrict__ d_a,
-                 int n_rows, int n_edges, int d, int nb) {
-  extern __shared__ float4 smem4[];
-  const int S = bwd_stride(d);
-  const int S4 = S / 4;
-  const int nb_pad = round_up(nb, kBasisTile);
-  float* g_s = reinterpret_cast<float*>(smem4);   // (nb_pad, S)
-  float* m_s = g_s + nb_pad * S;                   // (kBwdChunk, S)
-  float* at_s = m_s + kBwdChunk * S;               // (nb_pad, kAtStride)
-  const float4* g4 = reinterpret_cast<const float4*>(g_s);
+// One run: the k span edges t0..t0+k-1, all into the row whose cotangent is
+// in gb.  Tasks, strided over the block's threads:
+//   * d_msg tiles of 4 edges x 4 columns (q the column quad); per basis
+//     quad, 4 float4 of G and 4 of A serve 64 multiply-adds;
+//   * from the next warp boundary on, d_a tiles of 2 edges x 4 bases
+//     (bt + nbq*i, so a warp's lanes read 8 consecutive rows of G); per
+//     column quad, 2 float4 of M and 4 of G serve 32 multiply-adds.
+// Sums run over the bases (d_msg) or the columns (d_a) in order.  Edges
+// past the run read valid shared memory and are not stored.
+template <bool kVec>
+__device__ __forceinline__ void run_products(
+    const float* __restrict__ gb, const float* __restrict__ m_s,
+    const float* __restrict__ a_s, float* __restrict__ da_s,
+    float* __restrict__ dm_span, int t0, int k, int d, int nb, int S,
+    int nb4) {
+  const int Q = S / 4;                 // float4 stride of a row of G or M
+  const int d4 = (d + 3) / 4;          // column quads that hold columns < d
+  const int nbq = nb4 / 4;
+  const float4* g4 = reinterpret_cast<const float4*>(gb);
   const float4* m4 = reinterpret_cast<const float4*>(m_s);
-  const float4* at4 = reinterpret_cast<const float4*>(at_s);
-  const int row = n_rows - 1 - static_cast<int>(blockIdx.x);
-  const int e0 = indptr[row];
-  const int e1 = indptr[row + 1];
-  assert(0 <= e0 && e0 <= e1 && e1 <= n_edges);
-  if (e0 == e1) return;                  // a row without edges owns no output
-
-  const float* gr = g + static_cast<int64_t>(row) * nb * d;
-  for (int i = threadIdx.x; i < nb_pad * S; i += kBwdThreads) {
-    const int b = i / S;
-    const int j = i - b * S;
-    g_s[i] = (b < nb && j < d) ? gr[b * d + j] : 0.f;
-  }
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n_groups = nb_pad / kBasisTile;
-  const int d4 = (d + 3) / 4;
-
-  for (int c0 = e0; c0 < e1; c0 += kBwdChunk) {
-    const int n = min(kBwdChunk, e1 - c0);
-    __syncthreads();                     // g_s staged / previous chunk consumed
-    const float* ms = msg + static_cast<int64_t>(c0) * d;
-    for (int i = threadIdx.x; i < n * S; i += kBwdThreads) {
-      const int t = i / S;
-      const int j = i - t * S;
-      m_s[i] = j < d ? ms[t * d + j] : 0.f;
-    }
-    const float* as = a + static_cast<int64_t>(c0) * nb;
-    for (int i = threadIdx.x; i < n * nb; i += kBwdThreads) {
-      const int t = i / nb;
-      const int b = i - t * nb;
-      at_s[b * kAtStride + t] = as[i];
-    }
-    __syncthreads();
-
-    // Warps [0, da_warps) take the d_a tasks; the others, or all warps
-    // after the d_a tasks when those fill every warp, take the d_msg tiles.
-    // Rows of M past n and of A_T past n hold stale values: they only reach
-    // outputs that are not stored.
-    const int da_tasks = ((n + 7) / 8) * n_groups;
-    const bool split = da_tasks < kBwdThreads / 32;
-    const int da_warps = split ? da_tasks : kBwdThreads / 32;
-
-    // d_a[e, b] = sum_j G[b, j] * M[e, j].  A task is 8 edges x 32 bases:
-    // lane (tt, bt) owns edges tt + 4k (k < 2) and bases bt + 8k (k < 4) and
-    // walks j four columns at a time; its 8 float4 reads serve 32 products.
-    if (warp < da_warps) {
-      const int tt = lane >> 3;
-      const int bt = lane & 7;
-      for (int task = warp; task < da_tasks; task += da_warps) {
-        const int t0 = (task / n_groups) * 8 + tt;
-        const int b0 = (task % n_groups) * kBasisTile + bt;
-        float acc[2][4] = {};
-        for (int q = 0; q < S4; ++q) {
-          const float4 m0 = m4[t0 * S4 + q];
-          const float4 m1 = m4[(t0 + 4) * S4 + q];
+  const float4* a4 = reinterpret_cast<const float4*>(a_s);
+  const int m_tasks = ((k + 3) / 4) * d4;
+  const int a_first = round_up(m_tasks, 32);
+  const int n_tasks = a_first + ((k + 1) / 2) * nbq;
+  for (int task = threadIdx.x; task < n_tasks; task += kBwdThreads) {
+    if (task < m_tasks) {
+      // d_msg[e, j] = sum_b A[e, b] * G[b, j]
+      const int et = task / d4;
+      const int q = task - et * d4;
+      const int tb = t0 + 4 * et;
+      int ti[4];
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float4 gv = g4[(b0 + 8 * k) * S4 + q];
-            fma4(acc[0][k], m0, gv);
-            fma4(acc[1][k], m1, gv);
-          }
-        }
+      for (int i = 0; i < 4; ++i) ti[i] = min(tb + i, kSpan - 1);
+      float4 acc[4] = {};
+      for (int bq = 0; bq < nbq; ++bq) {
+        const float4 g0 = g4[(4 * bq) * Q + q];
+        const float4 g1 = g4[(4 * bq + 1) * Q + q];
+        const float4 g2 = g4[(4 * bq + 2) * Q + q];
+        const float4 g3 = g4[(4 * bq + 3) * Q + q];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int t = t0 + 4 * i;
-          if (t >= n) continue;
-          float* da = d_a + static_cast<int64_t>(c0 + t) * nb;
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const int b = b0 + 8 * k;
-            if (b < nb) da[b] = acc[i][k];
-          }
+        for (int i = 0; i < 4; ++i) {
+          const float4 av = a4[ti[i] * nbq + bq];
+          acc[i].x = fmaf(av.w, g3.x, fmaf(av.z, g2.x, fmaf(av.y, g1.x,
+                     fmaf(av.x, g0.x, acc[i].x))));
+          acc[i].y = fmaf(av.w, g3.y, fmaf(av.z, g2.y, fmaf(av.y, g1.y,
+                     fmaf(av.x, g0.y, acc[i].y))));
+          acc[i].z = fmaf(av.w, g3.z, fmaf(av.z, g2.z, fmaf(av.y, g1.z,
+                     fmaf(av.x, g0.z, acc[i].z))));
+          acc[i].w = fmaf(av.w, g3.w, fmaf(av.z, g2.w, fmaf(av.y, g1.w,
+                     fmaf(av.x, g0.w, acc[i].w))));
         }
       }
-    }
-    // d_msg[e, j] = sum_b A[e, b] * G[b, j].  A tile is 4 edges x 4
-    // columns: per basis one float4 of G and one of A_T serve 16 products.
-    if (!split || warp >= da_warps) {
-      const int first = split ? threadIdx.x - da_warps * 32 : threadIdx.x;
-      const int step = split ? kBwdThreads - da_warps * 32 : kBwdThreads;
-      const int n_tiles = ((n + 3) / 4) * d4;
-      for (int tile = first; tile < n_tiles; tile += step) {
-        const int tq = tile / d4;
-        const int q = tile - tq * d4;
-        float4 acc[4] = {};
-        for (int b = 0; b < nb; ++b) {
-          const float4 gv = g4[b * S4 + q];
-          const float4 av = at4[b * (kAtStride / 4) + tq];
-          const float ak[4] = {av.x, av.y, av.z, av.w};
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            acc[k].x = fmaf(ak[k], gv.x, acc[k].x);
-            acc[k].y = fmaf(ak[k], gv.y, acc[k].y);
-            acc[k].z = fmaf(ak[k], gv.z, acc[k].z);
-            acc[k].w = fmaf(ak[k], gv.w, acc[k].w);
-          }
-        }
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int t = 4 * tq + k;
-          if (t >= n) continue;
-          float* dm = d_msg + static_cast<int64_t>(c0 + t) * d + 4 * q;
-          const float out[4] = {acc[k].x, acc[k].y, acc[k].z, acc[k].w};
+      for (int i = 0; i < 4; ++i) {
+        if (4 * et + i >= k) break;
+        float* o = dm_span + static_cast<int64_t>(tb + i) * d + 4 * q;
+        if (kVec) {
+          *reinterpret_cast<float4*>(o) = acc[i];
+        } else {
+          const float v[4] = {acc[i].x, acc[i].y, acc[i].z, acc[i].w};
 #pragma unroll
           for (int c = 0; c < 4; ++c)
-            if (4 * q + c < d) dm[c] = out[c];
+            if (4 * q + c < d) o[c] = v[c];
+        }
+      }
+    } else if (task >= a_first) {
+      // d_a[e, b] = sum_j G[b, j] * M[e, j]
+      const int u = task - a_first;
+      const int ep = u / nbq;
+      const int bt = u - ep * nbq;
+      const int ta = t0 + 2 * ep;
+      const int r0 = min(ta, kSpan - 1) * Q;
+      const int r1 = min(ta + 1, kSpan - 1) * Q;
+      float acc[2][4] = {};
+      for (int q = 0; q < d4; ++q) {
+        const float4 m0 = m4[r0 + q];
+        const float4 m1 = m4[r1 + q];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 gv = g4[(bt + nbq * i) * Q + q];
+          fma4(acc[0][i], m0, gv);
+          fma4(acc[1][i], m1, gv);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (2 * ep + e >= k) break;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int b = bt + nbq * i;
+          if (b < nb) da_s[(ta + e) * nb + b] = acc[e][i];
         }
       }
     }
   }
+}
+
+// Block x takes the span of edges [64x, 64x + 64) and cuts it into runs
+// where dst changes.  The span's M and A arrive with the first run's G, by
+// cp.async; each later run's G row is copied once the run before it has
+// consumed the buffer (one buffer, so that several blocks share an SM and
+// hide each other's copies).  d_msg goes out from registers as float4
+// rows; d_a through shared memory, as the span's one contiguous range, at
+// the end.
+template <bool kVec>
+__global__ void __launch_bounds__(kBwdThreads)
+basis_bwd_kernel(const float* __restrict__ g, const float* __restrict__ msg,
+                 const float* __restrict__ a, const int* __restrict__ dst,
+                 float* __restrict__ d_msg, float* __restrict__ d_a,
+                 int n_rows, int n_edges, int d, int nb, bool aligned) {
+  extern __shared__ float4 smem4[];
+  const int S = bwd_stride(d);
+  const int nb4 = round_up(nb, 4);
+  float* g_s = reinterpret_cast<float*>(smem4);    // (nb4, S)
+  float* m_s = g_s + nb4 * S;                       // (kSpan, S)
+  float* a_s = m_s + kSpan * S;                     // (kSpan, nb4)
+  float* da_s = a_s + kSpan * nb4;                  // (kSpan, nb)
+  int* row_s = reinterpret_cast<int*>(da_s + kSpan * nb);   // (kSpan)
+  int* run_s = row_s + kSpan;                       // (kSpan + 1)
+  unsigned* head_s = reinterpret_cast<unsigned*>(run_s + kSpan + 1);
+  const int tid = threadIdx.x;
+  const int e0 = static_cast<int>(blockIdx.x) * kSpan;
+  const int n = min(kSpan, n_edges - e0);
+
+  zero_cols(g_s, S, nb4, d, S);
+  zero_cols(g_s + nb * S, S, nb4 - nb, 0, S);
+  zero_cols(m_s, S, kSpan, d, S);
+  zero_cols(a_s, nb4, kSpan, nb, nb4);
+
+  // runs: edge t heads one where its row differs from edge t-1's
+  bool head = false;
+  if (tid < kSpan) {
+    int row = -1;
+    if (tid < n) {
+      row = dst[e0 + tid];
+      assert(0 <= row && row < n_rows);
+      head = tid == 0 || dst[e0 + tid - 1] != row;
+    }
+    row_s[tid] = row;
+    const unsigned ballot = __ballot_sync(0xffffffffu, head);
+    if ((tid & 31) == 0) head_s[tid >> 5] = ballot;
+  }
+  __syncthreads();
+  int n_runs = 0;
+#pragma unroll
+  for (int w = 0; w < kSpanWarps; ++w) n_runs += __popc(head_s[w]);
+  if (head) {
+    int idx = __popc(head_s[tid >> 5] & ((1u << (tid & 31)) - 1));
+    for (int w = 0; w < (tid >> 5); ++w) idx += __popc(head_s[w]);
+    run_s[idx] = tid;
+  }
+  if (tid == 0) run_s[n_runs] = n;
+  __syncthreads();
+
+  const bool vec_a = aligned && nb % 4 == 0;
+  auto load_g = [&](int r) {
+    const int row = row_s[run_s[r]];
+    copy_rows<kVec>(g_s, S, g + static_cast<int64_t>(row) * nb * d, d, nb, d);
+  };
+  copy_rows<kVec>(m_s, S, msg + static_cast<int64_t>(e0) * d, d, n, d);
+  if (vec_a) {
+    copy_rows<true>(a_s, nb4, a + static_cast<int64_t>(e0) * nb, nb, n, nb);
+  } else {
+    copy_rows<false>(a_s, nb4, a + static_cast<int64_t>(e0) * nb, nb, n, nb);
+  }
+  load_g(0);
+  cp_async_commit();
+
+  float* dm_span = d_msg + static_cast<int64_t>(e0) * d;
+  for (int r = 0; r < n_runs; ++r) {
+    cp_async_wait_all();                  // run r's G (and M, A) are here
+    __syncthreads();
+    run_products<kVec>(g_s, m_s, a_s, da_s, dm_span, run_s[r],
+                       run_s[r + 1] - run_s[r], d, nb, S, nb4);
+    __syncthreads();                      // G is consumed
+    if (r + 1 < n_runs) {
+      load_g(r + 1);
+      cp_async_commit();
+    }
+  }
+
+  // the span's d_a rows: one contiguous range of n*nb floats, 16-byte
+  // aligned since e0 is a multiple of 4
+  float* da = d_a + static_cast<int64_t>(e0) * nb;
+  const int total = n * nb;
+  const int n4 = aligned ? total / 4 : 0;
+  for (int i = tid; i < n4; i += kBwdThreads)
+    reinterpret_cast<float4*>(da)[i] = reinterpret_cast<const float4*>(da_s)[i];
+  for (int i = 4 * n4 + tid; i < total; i += kBwdThreads) da[i] = da_s[i];
 }
 
 template <typename Kernel>
@@ -347,21 +476,30 @@ extern "C" int kgc_basis_sum(const void* msg, const void* a, const void* indptr,
 }
 
 // Launches K8 on `stream`; returns the cudaError_t of the launch (0: success,
-// cudaErrorInvalidValue when the shared memory a row needs, bwd_smem_bytes,
-// exceeds kMaxSmem).  The caller guarantees n_rows > 0, d > 0, nb > 0.
+// cudaErrorInvalidValue when the shared memory a span needs, bwd_smem_bytes,
+// exceeds kMaxSmem).  dst holds each edge's row in [0, n_rows); rows need
+// not be sorted, but sorted rows make long runs.  The caller guarantees
+// n_edges > 0, d > 0, nb > 0 and owns every buffer.
 extern "C" int kgc_basis_bwd(const void* g, const void* msg, const void* a,
-                             const void* indptr, void* d_msg, void* d_a,
+                             const void* dst, void* d_msg, void* d_a,
                              int n_rows, int n_edges, int d, int nb,
                              void* stream) {
   const int64_t smem = bwd_smem_bytes(d, nb);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(basis_bwd_kernel, static_cast<int>(smem));
+  const void* ptrs[] = {g, msg, a, d_msg, d_a};
+  bool aligned = true;
+  for (const void* p : ptrs) aligned &= reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  const bool vec = aligned && d % 4 == 0;
+  const auto kernel = vec ? basis_bwd_kernel<true> : basis_bwd_kernel<false>;
+  const cudaError_t err = allow_smem(kernel, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  basis_bwd_kernel<<<n_rows, kBwdThreads, static_cast<int>(smem),
-                     static_cast<cudaStream_t>(stream)>>>(
+  const unsigned n_spans =
+      static_cast<unsigned>((static_cast<int64_t>(n_edges) + kSpan - 1) / kSpan);
+  kernel<<<n_spans, kBwdThreads, static_cast<int>(smem),
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(g), static_cast<const float*>(msg),
-      static_cast<const float*>(a), static_cast<const int*>(indptr),
+      static_cast<const float*>(a), static_cast<const int*>(dst),
       static_cast<float*>(d_msg), static_cast<float*>(d_a), n_rows, n_edges, d,
-      nb);
+      nb, aligned);
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,14 +39,16 @@ BASIS_BWD_MAX_SMEM = 232448
 
 
 def basis_bwd_smem_bytes(d: int, nb: int) -> int:
-    """Shared memory K8 needs for one row (``bwd_smem_bytes`` in
-    csrc/basis_rgcn.cu): the row's cotangent as (B padded to 32) x S, a
-    32-edge chunk of messages (32 x S) and of coefficients transposed
-    ((B padded to 32) x 36), S being d rounded up to 4 with an odd quotient."""
-    nb_pad = -(-nb // 32) * 32
+    """Shared memory K8 needs for one span of 64 edges (``bwd_smem_bytes``
+    in csrc/basis_rgcn.cu): a row's cotangent, (B rounded up to 4) x S,
+    the span's messages (64 x S), coefficients
+    (64 x B rounded up to 4) and d_a rows (64 x B), and 132 ints of run
+    bookkeeping; S is d rounded up to 4 with an odd quotient by 4."""
+    nb4 = -(-nb // 4) * 4
     s = -(-d // 4) * 4
     s += 4 * (s // 4 % 2 == 0)
-    return 4 * (nb_pad * s + 32 * s + nb_pad * 36)
+    span = 64                           # kSpan in csrc/basis_rgcn.cu
+    return 4 * (nb4 * s + span * s + span * nb4 + span * nb + 2 * span + 4)
 
 
 def basis_segment_sum_reference(msg: torch.Tensor, a: torch.Tensor,
@@ -136,8 +138,11 @@ def basis_backward(g: torch.Tensor, msg: torch.Tensor, a: torch.Tensor,
                    dst: torch.Tensor, indptr: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(n_rows, B·d) cotangent -> (d_msg (E, d), d_a (E, B)) float32 (K8 on
-    the card).  On the card it raises when one row of ``g`` and one staged
-    edge chunk exceed ``BASIS_BWD_MAX_SMEM`` bytes of shared memory."""
+    the card).  The kernel reads each edge's row from ``dst``; ``indptr``
+    gives n_rows.  On the card it raises when ``basis_bwd_smem_bytes(d, B)``
+    exceeds ``BASIS_BWD_MAX_SMEM`` (232,448 bytes): at B 30 that admits
+    d up to 556 (config 3's d 100 needs 54,800 bytes, the 2-layer d 200
+    94,736)."""
     n_rows = indptr.shape[0] - 1
     _check(msg, a, dst, indptr, n_rows, "basis_backward")
     e, d = msg.shape
@@ -155,18 +160,18 @@ def basis_backward(g: torch.Tensor, msg: torch.Tensor, a: torch.Tensor,
             f"basis_backward: B*d = {nb}*{d} needs {need} bytes of shared "
             f"memory per block, above the {BASIS_BWD_MAX_SMEM} K8 asks for")
     if not (g.is_contiguous() and msg.is_contiguous() and a.is_contiguous()
-            and indptr.is_contiguous()):
-        raise ValueError("basis_backward: g, msg, a and indptr must be "
+            and dst.is_contiguous()):
+        raise ValueError("basis_backward: g, msg, a and dst must be "
                          "contiguous")
     d_msg = torch.empty(e, d, dtype=torch.float32, device=msg.device)
     d_a = torch.empty(e, nb, dtype=torch.float32, device=msg.device)
-    if n_rows == 0 or d == 0 or nb == 0:
+    if e == 0 or n_rows == 0 or d == 0 or nb == 0:
         return d_msg, d_a
     kernels = load_kernels()
     with torch.cuda.device(msg.device):
         stream = torch.cuda.current_stream(msg.device).cuda_stream
         code = kernels.lib.kgc_basis_bwd(
-            g.data_ptr(), msg.data_ptr(), a.data_ptr(), indptr.data_ptr(),
+            g.data_ptr(), msg.data_ptr(), a.data_ptr(), dst.data_ptr(),
             d_msg.data_ptr(), d_a.data_ptr(), n_rows, e, d, nb, stream)
     check_launch(kernels.lib, code, "basis_backward")
     basis_backward.launches += 1

@@ -272,27 +272,34 @@ def test_kernel_train_step_matches_plain_step(cuda, loss_impl):
 
 # K7 / K8: edge cases (empty rows, a hub row, B = 1, d not a multiple of 32,
 # K7 columns over two blocks (wide_d), K8 above 48 KB of shared memory
-# (wide_d, layer2), and B > 32, where K8's d_a tasks of a full edge chunk
-# fill every warp before the d_msg tiles (many_bases).  Inputs
+# (wide_d, layer2), and B > 32 (many_bases)); rows of 16, 32, 64 and 128
+# edges and one more or fewer, so that K8's runs start and end at every
+# offset of its 64-edge spans (span_bounds, also with d and B no multiples
+# of 4: its 4-byte copies), and Zipf in-degrees, a hub across many spans
+# (zipf_hub, also with B a multiple of 4: its 16-byte copies of a).  Inputs
 # are multiples of 2**-4 below 1: every product and partial sum is exact in
 # float32, so kernel and plain version agree to the bit.
 BASIS_CASES = {
     "empty_rows": ("empty", 37, 3), "hub_row": ("hub", 100, 30),
     "one_basis": ("empty", 45, 1), "wide_d": ("wide", 600, 12),
-    "layer2": ("hub", 200, 30), "many_bases": ("hub", 40, 70)}
+    "layer2": ("hub", 200, 30), "many_bases": ("hub", 40, 70),
+    "span_bounds": ("bounds", 100, 30), "span_bounds_d37": ("bounds", 37, 5),
+    "zipf_hub": ("zipf", 100, 30), "zipf_hub_b8": ("zipf", 64, 8)}
 
 
-def basis_case(name: str, seed: int):
+def basis_case(name: str, seed: int, real: bool = False):
     kind, d, nb = BASIS_CASES[name]
     counts = {"empty": case_counts()["empty_rows"][0],
               "hub": case_counts()["hub_row"][0],
-              "wide": case_counts()["wide"][0]}[kind]
+              "wide": case_counts()["wide"][0],
+              "bounds": case_counts()["chunk_bounds"][0],
+              "zipf": case_counts()["zipf"][0]}[kind]
     rng = np.random.default_rng(seed)
-    dyadic = lambda *s: (rng.integers(-15, 16, size=s) / 16).astype(np.float32)
+    draw = ((lambda *s: rng.normal(size=s).astype(np.float32)) if real else
+            (lambda *s: (rng.integers(-15, 16, size=s) / 16).astype(np.float32)))
     _, dst, indptr = csr_case(counts, 1, seed)
     e = len(dst)
-    return (dyadic(e, d), dyadic(e, nb), dst, indptr,
-            dyadic(len(counts), nb * d))
+    return (draw(e, d), draw(e, nb), dst, indptr, draw(len(counts), nb * d))
 
 
 @pytest.mark.cuda
@@ -313,6 +320,20 @@ def test_basis_kernels_match_plain(cuda, case):
     want_dm, want_da = basis_backward_reference(g, msg, a, dst, indptr)
     torch.testing.assert_close(got_dm, want_dm, rtol=0.0, atol=0.0)
     torch.testing.assert_close(got_da, want_da, rtol=0.0, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zipf_hub", "span_bounds_d37"])
+def test_basis_backward_is_deterministic(cuda, case):
+    """Normal values, whose float32 sums depend on their order: each
+    output's order is fixed, so two calls give the same bits."""
+    msg, a, dst, indptr, g = (torch.from_numpy(x).to(cuda)
+                              for x in basis_case(case, 6, real=True))
+    first = basis_backward(g, msg, a, dst, indptr)
+    second = basis_backward(g, msg, a, dst, indptr)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda
