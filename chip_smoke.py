@@ -11,7 +11,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      K1 (segment-sum) in dst, src and rel order, at RGAT's widths 4 and 200,
      on a power-law graph at FB15k-237's counts and in that graph's rel
      order, and twice on normal values (bit-identical calls), K2a / K2b
-     (fused score + BCE, forward and backward), K7 / K8
+     (fused score + BCE, forward and backward, at the WN18RR and FB15k-237
+     shapes and K2b's edges: B above one row chunk, N below one tile and one
+     past a tile multiple, d 300 and d 1, masked rows; K2b twice on normal
+     values, bit-identical calls), K7 / K8
      (basis R-GCN aggregation and its backward at config 3, on an edge
      case and on the power-law graph; bit-equal on dyadic inputs, then real
      values), K5 (segment-max), K4a / K4b (the one-pass compose
@@ -22,7 +25,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      equivalent or yardstick, with CUDA events, beside the least time the
      card needs (K1, K3, K5, K7, K8 also without the graph's padding edges,
      K1, K7, K8 also on the power-law graph, K8 also at a second layer's
-     d 200);
+     d 200, K2a / K2b also at the FB15k-237 shape and beside the yardsticks
+     of one addmm and of K2b's three products);
   5. training: the reference model (MGCN + ConvE at full width, WN18RR
      preset and dropout, random weights from --seed) on a WN18RR-shaped
      synthetic corpus: timed steps with loss_impl fused and auto (steps/s,
@@ -65,9 +69,9 @@ The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Nothing of JAX is imported.
 
 --kernels-only runs phases 1-3 and the time rows of K1 (each with its two
-passes' device times), K7 and K8, then prints their entries and the last
-line: a quick check of the kernels that drives no path (their launch
-counts are 0).
+passes' device times), K2a, K2b, K7 and K8, then prints their entries and
+the last line: a quick check of the kernels that drives no path (their
+launch counts are 0).
 """
 
 from __future__ import annotations
@@ -501,10 +505,17 @@ def time_basis(fb_in, pl_dst, pl_ptr, cfg3, gen) -> dict:
                                    real=True)
     e_pl = msg.shape[0]
     rows = int((ip[1:] > ip[:-1]).sum())
+    expansion = (msg[:, None, :] * a[:, :, None]).reshape(e_pl, -1)
+    lib_out = torch.zeros(n_fb, nb3 * d3, device=msg.device)
+    dst_long = dd.long()
     tp = time_in_turns({
         "K7": lambda: basis_segment_sum(msg, a, dd, ip, n_fb),
         "K8": lambda: basis_backward(g, msg, a, dd, ip),
+        "K7_yardstick": lambda: lib_out.index_add_(0, dst_long, expansion),
     }, n=50)
+    t["K7_powerlaw_yardstick"] = tp["K7_yardstick"]
+    log(f"[K7 time] power law: yardstick (index_add_ of the pre-built "
+        f"expansion) {tp['K7_yardstick']:.4f} ms")
     for key in ("K7", "K8"):
         b_ms, b_by = (basis_bwd_bound(e_pl, rows, d3, nb3) if key == "K8" else
                       basis_sum_bound(e_pl, n_fb, d3, nb3))
@@ -514,7 +525,7 @@ def time_basis(fb_in, pl_dst, pl_ptr, cfg3, gen) -> dict:
             f"without edges, largest row {int((ip[1:] - ip[:-1]).max())} "
             f"edges, B {nb3}, d {d3}): kernel {tp[key]:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}), {b_ms / tp[key]:.1%} of bound")
-    del msg, a, g
+    del msg, a, g, expansion, lib_out
     torch.cuda.empty_cache()
     return t
 
@@ -541,6 +552,8 @@ def basis_entries(basis_errs: dict, t: dict, by_path7: dict,
             "yardstick_ms": t[f"{key}_yardstick"],
             "ms_without_padding": t[f"{key}_without_padding"],
             "ms_powerlaw": t[f"{key}_powerlaw"],
+            **({"yardstick_ms_powerlaw": t["K7_powerlaw_yardstick"]}
+               if key == "K7" else {}),
             "bound_ms_powerlaw": t[f"{key}_powerlaw_bound"],
             **({"ms_d200": t["K8_d200"], "bound_ms_d200": t["K8_d200_bound"]}
                if key == "K8" else {}),
@@ -559,6 +572,81 @@ def k2_case(b: int, n: int, d: int, masked, gen):
     w = torch.ones(b)
     w[list(masked)] = 0.0
     return [t.cuda() for t in (h, ent, bias, w)]
+
+
+def time_k2(name: str, h, ent, bias, w, profile: bool = False) -> dict:
+    """K2a / K2b time rows: each kernel, its plain version and its bound,
+    beside two yardsticks (no one PyTorch call computes either function):
+    the score product addmm(bias, h, ent.T), and K2b's three products
+    timed together on a precomputed dl (addmm, dl @ ent, dl.T @ h)."""
+    from kgc_gcn_torch.ops.fused_loss import (
+        dense_grads, dense_grads_reference, dense_loss, dense_loss_reference)
+    b, d = h.shape
+    n = ent.shape[0]
+    base = 1.0 / n
+    g_t = torch.tensor(1.0 / (b * n), device=h.device)
+    entT = ent.T
+    dl = (torch.sigmoid(torch.addmm(bias, h, entT)) - base) * w[:, None] * g_t
+    t = time_in_turns({
+        "K2a": lambda: dense_loss(h, ent, bias, w, base),
+        "K2a_plain": lambda: dense_loss_reference(h, ent, bias, w, base),
+        "K2b": lambda: dense_grads(g_t, h, ent, bias, w, base),
+        "K2b_plain": lambda: dense_grads_reference(g_t, h, ent, bias, w, base),
+        "addmm": lambda: torch.addmm(bias, h, entT),
+        "three_products": lambda: (torch.addmm(bias, h, entT), dl @ ent,
+                                   dl.T @ h),
+    })
+    t["K2a_bound"], t["K2a_bound_by"] = k2_bound(b, n, d, False)
+    t["K2b_bound"], t["K2b_bound_by"] = k2_bound(b, n, d, True)
+    if profile:
+        log_profile(f"K2a at the {name} shape",
+                    lambda: dense_loss(h, ent, bias, w, base), steps=5)
+        log_profile(f"K2b at the {name} shape",
+                    lambda: dense_grads(g_t, h, ent, bias, w, base), steps=5)
+    log(f"[K2 time] {name} (B {b}, d {d}, N {n}): K2a {t['K2a']:.4f} ms, "
+        f"plain {t['K2a_plain']:.4f} ms, bound {t['K2a_bound']:.4f} ms "
+        f"({t['K2a_bound_by']}), {t['K2a_bound'] / t['K2a']:.1%} of bound; "
+        f"K2b {t['K2b']:.4f} ms, plain {t['K2b_plain']:.4f} ms, bound "
+        f"{t['K2b_bound']:.4f} ms ({t['K2b_bound_by']}), "
+        f"{t['K2b_bound'] / t['K2b']:.1%} of bound; yardsticks: "
+        f"addmm(bias, h, ent.T) {t['addmm']:.4f} ms, K2b's three products "
+        f"(addmm, dl @ ent, dl.T @ h) {t['three_products']:.4f} ms")
+    return t
+
+
+def k2_entries(k2_errs: dict, timings: dict, by_path_a: dict,
+               by_path_b: dict) -> list:
+    """K2a's and K2b's entries of the kernels line: the main shape's times,
+    the FB15k-237 and edge shapes' rows, every case's error, and the
+    launches of the paths driven."""
+    main = timings["k2_main"]
+    entries = []
+    for key, fn_name, line, by_path in (
+            ("K2a", "fused_bce_loss", 125, by_path_a),
+            ("K2b", "fused_bce_grads", 145, by_path_b)):
+        keep = lambda k: (k.startswith(key) or k == "addmm"
+                          or (key == "K2b" and k == "three_products"))
+        entries.append({
+            "name": f"{fn_name} ({key})", "route": "cuda",
+            "source": "kgc_gcn_torch/csrc/fused_score_bce.cu",
+            "replaces": f"kgc_gcn_tpu/ops/fused_loss.py:{line}",
+            "launches": sum(by_path.values()),
+            "max_abs_err": max(k2_errs[key].values()),
+            "ms": main[key], "plain_ms": main[f"{key}_plain"],
+            "bound_ms": main[f"{key}_bound"],
+            "bound_by": main[f"{key}_bound_by"],
+            "library_ms": None,
+            "yardstick": "addmm(bias, h, ent.T)",
+            "yardstick_ms": main["addmm"],
+            **({"yardstick_three_products_ms": main["three_products"]}
+               if key == "K2b" else {}),
+            "launches_by_path": by_path,
+            "cases": {**{name: {k: v for k, v in timings[f"k2_{name}"].items()
+                                if keep(k)}
+                         for name in ("fb15k237", "edge")},
+                      "max_abs_err": k2_errs[key]},
+        })
+    return entries
 
 
 def assert_topk_match(scores, ids, want_scores, want_ids, tol: float) -> None:
@@ -856,7 +944,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
-                    help="phases 1-3 and the K1, K7 and K8 time rows only")
+                    help="phases 1-3 and the K1, K2, K7 and K8 time rows "
+                    "only")
     args = ap.parse_args()
 
     # 1. device ---------------------------------------------------------------
@@ -903,7 +992,8 @@ def main() -> int:
     kernels = load_kernels(force_build=True)
     log(f"[build] {kernels.path.name} in {kernels.build_seconds:.1f} s")
     for line in kernels.build_log.splitlines():
-        if "ptxas info" in line and ("Used" in line or "Compiling" in line):
+        if ("ptxas info" in line and ("Used" in line or "Compiling" in line)
+                or "spill" in line):
             log("  " + line.strip())
 
     # 3. kernels against the plain version --------------------------------------
@@ -955,11 +1045,20 @@ def main() -> int:
 
     cfg0 = dataset_preset("WN18RR")
     b_main, d_out = cfg0.batch_size, cfg0.gcn_out_dim
-    k2_cases = {
-        "main": (k2_case(b_main, ds.num_entity, d_out, (), gen), ()),
-        "edge": (k2_case(5, 1001, 37, (1, 3), gen), (1, 3)),
-        "wide": (k2_case(7, 300, 300, (6,), gen), (6,)),   # two gradient windows
+    # K2b's edges: B above one row chunk of 128, N one past a tile multiple
+    # of 64 and below one tile, d 300 (two column windows) and d 1, masked
+    # rows; the FB15k-237 preset's shape is the main path's other width
+    k2_shapes = {
+        "main": (b_main, ds.num_entity, d_out, ()),
+        "fb15k237": (b_main, n_fb, d_out, ()),
+        "edge": (5, 1001, 37, (1, 3)),
+        "wide": (7, 300, 300, (6,)),
+        "b300": (300, 129, 40, (0, 150, 299)),
+        "n_below_tile": (9, 50, 64, (4,)),
+        "d1": (3, 65, 1, (1,)),
     }
+    k2_cases = {name: (k2_case(b_, n_, d_, m, gen), m)
+                for name, (b_, n_, d_, m) in k2_shapes.items()}
     k2_errs = {"K2a": {}, "K2b": {}}
     for name, ((h, ent, bias, w), _) in k2_cases.items():
         n = ent.shape[0]
@@ -985,6 +1084,20 @@ def main() -> int:
             f"{float(want):.6g} (rtol {K2_LOSS_RTOL}); grads max_abs_err "
             f"{k2_errs['K2b'][name]:.3g} (rtol {K2_GRAD_RTOL}, atol "
             f"{K2_GRAD_ATOL} x max)")
+    # normal values, whose float32 sums depend on their order: d_h adds the
+    # blocks' partials in block order, so two calls give the same bits
+    h, ent, bias, w = (torch.randn(b_main, d_out, generator=gen),
+                       torch.randn(ds.num_entity, d_out, generator=gen),
+                       torch.randn(ds.num_entity, generator=gen),
+                       torch.ones(b_main))
+    h, ent, bias, w = (t.to(device) for t in (h, ent, bias, w))
+    g_t = torch.tensor(1.0 / (b_main * ds.num_entity), device=device)
+    first = dense_grads(g_t, h, ent, bias, w, 1.0 / ds.num_entity)
+    second = dense_grads(g_t, h, ent, bias, w, 1.0 / ds.num_entity)
+    if not all(torch.equal(a, b_) for a, b_ in zip(first, second)):
+        raise AssertionError("K2b: two calls on the same inputs differ")
+    log("[K2 check] main shape on normal values: two K2b calls bit-identical")
+    del h, ent, bias, w, first, second
 
     # K7 / K8 at BASELINE config 3's shape (FB15k-237 in-half, B 30, d 100),
     # an edge case (empty rows, a hub row, B = 1, d 37) and the power-law
@@ -1198,9 +1311,14 @@ def main() -> int:
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
             f"{t['bound_ms'] / t['ms']:.1%} of bound{pad}")
     timings["basis_config3"] = time_basis(fb_in, pl_dst, pl_ptr, cfg3, gen)
+    for name in ("main", "fb15k237", "edge"):
+        timings[f"k2_{name}"] = time_k2(name, *k2_cases[name][0],
+                                        profile=name == "main")
     if args.kernels_only:
-        print(json.dumps({"kernels": [k1_entry(errs, timings, {})] + basis_entries(
-            basis_errs, timings["basis_config3"], {}, {})}))
+        print(json.dumps({"kernels": [k1_entry(errs, timings, {})]
+                          + k2_entries(k2_errs, timings, {}, {})
+                          + basis_entries(basis_errs, timings["basis_config3"],
+                                          {}, {})}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -1259,36 +1377,6 @@ def main() -> int:
         f"{t['ms_without_padding']:.4f} ms")
     log_profile("K5 at the RGAT path's shape",
                 lambda: segment_max(lg, dd, ip, n_rows), steps=5)
-
-    for name in ("main", "edge"):
-        (h, ent, bias, w), _ = k2_cases[name]
-        b, d = h.shape
-        n = ent.shape[0]
-        base = 1.0 / n
-        g_t = torch.tensor(1.0 / (b * n), device=device)
-        entT = ent.T
-        t = time_in_turns({
-            "K2a": lambda: dense_loss(h, ent, bias, w, base),
-            "K2a_plain": lambda: dense_loss_reference(h, ent, bias, w, base),
-            "K2b": lambda: dense_grads(g_t, h, ent, bias, w, base),
-            "K2b_plain": lambda: dense_grads_reference(g_t, h, ent, bias, w, base),
-            "addmm": lambda: torch.addmm(bias, h, entT),
-        })
-        t["K2a_bound"], t["K2a_bound_by"] = k2_bound(b, n, d, False)
-        t["K2b_bound"], t["K2b_bound_by"] = k2_bound(b, n, d, True)
-        timings[f"k2_{name}"] = t
-        if name == "main":
-            log_profile("K2a at the main shape",
-                        lambda: dense_loss(h, ent, bias, w, base), steps=5)
-            log_profile("K2b at the main shape",
-                        lambda: dense_grads(g_t, h, ent, bias, w, base), steps=5)
-        log(f"[K2 time] {name} (B {b}, d {d}, N {n}): K2a {t['K2a']:.4f} ms, "
-            f"plain {t['K2a_plain']:.4f} ms, bound {t['K2a_bound']:.4f} ms "
-            f"({t['K2a_bound_by']}), {t['K2a_bound'] / t['K2a']:.1%} of bound; "
-            f"K2b {t['K2b']:.4f} ms, plain {t['K2b_plain']:.4f} ms, bound "
-            f"{t['K2b_bound']:.4f} ms ({t['K2b_bound_by']}), "
-            f"{t['K2b_bound'] / t['K2b']:.1%} of bound; yardstick "
-            f"addmm(bias, h, ent.T) {t['addmm']:.4f} ms")
 
     # K4a / K4b at the WN18RR half shape, float32 and bf16 outputs; no one
     # PyTorch call computes either function (no library time)
@@ -1721,26 +1809,7 @@ def main() -> int:
                   "rgat_serve": rgat_serve_launches})
     by_path = lambda i: {k: v[i] for k, v in paths.items()}
     entries = [k1_entry(errs, timings, by_path(0))]
-    k2_main = timings["k2_main"]
-    for i, (key, fn_name, line) in enumerate((
-            ("K2a", "fused_bce_loss", 125), ("K2b", "fused_bce_grads", 145))):
-        entries.append({
-            "name": f"{fn_name} ({key})", "route": "cuda",
-            "source": "kgc_gcn_torch/csrc/fused_score_bce.cu",
-            "replaces": f"kgc_gcn_tpu/ops/fused_loss.py:{line}",
-            "launches": sum(by_path(1 + i).values()),
-            "max_abs_err": max(k2_errs[key].values()),
-            "ms": k2_main[key], "plain_ms": k2_main[f"{key}_plain"],
-            "bound_ms": k2_main[f"{key}_bound"],
-            "bound_by": k2_main[f"{key}_bound_by"],
-            "library_ms": None,
-            "yardstick": "addmm(bias, h, ent.T)",
-            "yardstick_ms": k2_main["addmm"],
-            "launches_by_path": by_path(1 + i),
-            "cases": {"edge": {k: v for k, v in timings["k2_edge"].items()
-                               if k.startswith(key) or k == "addmm"},
-                      "max_abs_err": k2_errs[key]},
-        })
+    entries += k2_entries(k2_errs, timings, by_path(1), by_path(2))
     t3 = timings["basis_config3"]
     entries += basis_entries(basis_errs, t3, by_path(3), by_path(4))
     t5 = timings["k5_wn18rr_h4"]

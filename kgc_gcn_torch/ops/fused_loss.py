@@ -31,19 +31,57 @@ each row of ``label_idx`` to hold UNIQUE entity ids, padded with ``N``
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
 import torch
 
 from kgc_gcn_torch.utils.cuda_build import check_launch, load_kernels
 
-# Column window of the kernels' gradient outputs (d_ent, d_h): wider query
-# vectors run in several windows (csrc/fused_score_bce.cu)
-_GRAD_WINDOW = 256
-# d_h partial sums: about this many blocks in flight over the whole grid
-_DH_BLOCKS = 528
-_DH_ROWS = 32      # rows of h per d_h block (kDhRows in the source)
-_TILE_N = 32       # entities per tile of the d_h walk (kDhTileN)
+# K2b's schedule (csrc/fused_score_bce.cu): rows of h per chunk, entities
+# per tile, float4 slot strides of the staged h chunk and entity tile and of
+# the transposed dl tile, and the widest column window whose operands fit in
+# one block's 232,448 bytes of shared memory
+_GRAD_ROWS, _GRAD_TILE_N = 128, 64
+_GRAD_LD_H, _GRAD_LD_E, _GRAD_LD_L = 132, 68, 132
+_GRAD_MAX_WINDOW = 248
+
+
+@dataclass(frozen=True)
+class GradsSchedule:
+    """K2b's launch schedule: block x owns entity tiles
+    ``tile_range(x)``, writes one d_h partial of (B rounded up to 128,
+    ``ld_partial``) floats, and stages columns in ``n_windows`` windows of
+    ``window``."""
+    n_tiles: int
+    tiles_per_block: int
+    blocks: int
+    window: int
+    n_windows: int
+    ld_partial: int
+    scratch_floats: int
+    smem_bytes: int
+
+    def tile_range(self, block: int) -> range:
+        start = block * self.tiles_per_block
+        return range(start, min(start + self.tiles_per_block, self.n_tiles))
+
+
+def grads_schedule(b: int, n: int, d: int, n_sm: int) -> GradsSchedule:
+    """Runs of 64-entity tiles for about ``n_sm`` blocks, none empty, and
+    column windows of at most 248 (a multiple of 8) for K2b."""
+    n_tiles = -(-n // _GRAD_TILE_N)
+    tiles_per_block = -(-n_tiles // max(1, n_sm))
+    blocks = -(-n_tiles // tiles_per_block)
+    n_windows = -(-d // _GRAD_MAX_WINDOW)
+    per_window = -(-d // n_windows)
+    window = -(-per_window // 8) * 8
+    smem = 16 * (window // 4) * (_GRAD_LD_H + _GRAD_LD_E) \
+        + 4 * _GRAD_TILE_N * _GRAD_LD_L
+    ld_partial = window * n_windows
+    rows = -(-b // _GRAD_ROWS) * _GRAD_ROWS   # B in whole row chunks
+    return GradsSchedule(n_tiles, tiles_per_block, blocks, window, n_windows,
+                         ld_partial, blocks * rows * ld_partial, smem)
 
 
 def _split_base_coeff(n_ent: int, smooth: float) -> Tuple[float, float]:
@@ -191,7 +229,7 @@ def dense_grads(g: torch.Tensor, h: torch.Tensor, ent: torch.Tensor,
     by the float32 scalar tensor ``g``, all float32.
 
     ``dense_grads.launches`` counts the wrapper's launches (one per call:
-    its d_ent, d_h and reduction kernels together)."""
+    the pass over entity tiles and the d_h reduction together)."""
     _check(h, ent, bias, row_mask)
     g = g.reshape(1).to(torch.float32)
     if not _on_card(h, ent, bias, row_mask, g):
@@ -203,13 +241,10 @@ def dense_grads(g: torch.Tensor, h: torch.Tensor, ent: torch.Tensor,
     d_bias = torch.empty(n, dtype=torch.float32, device=h.device)
     if b == 0 or n == 0 or d == 0:
         return d_h.zero_(), d_ent.zero_(), d_bias.zero_()
-    row_tiles = -(-b // _DH_ROWS)
-    n_tiles = -(-n // _TILE_N)
-    splits = max(1, min(n_tiles, -(-_DH_BLOCKS // row_tiles)))
-    tiles_per_split = -(-n_tiles // splits)
-    splits = -(-n_tiles // tiles_per_split)
-    scratch = torch.empty(splits * b * min(d, _GRAD_WINDOW),
-                          dtype=torch.float32, device=h.device)
+    sched = grads_schedule(
+        b, n, d, torch.cuda.get_device_properties(h.device).multi_processor_count)
+    scratch = torch.empty(sched.scratch_floats, dtype=torch.float32,
+                          device=h.device)
     kernels = load_kernels()
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
@@ -217,7 +252,8 @@ def dense_grads(g: torch.Tensor, h: torch.Tensor, ent: torch.Tensor,
             g.data_ptr(), h.data_ptr(), ent.data_ptr(), bias.data_ptr(),
             row_mask.data_ptr(), float(base), d_h.data_ptr(),
             d_ent.data_ptr(), d_bias.data_ptr(), scratch.data_ptr(),
-            b, n, d, splits, tiles_per_split, stream)
+            b, n, d, sched.tiles_per_block, sched.blocks, sched.window,
+            sched.n_windows, stream)
     check_launch(kernels.lib, code, "fused_bce_grads (K2b)")
     dense_grads.launches += 1
     return d_h, d_ent, d_bias

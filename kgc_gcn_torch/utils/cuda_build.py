@@ -110,8 +110,11 @@ def load_kernels(force_build: bool = False) -> KernelLibrary:
     lib.kgc_fused_bce_loss.argtypes = [vp, vp, vp, vp, f32, vp, vp, i32, i32,
                                        i32, vp]
     lib.kgc_fused_bce_loss.restype = i32
+    lib.kgc_fused_bce_grads_smem.argtypes = [i32]
+    lib.kgc_fused_bce_grads_smem.restype = i32
     lib.kgc_fused_bce_grads.argtypes = [vp, vp, vp, vp, vp, f32, vp, vp, vp,
-                                        vp, i32, i32, i32, i32, i32, vp]
+                                        vp, i32, i32, i32, i32, i32, i32, i32,
+                                        vp]
     lib.kgc_fused_bce_grads.restype = i32
     lib.kgc_basis_sum.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
     lib.kgc_basis_sum.restype = i32

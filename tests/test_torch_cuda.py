@@ -23,7 +23,8 @@ from kgc_gcn_torch.ops.basis import (
     BASIS_BWD_MAX_SMEM, basis_backward, basis_backward_reference,
     basis_segment_sum, basis_segment_sum_reference)
 from kgc_gcn_torch.ops.fused_loss import (
-    dense_grads, dense_grads_reference, dense_loss, dense_loss_reference)
+    dense_grads, dense_grads_reference, dense_loss, dense_loss_reference,
+    grads_schedule)
 from kgc_gcn_torch.ops.kernels import PLAIN
 from kgc_gcn_torch.ops.segment_max import segment_max, segment_max_reference
 from kgc_gcn_torch.ops.segment_sum import segment_sum, segment_sum_reference
@@ -184,7 +185,12 @@ K2_GRAD_RTOL = K2_GRAD_ATOL = 1e-4
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,d,masked", [
     (128, 4099, 200, ()), (5, 1001, 37, (1, 3)), (7, 300, 300, (6,)),
-    (70, 33, 64, (0, 69))])
+    (70, 33, 64, (0, 69)),
+    # K2b's edges: B above one row chunk of 128 (and with two windows), N
+    # below one tile of 64, N one past a tile multiple, d 1, runs of two
+    # tiles a block with a ragged last tile
+    (300, 129, 40, (0, 150, 299)), (130, 200, 300, (0, 129)),
+    (9, 50, 64, (4,)), (3, 65, 1, (1,)), (64, 19201, 200, (5,))])
 def test_k2_kernels_match_plain(cuda, b, n, d, masked):
     gen = torch.Generator().manual_seed(b + n)
     h = torch.relu(torch.randn(b, d, generator=gen)).to(cuda)
@@ -208,6 +214,35 @@ def test_k2_kernels_match_plain(cuda, b, n, d, masked):
             atol=K2_GRAD_ATOL * float(want.abs().max()))
     for i in masked:
         assert float(got_g[0][i].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d", [(128, 19201, 200), (130, 700, 300)])
+def test_k2b_is_deterministic(cuda, b, n, d):
+    """d_h is added over the blocks' partials in a fixed order and d_ent,
+    d_bias have one writer each: two calls on normal values, whose float32
+    sums depend on their order, give the same bits."""
+    gen = torch.Generator().manual_seed(b * n)
+    h, ent = (torch.randn(b, d, generator=gen).to(cuda),
+              torch.randn(n, d, generator=gen).to(cuda))
+    bias = torch.randn(n, generator=gen).to(cuda)
+    w = torch.ones(b, device=cuda)
+    g = torch.tensor(1.0 / (b * n), device=cuda)
+    first = dense_grads(g, h, ent, bias, w, 1.0 / n)
+    second = dense_grads(g, h, ent, bias, w, 1.0 / n)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_k2b_schedule_matches_the_source(cuda):
+    """grads_schedule's shared-memory size is the launcher's, at every
+    window it can choose."""
+    from kgc_gcn_torch.utils.cuda_build import load_kernels
+    lib = load_kernels().lib
+    for d in range(1, 1000, 7):
+        sched = grads_schedule(128, 1000, d, 132)
+        assert lib.kgc_fused_bce_grads_smem(sched.window) == sched.smem_bytes
 
 
 @pytest.mark.cuda

@@ -153,3 +153,24 @@ def test_k2_wrappers_check_their_inputs():
     before = (pfl.dense_loss.launches, pfl.dense_grads.launches)
     pfl.dense_loss(_t(h), _t(ent), _t(bias), _t(mask), 0.0)
     assert (pfl.dense_loss.launches, pfl.dense_grads.launches) == before
+
+
+@pytest.mark.parametrize("b,n,d,n_sm", [
+    (128, 40943, 200, 132), (128, 14541, 200, 132), (300, 129, 40, 132),
+    (7, 300, 300, 132), (3, 65, 1, 132), (64, 19201, 200, 132),
+    (130, 700, 301, 4), (5, 1, 249, 1), (9, 50, 496, 132), (2, 640, 8, 10)])
+def test_k2b_schedule_covers_every_tile_once(b, n, d, n_sm):
+    """K2b's schedule: block runs cover the 64-entity tiles once, in order,
+    none empty, at most one block an SM; one d_h partial a block, of
+    (B rounded up to the row chunk of 128, ld_partial); windows of at most 248 columns (multiples of 8) that cover d, the
+    last one not empty; operands within one block's shared memory."""
+    s = pfl.grads_schedule(b, n, d, n_sm)
+    assert (s.n_tiles - 1) * 64 < n <= s.n_tiles * 64
+    runs = [s.tile_range(x) for x in range(s.blocks)]
+    assert [t for run in runs for t in run] == list(range(s.n_tiles))
+    assert all(len(run) > 0 for run in runs) and s.blocks <= n_sm
+    assert s.scratch_floats == s.blocks * -(-b // 128) * 128 * s.ld_partial
+    assert s.window % 8 == 0 and 0 < s.window <= 248
+    assert s.ld_partial == s.window * s.n_windows
+    assert s.ld_partial - s.window < d <= s.ld_partial
+    assert s.smem_bytes <= 232448
