@@ -16,17 +16,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      past a tile multiple, d 300 and d 1, masked rows; K2b twice on normal
      values, bit-identical calls), K7 / K8
      (basis R-GCN aggregation and its backward at config 3, on an edge
-     case and on the power-law graph; bit-equal on dyadic inputs, then real
-     values), K5 (segment-max), K4a / K4b (the one-pass compose
-     and backward products, bit-equal on any input, also ragged and
+     case, on rows above K7's piece length at d 100 and d 200 and on the
+     power-law graph; bit-equal on dyadic inputs, then real values; K7
+     twice on the power-law graph, bit-identical calls; K8 at B 128 and
+     d 256, in column windows: one launch, equal to the plain backward),
+     K5 (segment-max), K4a / K4b (the one-pass compose and backward
+     products, bit-equal on any input, also ragged and
      misaligned), K3 (the stacked fused compose + segment-sum; bit-equal on
      dyadic inputs, then real values, and edge cases);
   4. timing: each kernel, its plain version and the one-call library
      equivalent or yardstick, with CUDA events, beside the least time the
      card needs (K1, K3, K5, K7, K8 also without the graph's padding edges,
-     K1, K7, K8 also on the power-law graph, K8 also at a second layer's
-     d 200, K2a / K2b also at the FB15k-237 shape and beside the yardsticks
-     of one addmm and of K2b's three products);
+     K1, K7, K8 also on the power-law graph, K7, K8 also at a second
+     layer's d 200, K8 also at B 128 and d 256 (column windows), K1's and
+     K7's two passes apart, K2a / K2b also at the
+     FB15k-237 shape and beside the yardsticks of one addmm and of K2b's
+     three products);
   5. training: the reference model (MGCN + ConvE at full width, WN18RR
      preset and dropout, random weights from --seed) on a WN18RR-shaped
      synthetic corpus: timed steps with loss_impl fused and auto (steps/s,
@@ -114,6 +119,13 @@ K2_GRAD_RTOL, K2_GRAD_ATOL = 1e-4, 1e-4
 # through one backward pass and one Adam update
 STEP_LOSS_RTOL = 1e-5
 STEP_RTOL, STEP_ATOL = 1e-3, 1e-3
+# a ReLU input that rounds to the other side of 0 in the two steps flips that
+# element's derivative between 0 and 1, so the gradients upstream of it differ
+# by a whole term, not by rounding (one such element of ConvE's bn1 output
+# moves conv_w's gradient by several times STEP_ATOL).  The plain step takes
+# the kernel step's side of every kink (KinkReplay); an element whose side
+# differs must lie within KINK_TOL x the largest input of its call
+KINK_TOL = 1e-4
 # directions that BatchNorm cancels (bn0's scale up to eps and bias, through
 # the conv into BN1): their gradient is float noise on both sides
 DEGENERATE = ("decoder.bn0.scale", "decoder.bn0.bias")
@@ -144,6 +156,9 @@ TIMED_STEPS = 50
 # relations, train / valid / test triples
 WN18RR = (40943, 11, 86835, 3000, 3000)
 FB15K237 = (14541, 237, 272115, 17535, 20466)
+# K7's two kernels (csrc/basis_rgcn.cu), as the profiler names them; timed
+# with overlap=False, so that pass B's interval holds no wait for pass A
+K7_PASSES = ("basis_sum_kernel", "basis_fixup_kernel")
 
 
 def log(msg: str) -> None:
@@ -356,13 +371,30 @@ def basis_case(dst, indptr, n_rows: int, d: int, nb: int, gen, real: bool):
             draw(n_rows, nb * d).cuda())
 
 
-def csr_case(counts, d: int, dtype, gen):
+def csr(counts):
+    """(dst (E,) int32, indptr (n_rows+1,) int32) on the host, for the given
+    per-row edge counts."""
     counts = torch.as_tensor(counts, dtype=torch.int64)
-    dst = torch.repeat_interleave(torch.arange(len(counts)), counts)
-    indptr = torch.zeros(len(counts) + 1, dtype=torch.int64)
+    indptr = torch.zeros(len(counts) + 1, dtype=torch.int32)
     indptr[1:] = torch.cumsum(counts, 0)
+    dst = torch.repeat_interleave(torch.arange(len(counts)), counts).int()
+    return dst, indptr
+
+
+def config3(seed: int):
+    """BASELINE config 3: basis R-GCN (30 bases) + DistMult on negatives,
+    float32, the FB15k-237 preset's widths, lr and dropout."""
+    from kgc_gcn_torch.config import dataset_preset
+    return dataset_preset("FB15k-237", model="rgcn", decoder="distmult",
+                          num_bases=30, train_mode="negative_sampling",
+                          compute_dtype="float32", moment_dtype="float32",
+                          seed=seed)
+
+
+def csr_case(counts, d: int, dtype, gen):
+    dst, indptr = csr(counts)
     msg = dyadic(len(dst), d, dtype, gen)
-    return (msg.cuda(), dst.int().cuda(), indptr.int().cuda(), len(counts))
+    return (msg.cuda(), dst.cuda(), indptr.cuda(), len(counts))
 
 
 def half_case(half, n_rows: int, d: int, dtype, gen, order: str = "dst"):
@@ -439,9 +471,12 @@ def time_basis(fb_in, pl_dst, pl_ptr, cfg3, gen) -> dict:
     computes either function): K7, index_add_ of the pre-built (E, B*d)
     expansion; K8, the two einsums on a pre-gathered sel = g[dst].  The
     basis contraction that follows K7 in the encoder, (N, B*d) @ (B*d,
-    d_out), is timed beside them, and K8 at a second layer's d 200 on the
-    same graph.  Then both kernels and their bounds on the power-law graph
-    at config 3's widths."""
+    d_out), is timed beside them, and K7 and K8 at a second layer's d 200 on
+    the same graph, and K8 at B 128 and d 256 (column windows; its plain
+    version would gather 35.7 GB).  Then both kernels and their bounds on
+    the power-law graph at config 3's widths.  K7's passes A and B also get
+    their device µs per call from the profiler, at config 3 and on the
+    power-law graph, with pass B launched after pass A (overlap=False)."""
     from kgc_gcn_torch.ops.basis import (
         basis_backward, basis_backward_reference, basis_segment_sum,
         basis_segment_sum_reference)
@@ -451,6 +486,9 @@ def time_basis(fb_in, pl_dst, pl_ptr, cfg3, gen) -> dict:
                                    gen, real=True)
     msg2 = torch.randn(msg.shape[0], d2, generator=gen).cuda()
     g2 = torch.randn(n_fb, nb3 * d2, generator=gen).cuda()
+    msg_w = torch.randn(msg.shape[0], 256, generator=gen).cuda()
+    a_w = torch.randn(msg.shape[0], 128, generator=gen).cuda()
+    g_w = torch.randn(n_fb, 128 * 256, generator=gen).cuda()
     e3, e_real = msg.shape[0], fb_in.e_real
     rows = int((ip[1:] > ip[:-1]).sum())
     cut = ip.clone()
@@ -474,11 +512,18 @@ def time_basis(fb_in, pl_dst, pl_ptr, cfg3, gen) -> dict:
                                  torch.einsum("ebd,ed->eb", sel, msg)),
         "K8_without_padding": lambda: basis_backward(g, msg_r, a_r, dd_r, cut),
         "K8_d200": lambda: basis_backward(g2, msg2, a, dd, ip),
+        "K7_d200": lambda: basis_segment_sum(msg2, a, dd, ip, n_fb),
+        "K8_b128_d256": lambda: basis_backward(g_w, msg_w, a_w, dd, ip),
         "basis_matmul": lambda: agg @ basis_w,
     }, n=50)
     t["K7_bound"], t["K7_bound_by"] = basis_sum_bound(e3, n_fb, d3, nb3)
+    t["K7_d200_bound"], _ = basis_sum_bound(e3, n_fb, d2, nb3)
+    t["K7_pass_a_us"], t["K7_pass_b_us"] = passes_us(
+        lambda: basis_segment_sum(msg, a, dd, ip, n_fb, overlap=False),
+        K7_PASSES)
     t["K8_bound"], t["K8_bound_by"] = basis_bwd_bound(e3, rows, d3, nb3)
     t["K8_d200_bound"], _ = basis_bwd_bound(e3, rows, d2, nb3)
+    t["K8_b128_d256_bound"], _ = basis_bwd_bound(e3, rows, 256, 128)
     log_profile("K7 at config 3", lambda: basis_segment_sum(msg, a, dd, ip, n_fb),
                 steps=5)
     log_profile("K8 at config 3", lambda: basis_backward(g, msg, a, dd, ip),
@@ -493,14 +538,22 @@ def time_basis(fb_in, pl_dst, pl_ptr, cfg3, gen) -> dict:
             f"{t[f'{key}_bound'] / t[key]:.1%} of bound; without the "
             f"{e3 - e_real} padding edges {t[f'{key}_without_padding']:.4f}"
             " ms")
-    log(f"[K8 time] config 3's graph at d {d2} (B {nb3}): kernel "
-        f"{t['K8_d200']:.4f} ms, bound {t['K8_d200_bound']:.4f} ms, "
-        f"{t['K8_d200_bound'] / t['K8_d200']:.1%} of bound")
+    for key in ("K7", "K8"):
+        log(f"[{key} time] config 3's graph at d {d2} (B {nb3}): kernel "
+            f"{t[f'{key}_d200']:.4f} ms, bound {t[f'{key}_d200_bound']:.4f} "
+            f"ms, {t[f'{key}_d200_bound'] / t[f'{key}_d200']:.1%} of bound")
+    log(f"[K8 time] config 3's graph at B 128, d 256 (two windows of 128 "
+        f"columns): kernel {t['K8_b128_d256']:.4f} ms, bound "
+        f"{t['K8_b128_d256_bound']:.4f} ms, "
+        f"{t['K8_b128_d256_bound'] / t['K8_b128_d256']:.1%} of bound")
+    log(f"[K7 time] config 3: passes A / B {t['K7_pass_a_us']:.1f} / "
+        f"{t['K7_pass_b_us']:.1f} µs (pass B after pass A)")
     log(f"[basis contraction] (N {n_fb}, {nb3 * d3}) @ ({nb3 * d3}, "
         f"{d2}) float32: {t['basis_matmul']:.4f} ms "
         f"({2 * n_fb * nb3 * d3 * d2 / t['basis_matmul'] / 1e9:.1f}"
         " TFLOP/s)")
     del msg, a, g, msg2, g2, expansion, sel, lib_out, agg, msg_r, a_r, dd_r
+    del msg_w, a_w, g_w
     msg, a, dd, ip, g = basis_case(pl_dst, pl_ptr, n_fb, d3, nb3, gen,
                                    real=True)
     e_pl = msg.shape[0]
@@ -514,8 +567,13 @@ def time_basis(fb_in, pl_dst, pl_ptr, cfg3, gen) -> dict:
         "K7_yardstick": lambda: lib_out.index_add_(0, dst_long, expansion),
     }, n=50)
     t["K7_powerlaw_yardstick"] = tp["K7_yardstick"]
+    t["K7_powerlaw_pass_a_us"], t["K7_powerlaw_pass_b_us"] = passes_us(
+        lambda: basis_segment_sum(msg, a, dd, ip, n_fb, overlap=False),
+        K7_PASSES)
     log(f"[K7 time] power law: yardstick (index_add_ of the pre-built "
-        f"expansion) {tp['K7_yardstick']:.4f} ms")
+        f"expansion) {tp['K7_yardstick']:.4f} ms; passes A / B "
+        f"{t['K7_powerlaw_pass_a_us']:.1f} / "
+        f"{t['K7_powerlaw_pass_b_us']:.1f} µs (pass B after pass A)")
     for key in ("K7", "K8"):
         b_ms, b_by = (basis_bwd_bound(e_pl, rows, d3, nb3) if key == "K8" else
                       basis_sum_bound(e_pl, n_fb, d3, nb3))
@@ -528,6 +586,14 @@ def time_basis(fb_in, pl_dst, pl_ptr, cfg3, gen) -> dict:
     del msg, a, g, expansion, lib_out
     torch.cuda.empty_cache()
     return t
+
+
+def passes_us(fn, kinds):
+    """Device µs per call of ``fn`` under the profiler, summed over the
+    kernels whose names hold each of ``kinds`` (a kernel's two passes)."""
+    top = profile_kernels(fn, 5)[2]
+    return tuple(sum(us for kernel, us in top if kind in kernel)
+                 for kind in kinds)
 
 
 def basis_entries(basis_errs: dict, t: dict, by_path7: dict,
@@ -552,10 +618,16 @@ def basis_entries(basis_errs: dict, t: dict, by_path7: dict,
             "yardstick_ms": t[f"{key}_yardstick"],
             "ms_without_padding": t[f"{key}_without_padding"],
             "ms_powerlaw": t[f"{key}_powerlaw"],
-            **({"yardstick_ms_powerlaw": t["K7_powerlaw_yardstick"]}
+            **({"yardstick_ms_powerlaw": t["K7_powerlaw_yardstick"],
+                "pass_a_us": t["K7_pass_a_us"], "pass_b_us": t["K7_pass_b_us"],
+                "pass_a_us_powerlaw": t["K7_powerlaw_pass_a_us"],
+                "pass_b_us_powerlaw": t["K7_powerlaw_pass_b_us"]}
                if key == "K7" else {}),
             "bound_ms_powerlaw": t[f"{key}_powerlaw_bound"],
-            **({"ms_d200": t["K8_d200"], "bound_ms_d200": t["K8_d200_bound"]}
+            "ms_d200": t[f"{key}_d200"],
+            "bound_ms_d200": t[f"{key}_d200_bound"],
+            **({"ms_b128_d256": t["K8_b128_d256"],
+                "bound_ms_b128_d256": t["K8_b128_d256_bound"]}
                if key == "K8" else {}),
             "launches_by_path": by_path,
             "cases": {"max_abs_err": basis_errs[key]},
@@ -745,11 +817,59 @@ def timed_steps(trainer, launches: Launches, per_step, what: str,
                                           (c / TIMED_STEPS for c in got)))}
 
 
+class KinkReplay:
+    """Records which side of 0 every ``torch.relu`` and ``leaky_relu`` input
+    of one step lies on, and makes a second step of the same code take the
+    same sides, call by call: both steps then differentiate the same linear
+    piece.  ``ties`` counts the elements whose side the replay decided."""
+
+    def __init__(self):
+        self.masks, self.replay, self.ties = [], None, 0
+
+    def _side(self, x: torch.Tensor) -> torch.Tensor:
+        if self.replay is None:
+            self.masks.append(x.detach() > 0)
+            return self.masks[-1]
+        if self.replay == len(self.masks):
+            raise AssertionError("the plain step has more ReLUs than the "
+                                 "kernel step")
+        m, self.replay = self.masks[self.replay], self.replay + 1
+        if m.shape != x.shape:
+            raise AssertionError(f"ReLU shapes differ: {tuple(m.shape)} / "
+                                 f"{tuple(x.shape)}")
+        off = m != (x.detach() > 0)
+        if off.any():
+            near = float(x.detach()[off].abs().max())
+            if near > KINK_TOL * float(x.detach().abs().max()):
+                raise AssertionError(f"a ReLU input {near:.3g} lies on "
+                                     "another side in the two steps")
+            self.ties += int(off.sum())
+        return m
+
+    @contextlib.contextmanager
+    def patched(self, replay: bool):
+        """Within: record (``replay`` False) or replay the sides."""
+        relu, leaky = torch.relu, torch.nn.functional.leaky_relu
+        self.replay = 0 if replay else None
+        torch.relu = lambda x: torch.where(self._side(x), x, 0.0)
+        torch.nn.functional.leaky_relu = (
+            lambda x, negative_slope=0.01: torch.where(self._side(x), x,
+                                                       negative_slope * x))
+        try:
+            yield
+        finally:
+            torch.relu, torch.nn.functional.leaky_relu = relu, leaky
+        if replay and self.replay != len(self.masks):
+            raise AssertionError("the plain step has fewer ReLUs than the "
+                                 "kernel step")
+
+
 def same_step(trainer, batch, seed: int, launches: Launches, per_step,
               what: str, degenerate=(), cancelling=()) -> dict:
     """One kernel step of ``trainer`` against the same step through the plain
     versions, from its warm state (a copy of its model and Adam state), with
-    the same batch and dropout masks: the loss within STEP_LOSS_RTOL, every
+    the same batch and dropout masks and on the kernel step's side of every
+    ReLU kink (``KinkReplay``): the loss within STEP_LOSS_RTOL, every
     gradient and update within STEP_RTOL and STEP_ATOL x max.  Leaves named
     in ``degenerate`` are checked finite only; a leaf whose last name is in
     ``cancelling`` has its gradient's absolute tolerance relative to the
@@ -765,11 +885,12 @@ def same_step(trainer, batch, seed: int, launches: Launches, per_step,
         [v.clone() for v in trainer.opt_state.nu])
     before = [p.detach().clone() for p in trainer.params]
     lr = optim.epoch_lr(cfg, 1)
-    result = {}
+    result, kinks = {}, KinkReplay()
     for name, t in (("kernel", trainer), ("plain", plain)):
         t.generator.manual_seed(seed)
         launches.zero()
-        loss = t.loss(*batch)
+        with kinks.patched(replay=name == "plain"):
+            loss = t.loss(*batch)
         grads = list(torch.autograd.grad(loss, t.params))
         optim.step(t.params, grads, t.opt_state, cfg, lr)
         result[name] = (loss.detach(), grads, launches.read())
@@ -810,8 +931,9 @@ def same_step(trainer, batch, seed: int, launches: Launches, per_step,
         f"{trainer.opt_state.count}, the same batch and dropout masks): loss "
         f"{float(result['kernel'][0]):.8f} vs {float(result['plain'][0]):.8f}; "
         f"max abs err grads {errs['grad']:.3g}, updates {errs['update']:.3g} "
-        f"(rtol {STEP_RTOL}, atol {STEP_ATOL} x max)"
-        + "".join(f"; {n}" for n in notes))
+        f"(rtol {STEP_RTOL}, atol {STEP_ATOL} x max); {kinks.ties} of "
+        f"{sum(m.numel() for m in kinks.masks)} ReLU inputs tied to the "
+        "kernel step's side of 0" + "".join(f"; {n}" for n in notes))
     return errs
 
 
@@ -958,8 +1080,8 @@ def main() -> int:
     from kgc_gcn_torch.data.graph import build_graph
     from kgc_gcn_torch.models import build_model
     from kgc_gcn_torch.ops.basis import (
-        basis_backward, basis_backward_reference, basis_segment_sum,
-        basis_segment_sum_reference)
+        BASIS_SUM_PIECE, basis_backward, basis_backward_reference,
+        basis_bwd_window, basis_segment_sum, basis_segment_sum_reference)
     from kgc_gcn_torch.ops.elementwise import (
         bwd_products, bwd_products_reference, compose_msg,
         compose_msg_reference)
@@ -1102,23 +1224,32 @@ def main() -> int:
     # K7 / K8 at BASELINE config 3's shape (FB15k-237 in-half, B 30, d 100),
     # an edge case (empty rows, a hub row, B = 1, d 37) and the power-law
     # graph at config 3's widths
-    cfg3 = dataset_preset("FB15k-237", model="rgcn", decoder="distmult",
-                          num_bases=30, train_mode="negative_sampling",
-                          compute_dtype="float32", moment_dtype="float32",
-                          seed=args.seed)
+    cfg3 = config3(args.seed)
     nb3, d3 = cfg3.num_bases, cfg3.gcn_in_dim
-    hub_ptr = torch.zeros(hub.shape[0] + 1, dtype=torch.int32)
-    hub_ptr[1:] = torch.cumsum(hub, 0)
-    hub_dst = torch.repeat_interleave(torch.arange(hub.shape[0]), hub).int()
+    hub_dst, hub_ptr = csr(hub)
     fb_in = fb_graph.inb
     # the power-law in-degrees (largest row 40,644 edges, no padding)
-    pl_counts = torch.as_tensor(power_counts, dtype=torch.int64)
-    pl_ptr = torch.zeros(n_fb + 1, dtype=torch.int32)
-    pl_ptr[1:] = torch.cumsum(pl_counts, 0)
-    pl_dst = torch.repeat_interleave(torch.arange(n_fb), pl_counts).int()
+    pl_dst, pl_ptr = csr(power_counts)
+    # rows above K7's piece length T: two heavy rows meeting inside one
+    # piece, rows of exactly T and T + 1 edges, a row of several pieces, a
+    # heavy row starting on a piece boundary and a heavy last row ending at E
+    t_ = BASIS_SUM_PIECE
+    heavy = [100, 2 * t_ + 100, t_ + 150, 3, 0, 2, t_ - 100, t_ + 1,
+             5 * t_ + 37, 0, t_, t_ + 40]
+    heavy_dst, heavy_ptr = csr(heavy)
+    # F1: B 128 at d 256, which the JAX package's kernel trains, does not
+    # fit in one K8 block whole: K8 takes d in two windows of 128 columns
+    few = torch.randint(0, 4, (200,), generator=gen)
+    few[17] = 150                                    # a row over three spans
+    few_dst, few_ptr = csr(few)
     basis_shapes = {"config3": (fb_in.dst, fb_in.indptr, n_fb, d3, nb3),
                     "edge": (hub_dst, hub_ptr, hub.shape[0], 37, 1),
-                    "powerlaw": (pl_dst, pl_ptr, n_fb, d3, nb3)}
+                    "heavy_rows": (heavy_dst, heavy_ptr, len(heavy), d3, nb3),
+                    "heavy_rows_d200": (heavy_dst, heavy_ptr, len(heavy),
+                                        cfg3.gcn_out_dim, nb3),
+                    "powerlaw": (pl_dst, pl_ptr, n_fb, d3, nb3),
+                    "windows_b128_d256": (few_dst, few_ptr, len(few), 256,
+                                          128)}
     basis_errs = {"K7": {}, "K8": {}}
     for name, (dst_, ptr_, n_rows, d, nb) in basis_shapes.items():
         for real in (False, True):
@@ -1150,6 +1281,24 @@ def main() -> int:
                 + (f"rtol {BASIS_RTOL}, atol {BASIS_ATOL} x max)" if real
                    else "0: bit-equal)"))
             del got, want, got_b, want_b, msg, a, g
+    # normal values on the power-law graph: pass A sums each piece in edge
+    # order and pass B the partials in piece order, so two calls give the
+    # same bits
+    msg, a, dd, ip, _ = basis_case(pl_dst, pl_ptr, n_fb, d3, nb3, gen, True)
+    first = basis_segment_sum(msg, a, dd, ip, n_fb)
+    if not torch.equal(first, basis_segment_sum(msg, a, dd, ip, n_fb)):
+        raise AssertionError("K7: two calls on the same inputs differ")
+    log("[K7 check] powerlaw on normal values: two calls bit-identical")
+    # F1: the windowed K8 above is one launch a call
+    msg, a, dd, ip, g = basis_case(few_dst, few_ptr, len(few), 256, 128, gen,
+                                   True)
+    before = basis_backward.launches
+    basis_backward(g, msg, a, dd, ip)
+    if basis_backward.launches != before + 1:
+        raise AssertionError("F1: B 128, d 256 did not launch K8 once")
+    log(f"[F1 check] K8 at B 128, d 256: windows of "
+        f"{basis_bwd_window(256, 128)} columns, one launch a call")
+    del msg, a, g, first
     torch.cuda.empty_cache()
 
     # K5 at the RGAT path's shape (the WN18RR-shaped in-half: E_pad edges,
@@ -1298,10 +1447,8 @@ def main() -> int:
         t = time_in_turns(fns)
         t["bound_ms"], t["bound_by"] = bound(msg, n_rows)
         # each pass's device µs per call: pass A chunk_sums, pass B row_fixup
-        top = profile_kernels(fns["ms"], 5)[2]
-        t["pass_a_us"], t["pass_b_us"] = (
-            sum(us for kernel, us in top if kind in kernel)
-            for kind in ("chunk_sums", "row_fixup"))
+        t["pass_a_us"], t["pass_b_us"] = passes_us(
+            fns["ms"], ("chunk_sums", "row_fixup"))
         timings[name] = t
         pad = (f"; without the {msg.shape[0] - e_real} padding edges: "
                f"{t['ms_without_padding']:.4f} ms" if e_real is not None else "")

@@ -7,7 +7,9 @@ coefficients ``a = coeff[rel]``, over edges sorted by destination:
 
   * ``basis_segment_sum`` (K7): ``out[n, b*d + j] = Σ_{e into n} a[e,b] ·
     msg[e,j]``, (n_rows, B·d) float32; the (E, B·d) expansion never reaches
-    device memory.  Plain version: ``index_add_`` of that expansion.
+    device memory.  Plain version: ``index_add_`` of that expansion.  Rows
+    of more than ``BASIS_SUM_PIECE`` edges are summed in fixed pieces and
+    their partials added in piece order (``basis_sum_schedule``).
   * ``basis_backward`` (K8): per edge e into n, with ``sel = g[n]`` viewed as
     (B, d), ``d_msg[e] = Σ_b a[e,b] · sel[b]`` and ``d_a[e,b] = sel[b] ·
     msg[e]``.  Plain version: the gather ``g[dst]`` and two einsums (the JAX
@@ -18,14 +20,16 @@ coefficients ``a = coeff[rel]``, over edges sorted by destination:
     relation rows.
 
 Both wrappers run their plain version on a CPU tensor and launch their
-kernel (``csrc/basis_rgcn.cu``) on a CUDA tensor or raise; there is no
-fallback from the card to the plain version.  ``.launches`` counts kernel
-launches only.
+kernel (``csrc/basis_rgcn.cu``) on a CUDA tensor or raise.  Where a whole
+row does not fit in one K8 block's shared memory, K8 takes d in column
+windows (``basis_bwd_window``), so it runs at every width for B up to 436
+(the JAX package's kernel takes B up to 128).  ``.launches`` counts
+kernel calls only.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -36,12 +40,15 @@ from kgc_gcn_torch.utils.cuda_build import check_launch, load_kernels
 # Shared memory K8 may ask for (one block's opt-in maximum on the H100,
 # kMaxSmem in csrc/basis_rgcn.cu).
 BASIS_BWD_MAX_SMEM = 232448
+# K7: rows of more than this many edges are summed in pieces of this many
+# edges (csrc/basis_rgcn.cu, pass A), their partials added by pass B.
+BASIS_SUM_PIECE = 256
 
 
 def basis_bwd_smem_bytes(d: int, nb: int) -> int:
-    """Shared memory K8 needs for one span of 64 edges (``bwd_smem_bytes``
-    in csrc/basis_rgcn.cu): a row's cotangent, (B rounded up to 4) x S,
-    the span's messages (64 x S), coefficients
+    """Shared memory K8 needs for one span of 64 edges at d staged columns
+    (``bwd_smem_bytes`` in csrc/basis_rgcn.cu): a row's cotangent, (B
+    rounded up to 4) x S, the span's messages (64 x S), coefficients
     (64 x B rounded up to 4) and d_a rows (64 x B), and 132 ints of run
     bookkeeping; S is d rounded up to 4 with an odd quotient by 4."""
     nb4 = -(-nb // 4) * 4
@@ -51,13 +58,48 @@ def basis_bwd_smem_bytes(d: int, nb: int) -> int:
     return 4 * (nb4 * s + span * s + span * nb4 + span * nb + 2 * span + 4)
 
 
+def basis_bwd_window(d: int, nb: int) -> int:
+    """Columns of d that one K8 block stages at a time: d where a whole row
+    fits in shared memory (at B 30 d up to 556, at B 128 d up to 212), else
+    the fewest windows of a multiple of 4 columns that fit, made as even as
+    the multiple allows (B 128, d 256: two of 128); 0 where not even 4
+    columns fit (B above 436)."""
+    if basis_bwd_smem_bytes(d, nb) <= BASIS_BWD_MAX_SMEM:
+        return d
+    w = (d - 1) // 4 * 4
+    while w > 0 and basis_bwd_smem_bytes(w, nb) > BASIS_BWD_MAX_SMEM:
+        w -= 4
+    if w <= 0:
+        return 0
+    per = -(-d // -(-d // w))                # columns of the fewest windows
+    return -(-per // 4) * 4
+
+
+class BasisSumSchedule(NamedTuple):
+    """K7's pieces and scratch, from the shape alone (no read of the
+    graph)."""
+    piece: int            # a heavy row has more edges than this
+    n_pieces: int         # pass A's first blocks: pieces [p*piece, (p+1)*piece)
+    carry_shape: tuple    # pass A's partials, (n_pieces, 2, B*d) float32
+
+
+def basis_sum_schedule(e: int, d: int, nb: int) -> BasisSumSchedule:
+    """K7's pieces and the carry its launcher (``kgc_basis_sum`` in
+    csrc/basis_rgcn.cu) expects: pass A sums light rows whole and heavy
+    rows' pieces into the carry; pass B adds each heavy row's partials in
+    piece order."""
+    piece = BASIS_SUM_PIECE
+    n_pieces = -(-e // piece)
+    return BasisSumSchedule(piece, n_pieces, (n_pieces, 2, nb * d))
+
+
 def basis_segment_sum_reference(msg: torch.Tensor, a: torch.Tensor,
                                 dst: torch.Tensor, indptr: torch.Tensor,
                                 n_rows: int) -> torch.Tensor:
     """Plain K7: ``index_add_`` of the (E, B·d) expansion at ``dst``."""
     del indptr
     e, d = msg.shape
-    expansion = (msg[:, None, :] * a[:, :, None]).reshape(e, -1)
+    expansion = (msg[:, None, :] * a[:, :, None]).reshape(e, a.shape[1] * d)
     out = torch.zeros(n_rows, a.shape[1] * d, dtype=torch.float32,
                       device=msg.device)
     return out.index_add_(0, dst.long(), expansion)
@@ -105,27 +147,41 @@ def _on_card(t: torch.Tensor, what: str) -> bool:
 
 
 def basis_segment_sum(msg: torch.Tensor, a: torch.Tensor, dst: torch.Tensor,
-                      indptr: torch.Tensor, n_rows: int) -> torch.Tensor:
+                      indptr: torch.Tensor, n_rows: int, *,
+                      overlap: bool = True) -> torch.Tensor:
     """(E, d) messages and (E, B) coefficients sorted by ``dst`` ->
-    (n_rows, B·d) float32 (K7 on the card)."""
+    (n_rows, B·d) float32 (K7 on the card).
+
+    On the card, K7's pass A sums each row of at most ``BASIS_SUM_PIECE``
+    edges in one block and cuts longer rows into fixed pieces of the edge
+    list, whose partials pass B adds in piece order: no block walks more
+    than one piece, each row's order is fixed (two calls give the same
+    bits), and nothing syncs the host.  One call is two CUDA launches;
+    ``basis_segment_sum.launches`` counts calls.  Pass B is launched to
+    overlap pass A's tail; ``overlap=False`` starts it after pass A has
+    ended, so that a profiler times each pass alone."""
     _check(msg, a, dst, indptr, n_rows, "basis_segment_sum")
     if not _on_card(msg, "basis_segment_sum"):
         return basis_segment_sum_reference(msg, a, dst, indptr, n_rows)
     if not (msg.is_contiguous() and a.is_contiguous()
-            and indptr.is_contiguous()):
-        raise ValueError("basis_segment_sum: msg, a and indptr must be "
+            and dst.is_contiguous() and indptr.is_contiguous()):
+        raise ValueError("basis_segment_sum: msg, a, dst and indptr must be "
                          "contiguous")
     e, d = msg.shape
     nb = a.shape[1]
     out = torch.empty(n_rows, nb * d, dtype=torch.float32, device=msg.device)
     if n_rows == 0 or d == 0 or nb == 0:
         return out
+    sched = basis_sum_schedule(e, d, nb)
+    carry = torch.empty(sched.carry_shape, dtype=torch.float32,
+                        device=msg.device)
     kernels = load_kernels()
     with torch.cuda.device(msg.device):
         stream = torch.cuda.current_stream(msg.device).cuda_stream
         code = kernels.lib.kgc_basis_sum(
-            msg.data_ptr(), a.data_ptr(), indptr.data_ptr(), out.data_ptr(),
-            n_rows, e, d, nb, stream)
+            msg.data_ptr(), a.data_ptr(), dst.data_ptr(), indptr.data_ptr(),
+            out.data_ptr(), carry.data_ptr(), n_rows, e, d, nb, sched.piece,
+            int(overlap), stream)
     check_launch(kernels.lib, code, "basis_segment_sum")
     basis_segment_sum.launches += 1
     return out
@@ -139,10 +195,11 @@ def basis_backward(g: torch.Tensor, msg: torch.Tensor, a: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(n_rows, B·d) cotangent -> (d_msg (E, d), d_a (E, B)) float32 (K8 on
     the card).  The kernel reads each edge's row from ``dst``; ``indptr``
-    gives n_rows.  On the card it raises when ``basis_bwd_smem_bytes(d, B)``
-    exceeds ``BASIS_BWD_MAX_SMEM`` (232,448 bytes): at B 30 that admits
-    d up to 556 (config 3's d 100 needs 54,800 bytes, the 2-layer d 200
-    94,736)."""
+    gives n_rows.  A K8 block stages ``basis_bwd_window(d, B)`` columns of
+    a row at a time: all d where they fit in its shared memory (config 3's
+    d 100 needs 54,800 bytes of the 232,448, the 2-layer d 200 94,736),
+    else windows of d (B 128 at d 256: two of 128 columns).  Above B 436
+    not even 4 columns fit, and the card raises."""
     n_rows = indptr.shape[0] - 1
     _check(msg, a, dst, indptr, n_rows, "basis_backward")
     e, d = msg.shape
@@ -154,11 +211,6 @@ def basis_backward(g: torch.Tensor, msg: torch.Tensor, a: torch.Tensor,
         raise ValueError("basis_backward: operands must be on one device")
     if not _on_card(msg, "basis_backward"):
         return basis_backward_reference(g, msg, a, dst, indptr)
-    need = basis_bwd_smem_bytes(d, nb)
-    if need > BASIS_BWD_MAX_SMEM:
-        raise ValueError(
-            f"basis_backward: B*d = {nb}*{d} needs {need} bytes of shared "
-            f"memory per block, above the {BASIS_BWD_MAX_SMEM} K8 asks for")
     if not (g.is_contiguous() and msg.is_contiguous() and a.is_contiguous()
             and dst.is_contiguous()):
         raise ValueError("basis_backward: g, msg, a and dst must be "
@@ -167,12 +219,19 @@ def basis_backward(g: torch.Tensor, msg: torch.Tensor, a: torch.Tensor,
     d_a = torch.empty(e, nb, dtype=torch.float32, device=msg.device)
     if e == 0 or n_rows == 0 or d == 0 or nb == 0:
         return d_msg, d_a
+    window = basis_bwd_window(d, nb)
+    if window == 0:
+        raise ValueError(
+            f"basis_backward: num_bases={nb} needs "
+            f"{basis_bwd_smem_bytes(4, nb)} bytes of shared memory even for "
+            f"4 columns, above the {BASIS_BWD_MAX_SMEM} one block may use")
     kernels = load_kernels()
     with torch.cuda.device(msg.device):
         stream = torch.cuda.current_stream(msg.device).cuda_stream
         code = kernels.lib.kgc_basis_bwd(
             g.data_ptr(), msg.data_ptr(), a.data_ptr(), dst.data_ptr(),
-            d_msg.data_ptr(), d_a.data_ptr(), n_rows, e, d, nb, stream)
+            d_msg.data_ptr(), d_a.data_ptr(), n_rows, e, d, nb, window,
+            stream)
     check_launch(kernels.lib, code, "basis_backward")
     basis_backward.launches += 1
     return d_msg, d_a

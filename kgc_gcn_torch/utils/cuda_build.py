@@ -116,10 +116,11 @@ def load_kernels(force_build: bool = False) -> KernelLibrary:
                                         vp, i32, i32, i32, i32, i32, i32, i32,
                                         vp]
     lib.kgc_fused_bce_grads.restype = i32
-    lib.kgc_basis_sum.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
+    lib.kgc_basis_sum.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                                  i32, i32, vp]
     lib.kgc_basis_sum.restype = i32
     lib.kgc_basis_bwd.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                                  vp]
+                                  i32, vp]
     lib.kgc_basis_bwd.restype = i32
     lib.kgc_fused_compose.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32,
                                       i32, i32, i32, i32, vp]

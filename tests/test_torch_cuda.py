@@ -20,8 +20,8 @@ import pytest
 import torch
 
 from kgc_gcn_torch.ops.basis import (
-    BASIS_BWD_MAX_SMEM, basis_backward, basis_backward_reference,
-    basis_segment_sum, basis_segment_sum_reference)
+    BASIS_SUM_PIECE, basis_backward, basis_backward_reference,
+    basis_bwd_window, basis_segment_sum, basis_segment_sum_reference)
 from kgc_gcn_torch.ops.fused_loss import (
     dense_grads, dense_grads_reference, dense_loss, dense_loss_reference,
     grads_schedule)
@@ -311,15 +311,40 @@ def test_kernel_train_step_matches_plain_step(cuda, loss_impl):
 # edges and one more or fewer, so that K8's runs start and end at every
 # offset of its 64-edge spans (span_bounds, also with d and B no multiples
 # of 4: its 4-byte copies), and Zipf in-degrees, a hub across many spans
-# (zipf_hub, also with B a multiple of 4: its 16-byte copies of a).  Inputs
-# are multiples of 2**-4 below 1: every product and partial sum is exact in
-# float32, so kernel and plain version agree to the bit.
+# (zipf_hub, also with B a multiple of 4: its 16-byte copies of a).  K7's
+# heavy rows (more than BASIS_SUM_PIECE = T edges): one hub of several
+# pieces at config 3's widths (one_hub), two heavy rows meeting inside one
+# piece with 4-byte copies of msg (two_hubs, d 37), rows of exactly T and
+# T + 1 edges at d 200 (t_plus_1), a heavy row starting on a piece boundary
+# and a heavy last row that ends at E (piece_bounds).  Rows too wide for one
+# K8 block's shared memory, which K8 takes in column windows: B 128 at
+# d 256 (two windows of 128), d 601 (a narrower last window, 4-byte copies)
+# and d 1500 (three windows).  Inputs are multiples of 2**-4 below 1: every
+# product and partial sum is exact in float32, so kernel and plain version
+# agree to the bit.
 BASIS_CASES = {
     "empty_rows": ("empty", 37, 3), "hub_row": ("hub", 100, 30),
     "one_basis": ("empty", 45, 1), "wide_d": ("wide", 600, 12),
     "layer2": ("hub", 200, 30), "many_bases": ("hub", 40, 70),
     "span_bounds": ("bounds", 100, 30), "span_bounds_d37": ("bounds", 37, 5),
-    "zipf_hub": ("zipf", 100, 30), "zipf_hub_b8": ("zipf", 64, 8)}
+    "zipf_hub": ("zipf", 100, 30), "zipf_hub_b8": ("zipf", 64, 8),
+    "one_hub": ("one_hub", 100, 30), "two_hubs": ("two_hubs", 37, 5),
+    "t_plus_1": ("t_plus_1", 200, 30), "piece_bounds": ("piece_bounds", 64, 8),
+    "windows_b128": ("hub", 256, 128), "windows_d601": ("bounds", 601, 64),
+    "windows_d1500": ("zipf", 1500, 30)}
+
+
+def heavy_counts():
+    """Per-row edge counts with rows above K7's piece length T."""
+    t = BASIS_SUM_PIECE
+    rng = np.random.default_rng(1)
+    one_hub = rng.integers(0, 4, size=40)
+    one_hub[17] = 5 * t + 37
+    return {"one_hub": one_hub,
+            # rows 1 and 2 share the piece [2T, 3T)
+            "two_hubs": np.array([100, 2 * t + 100, t + 150, 3, 0, 2]),
+            "t_plus_1": np.array([5, t, t + 1, 0, t, t + 1, 1]),
+            "piece_bounds": np.array([t, 2 * t + 90, 10, 0, t + 40])}
 
 
 def basis_case(name: str, seed: int, real: bool = False):
@@ -328,7 +353,7 @@ def basis_case(name: str, seed: int, real: bool = False):
               "hub": case_counts()["hub_row"][0],
               "wide": case_counts()["wide"][0],
               "bounds": case_counts()["chunk_bounds"][0],
-              "zipf": case_counts()["zipf"][0]}[kind]
+              "zipf": case_counts()["zipf"][0], **heavy_counts()}[kind]
     rng = np.random.default_rng(seed)
     draw = ((lambda *s: rng.normal(size=s).astype(np.float32)) if real else
             (lambda *s: (rng.integers(-15, 16, size=s) / 16).astype(np.float32)))
@@ -358,7 +383,8 @@ def test_basis_kernels_match_plain(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["zipf_hub", "span_bounds_d37"])
+@pytest.mark.parametrize("case", ["zipf_hub", "span_bounds_d37",
+                                  "windows_b128"])
 def test_basis_backward_is_deterministic(cuda, case):
     """Normal values, whose float32 sums depend on their order: each
     output's order is fixed, so two calls give the same bits."""
@@ -372,17 +398,82 @@ def test_basis_backward_is_deterministic(cuda, case):
 
 
 @pytest.mark.cuda
-def test_basis_backward_refuses_a_row_beyond_its_shared_memory(cuda):
-    d, nb = 100, BASIS_BWD_MAX_SMEM // 400 + 1     # B*d*4 bytes > the limit
-    msg = torch.zeros(3, d, device=cuda)
-    a = torch.zeros(3, nb, device=cuda)
-    dst = torch.tensor([0, 0, 1], dtype=torch.int32, device=cuda)
-    indptr = torch.tensor([0, 2, 3], dtype=torch.int32, device=cuda)
-    g = torch.zeros(2, nb * d, device=cuda)
+@pytest.mark.parametrize("case", ["one_hub", "two_hubs"])
+def test_basis_sum_is_deterministic(cuda, case):
+    """Normal values on rows split into pieces: pass A sums a piece in edge
+    order and pass B the partials in piece order, so two calls give the
+    same bits."""
+    msg, a, dst, indptr, _ = (torch.from_numpy(x).to(cuda)
+                              for x in basis_case(case, 7, real=True))
+    n_rows = indptr.shape[0] - 1
+    first = basis_segment_sum(msg, a, dst, indptr, n_rows)
+    second = basis_segment_sum(msg, a, dst, indptr, n_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_basis_backward_takes_wide_rows_in_column_windows(cuda):
+    """B 128 at d 256, which the JAX package's kernel trains: a whole row
+    does not fit in one K8 block's shared memory, so K8 takes d in two
+    windows of 128 columns; one launch, equal to the plain backward on
+    normal values (float32 sums in another order).  Above B 436 no window
+    fits and the card raises, with no launch."""
+    d, nb = 256, 128
+    assert basis_bwd_window(d, nb) == 128
+    rng = np.random.default_rng(8)
+    counts = rng.integers(0, 5, size=40)
+    counts[9] = 150                        # a row over three spans
+    _, dst, indptr = csr_case(counts, 1, 8)
+    e = len(dst)
+    msg, a, g = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                 .to(cuda) for s in ((e, d), (e, nb), (len(counts), nb * d)))
+    dst, indptr = (torch.from_numpy(x).to(cuda) for x in (dst, indptr))
     before = basis_backward.launches
+    got = basis_backward(g, msg, a, dst, indptr)
+    assert basis_backward.launches == before + 1
+    for x, y in zip(got, basis_backward_reference(g, msg, a, dst, indptr)):
+        torch.testing.assert_close(x, y, rtol=1e-5,
+                                   atol=1e-5 * float(y.abs().max()))
+    wide = torch.zeros(e, 437, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        basis_backward(g, msg, a, dst, indptr)
-    assert basis_backward.launches == before
+        basis_backward(torch.zeros(len(counts), 437 * 4, device=cuda),
+                       msg[:, :4].contiguous(), wide, dst, indptr)
+    assert basis_backward.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_basis_aggregate_on_a_hub_graph_matches_plain(cuda):
+    """The autograd function through K7 (with a row of several pieces), K8
+    and K1 against the plain versions: the value, d_x and d_coeff of a
+    weighted sum of the aggregate (float32 sums in another order)."""
+    from kgc_gcn_torch.data.graph import build_graph
+    from kgc_gcn_torch.ops.basis import basis_aggregate
+    from kgc_gcn_torch.ops.kernels import KERNELS
+
+    rng = np.random.default_rng(9)
+    n_ent, n_rel, n_tri, nb, d = 60, 4, 2000, 6, 16
+    tri = np.stack([rng.integers(n_ent, size=n_tri),
+                    rng.integers(n_rel, size=n_tri),
+                    rng.integers(n_ent, size=n_tri)], axis=1)
+    tri[: 3 * BASIS_SUM_PIECE, 2] = 7          # entity 7: a row of 3T+ edges
+    half = build_graph(tri, n_ent, n_rel).to(cuda).inb
+    assert int((half.indptr[1:] - half.indptr[:-1]).max()) > 3 * BASIS_SUM_PIECE
+    x = rng.normal(size=(n_ent, d)).astype(np.float32)
+    coeff = rng.normal(size=(2 * n_rel, nb)).astype(np.float32)
+    w = torch.from_numpy(rng.normal(size=(n_ent, nb * d)).astype(np.float32))
+    out = {}
+    for name, kernels in (("kernel", KERNELS), ("plain", PLAIN)):
+        xt = torch.from_numpy(x).to(cuda).requires_grad_()
+        ct = torch.from_numpy(coeff).to(cuda).requires_grad_()
+        before = basis_segment_sum.launches
+        agg = basis_aggregate(xt, ct, half, n_ent, kernels)
+        (agg * w.to(cuda)).sum().backward()
+        assert basis_segment_sum.launches == before + (name == "kernel")
+        out[name] = (agg.detach(), xt.grad, ct.grad)
+    for got, want in zip(out["kernel"], out["plain"]):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
 
 
 @pytest.mark.cuda
