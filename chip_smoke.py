@@ -22,14 +22,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      d 256, in column windows: one launch, equal to the plain backward),
      K5 (segment-max), K4a / K4b (the one-pass compose and backward
      products, bit-equal on any input, also ragged and
-     misaligned), K3 (the stacked fused compose + segment-sum; bit-equal on
-     dyadic inputs, then real values, and edge cases);
+     misaligned), K3 (the stacked fused compose + segment-sum at the
+     stacked WN18RR and FB15k-237 views, on the power-law graph and on an
+     edge case at d 37; bit-equal on dyadic inputs, also without the
+     padding edges, then real values; twice on the power-law graph's real
+     values, bit-identical calls);
   4. timing: each kernel, its plain version and the one-call library
      equivalent or yardstick, with CUDA events, beside the least time the
      card needs (K1, K3, K5, K7, K8 also without the graph's padding edges,
-     K1, K7, K8 also on the power-law graph, K7, K8 also at a second
-     layer's d 200, K8 also at B 128 and d 256 (column windows), K1's and
-     K7's two passes apart, K2a / K2b also at the
+     K1, K3, K7, K8 also on the power-law graph, K3 also at the stacked
+     FB15k-237 view, K7, K8 also at a second layer's d 200, K8 also at
+     B 128 and d 256 (column windows), K1's, K3's and K7's two passes
+     apart, K2a / K2b also at the
      FB15k-237 shape and beside the yardsticks of one addmm and of K2b's
      three products);
   5. training: the reference model (MGCN + ConvE at full width, WN18RR
@@ -74,7 +78,7 @@ The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Nothing of JAX is imported.
 
 --kernels-only runs phases 1-3 and the time rows of K1 (each with its two
-passes' device times), K2a, K2b, K7 and K8, then prints their entries and
+passes' device times), K2a, K2b, K7, K8 and K3, then prints their entries and
 the last line: a quick check of the kernels that drives no path (their
 launch counts are 0).
 """
@@ -159,6 +163,8 @@ FB15K237 = (14541, 237, 272115, 17535, 20466)
 # K7's two kernels (csrc/basis_rgcn.cu), as the profiler names them; timed
 # with overlap=False, so that pass B's interval holds no wait for pass A
 K7_PASSES = ("basis_sum_kernel", "basis_fixup_kernel")
+# K3's two kernels (csrc/fused_compose.cu); pass B is a plain second launch
+K3_PASSES = ("chunk_compose", "split_rows")
 
 
 def log(msg: str) -> None:
@@ -546,8 +552,8 @@ def time_basis(fb_in, pl_dst, pl_ptr, cfg3, gen) -> dict:
         f"columns): kernel {t['K8_b128_d256']:.4f} ms, bound "
         f"{t['K8_b128_d256_bound']:.4f} ms, "
         f"{t['K8_b128_d256_bound'] / t['K8_b128_d256']:.1%} of bound")
-    log(f"[K7 time] config 3: passes A / B {t['K7_pass_a_us']:.1f} / "
-        f"{t['K7_pass_b_us']:.1f} µs (pass B after pass A)")
+    log(f"[K7 time] config 3: passes A / B {us(t['K7_pass_a_us'])} / "
+        f"{us(t['K7_pass_b_us'])} µs (pass B after pass A)")
     log(f"[basis contraction] (N {n_fb}, {nb3 * d3}) @ ({nb3 * d3}, "
         f"{d2}) float32: {t['basis_matmul']:.4f} ms "
         f"({2 * n_fb * nb3 * d3 * d2 / t['basis_matmul'] / 1e9:.1f}"
@@ -572,8 +578,8 @@ def time_basis(fb_in, pl_dst, pl_ptr, cfg3, gen) -> dict:
         K7_PASSES)
     log(f"[K7 time] power law: yardstick (index_add_ of the pre-built "
         f"expansion) {tp['K7_yardstick']:.4f} ms; passes A / B "
-        f"{t['K7_powerlaw_pass_a_us']:.1f} / "
-        f"{t['K7_powerlaw_pass_b_us']:.1f} µs (pass B after pass A)")
+        f"{us(t['K7_powerlaw_pass_a_us'])} / "
+        f"{us(t['K7_powerlaw_pass_b_us'])} µs (pass B after pass A)")
     for key in ("K7", "K8"):
         b_ms, b_by = (basis_bwd_bound(e_pl, rows, d3, nb3) if key == "K8" else
                       basis_sum_bound(e_pl, n_fb, d3, nb3))
@@ -590,10 +596,17 @@ def time_basis(fb_in, pl_dst, pl_ptr, cfg3, gen) -> dict:
 
 def passes_us(fn, kinds):
     """Device µs per call of ``fn`` under the profiler, summed over the
-    kernels whose names hold each of ``kinds`` (a kernel's two passes)."""
+    kernels whose names hold each of ``kinds`` (a kernel's two passes);
+    None for a kind whose kernel the profiler did not see."""
     top = profile_kernels(fn, 5)[2]
-    return tuple(sum(us for kernel, us in top if kind in kernel)
+    return tuple(sum(t for kernel, t in top if kind in kernel)
+                 if any(kind in kernel for kernel, _ in top) else None
                  for kind in kinds)
+
+
+def us(v) -> str:
+    """A device time from ``passes_us``, or "not measured"."""
+    return "not measured" if v is None else f"{v:.1f}"
 
 
 def basis_entries(basis_errs: dict, t: dict, by_path7: dict,
@@ -633,6 +646,130 @@ def basis_entries(basis_errs: dict, t: dict, by_path7: dict,
             "cases": {"max_abs_err": basis_errs[key]},
         })
     return entries
+
+
+def k3_cases(ds, graph, fb_graph, pl_dst, pl_ptr, hub_dst, hub_ptr, d: int,
+             gen, device, real: bool) -> dict:
+    """K3's operands on the card, name -> (x, src, norm, rel_all, rel,
+    etab, dst, indptr, n_rows): the stacked views of the WN18RR-shaped corpus
+    and of the FB15k-237-shaped graph (both halves' 2 E_pad edges over 2N
+    rows and the 2R+1 relation rows; rows N-1 and 2N-1 hold the padding
+    edges), the power-law in-degrees as CSR (random src over FB15k-237's
+    entities, rel over its 475 relation rows), all at width ``d``, and an
+    edge case on the hub counts at d 37 (empty rows, a 5,000-edge hub row,
+    40 entities).  Dyadic operands (multiples of 2**-3 below 1: every
+    product and partial sum exact in float32; the stacked views' padding
+    edges keep their zero norm), or normal values with ``real`` (the
+    stacked views with their own norms)."""
+    draw = ((lambda *sh: torch.randn(*sh, generator=gen)) if real else
+            (lambda *sh: torch.randint(-7, 8, sh, generator=gen) / 8))
+    ids = lambda n, hi: torch.randint(0, hi, (n,), generator=gen).int()
+    n_wn, n_fb = ds.num_entity, FB15K237[0]
+    r_wn, r_fb = 2 * ds.num_relation + 1, 2 * FB15K237[1] + 1
+    e_pl, e_hub = pl_dst.shape[0], hub_dst.shape[0]
+    layouts = {
+        "wn18rr_stacked": (graph.stacked, n_wn, r_wn, d),
+        "fb15k237_stacked": (fb_graph.stacked, n_fb, r_fb, d),
+        "powerlaw": ((ids(e_pl, n_fb), ids(e_pl, r_fb), None, pl_dst, pl_ptr),
+                     n_fb, r_fb, d),
+        "edge_d37": ((ids(e_hub, 40), ids(e_hub, r_wn), None, hub_dst,
+                      hub_ptr), 40, r_wn, 37)}
+    cases = {}
+    for name, (lay, n_x, n_rel, width) in layouts.items():
+        if not isinstance(lay, tuple):
+            lay = (lay.src, lay.rel, lay.norm, lay.dst2, lay.indptr)
+        src, rel, norm, dst, ptr = lay
+        e = src.shape[0]
+        nm = draw(e)
+        if norm is not None:   # the padding edges keep their zero norm
+            nm = norm if real else nm * (norm != 0)
+        cases[name] = [t.to(device) for t in (
+            draw(n_x, width), src, nm, draw(n_rel, width), rel,
+            draw(e, width), dst, ptr)] + [ptr.shape[0] - 1]
+    return cases
+
+
+def without_padding(args, graph):
+    """K3's operands at the stacked WN18RR view without the zero-norm
+    padding edges of rows N-1 and 2N-1: the same rows, the same sums."""
+    x, src, nm, rel_all, rel, et, dst, ip, n_rows = args
+    keep = torch.cat([torch.arange(graph.inb.e_real),
+                      graph.e_pad + torch.arange(graph.outb.e_real)]
+                     ).to(x.device)
+    dst_cut = dst[keep].contiguous()
+    ip_cut = torch.zeros_like(ip)
+    ip_cut[1:] = torch.cumsum(torch.bincount(dst_cut.long(),
+                                             minlength=n_rows), 0)
+    return (x, src[keep].contiguous(), nm[keep].contiguous(), rel_all,
+            rel[keep].contiguous(), et[keep].contiguous(), dst_cut, ip_cut,
+            n_rows)
+
+
+def time_k3(fused, plain, cases: dict, graph) -> dict:
+    """K3's time rows on normal operands (``k3_cases(real=True)``) at the
+    stacked WN18RR and FB15k-237 views and on the power-law graph: the
+    kernel ``fused``, its plain version, its yardstick and its bound; at
+    WN18RR also without the 410 padding edges (``without_padding``).  The
+    yardstick is index_add_ of the precomposed messages into the same rows,
+    as K7's is (no one PyTorch call composes and sums).  Each pass's device
+    µs per call comes from the profiler (None where it saw no such kernel)."""
+    out = {}
+    for name in ("wn18rr_stacked", "fb15k237_stacked", "powerlaw"):
+        args = cases[name]
+        x, src, nm, rel_all, rel, et, dst, ip, n_rows = args
+        msg_pre = ((x[src.long()] * nm[:, None]) * rel_all[rel.long()]) * et
+        lib_out = torch.zeros(n_rows, x.shape[1], device=x.device)
+        dst_long = dst.long()
+        fns = {"ms": lambda: fused(*args),
+               "plain_ms": lambda: plain(*args),
+               "yardstick_ms": lambda: lib_out.index_add_(0, dst_long,
+                                                          msg_pre)}
+        if name == "wn18rr_stacked":
+            cut = without_padding(args, graph)
+            fns["ms_without_padding"] = lambda: fused(*cut)
+        t = time_in_turns(fns)
+        t["bound_ms"], t["bound_by"] = k3_bound(
+            x.shape[0], rel_all.shape[0], et.shape[0], n_rows, x.shape[1])
+        t["pass_a_us"], t["pass_b_us"] = passes_us(lambda: fused(*args),
+                                                   K3_PASSES)
+        line = (f" (passes A / B {us(t['pass_a_us'])} / "
+                f"{us(t['pass_b_us'])} µs)")
+        if "ms_without_padding" in t:
+            line += (f"; without the {et.shape[0] - cut[5].shape[0]} padding "
+                     f"edges {t['ms_without_padding']:.4f} ms")
+        counts = ip[1:] - ip[:-1]
+        log(f"[K3 time] {name} (E {et.shape[0]}, rows {n_rows}, d "
+            f"{x.shape[1]}, {rel_all.shape[0]} relation rows, largest row "
+            f"{int(counts.max())} edges): kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, yardstick (index_add_ of the "
+            f"precomposed messages) {t['yardstick_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), "
+            f"{t['bound_ms'] / t['ms']:.1%} of bound{line}")
+        out[name] = t
+        del msg_pre, lib_out, fns
+    return out
+
+
+def k3_entry(k3_errs: dict, t: dict, by_path: dict) -> dict:
+    """K3's entry of the kernels line: the stacked WN18RR view's times,
+    every timed case's rows, and the launches of the paths driven."""
+    main_t = t["wn18rr_stacked"]
+    return {
+        "name": "fused_compose (K3)", "route": "cuda",
+        "source": "kgc_gcn_torch/csrc/fused_compose.cu",
+        "replaces": "kgc_gcn_tpu/ops/spmm_pallas.py:267",
+        "launches": sum(by_path.values()),
+        "max_abs_err": max(k3_errs.values()),
+        "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
+        "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
+        "library_ms": None,
+        "yardstick": "index_add_ of the precomposed messages",
+        "yardstick_ms": main_t["yardstick_ms"],
+        "ms_without_padding": main_t["ms_without_padding"],
+        "launches_by_path": by_path,
+        "cases": {**{name: dict(row) for name, row in t.items()},
+                  "max_abs_err": k3_errs},
+    }
 
 
 def k2_case(b: int, n: int, d: int, masked, gen):
@@ -1066,7 +1203,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
-                    help="phases 1-3 and the K1, K2, K7 and K8 time rows "
+                    help="phases 1-3 and the K1, K2, K7, K8 and K3 time rows "
                     "only")
     args = ap.parse_args()
 
@@ -1374,32 +1511,17 @@ def main() -> int:
                 f" K4b max_abs_err {ew_errs['K4b'][case]:.3g} (tol 0: "
                 "bit-equal)")
 
-    # K3 at the stacked WN18RR shape (both halves' 2 E_pad edges over 2N
-    # rows, the 2R+1 relation rows; rows N-1 and 2N-1 hold the padding
-    # edges) and an edge case on the hub counts above at d 37 (empty rows, a
-    # 5,000-edge hub row): dyadic operands first (multiples of 2**-3 below
-    # 1: every product and partial sum exact in float32, so bit-equal), then
-    # normal values with the graph's own norms (K3_RTOL, K3_ATOL x max).
-    st = graph.stacked
-    n_rel_rows = 2 * ds.num_relation + 1
-    n_hub = hub_dst.shape[0]
-    k3_shapes = {
-        "wn18rr_stacked": (st.src, st.rel, st.norm, st.dst2, st.indptr,
-                           ds.num_entity, d_in),
-        "edge_d37": (torch.randint(0, 40, (n_hub,), generator=gen).int(),
-                     torch.randint(0, n_rel_rows, (n_hub,), generator=gen).int(),
-                     None, hub_dst, hub_ptr, 40, 37)}
-    k3_errs, k3_args = {}, {}
-    for name, (src_, rel_, norm_, dst_, ip_, n_x, d) in k3_shapes.items():
-        for real in (False, True):
-            draw = ((lambda *sh: torch.randn(*sh, generator=gen)) if real else
-                    (lambda *sh: torch.randint(-7, 8, sh, generator=gen) / 8))
-            e = src_.shape[0]
-            nm = norm_ if real and norm_ is not None else draw(e)
-            args_ = [t.to(device) for t in (draw(n_x, d), src_, nm,
-                                            draw(n_rel_rows, d), rel_,
-                                            draw(e, d), dst_, ip_)]
-            args_.append(ip_.shape[0] - 1)
+    # K3 on the stacked views, the power-law graph and an edge case
+    # (k3_cases): dyadic operands first (bit-equal), then normal values
+    # (K3_RTOL, K3_ATOL x max); the WN18RR view without its padding edges
+    # gives the same bits on dyadic operands and, on normal values, the
+    # padded view's plain sums within K3_RTOL / K3_ATOL; two calls on the
+    # power-law graph's normal values are bit-identical
+    k3_errs = {}
+    for real in (False, True):
+        k3_real = k3_cases(ds, graph, fb_graph, pl_dst, pl_ptr, hub_dst,
+                           hub_ptr, d_in, gen, device, real)
+        for name, args_ in k3_real.items():
             got = fused_compose(*args_)
             want = fused_compose_reference(*args_)
             torch.cuda.synchronize()
@@ -1411,14 +1533,36 @@ def main() -> int:
                 torch.testing.assert_close(got, want, rtol=0.0, atol=0.0,
                                            msg=f"K3 {case}")
                 k3_errs[case] = float((got - want).abs().max())
-            k3_args[case] = args_
+            x_, ip_ = args_[0], args_[7]
             counts = (ip_[1:] - ip_[:-1]).long()
-            log(f"[K3 check] {case}: E={e} rows={ip_.shape[0] - 1} d={d} "
-                f"relation rows {n_rel_rows} (empty rows "
-                f"{int((counts == 0).sum())}, largest row {int(counts.max())}"
-                f" edges): max_abs_err {k3_errs[case]:.3g} (tol "
+            log(f"[K3 check] {case}: E={args_[5].shape[0]} rows="
+                f"{ip_.shape[0] - 1} d={x_.shape[1]} relation rows "
+                f"{args_[3].shape[0]} (empty rows {int((counts == 0).sum())}, "
+                f"largest row {int(counts.max())} edges): max_abs_err "
+                f"{k3_errs[case]:.3g} (tol "
                 + (f"rtol {K3_RTOL}, atol {K3_ATOL} x max)" if real
                    else "0: bit-equal)"))
+            del got, want
+        whole = k3_real["wn18rr_stacked"]
+        cut = fused_compose(*without_padding(whole, graph))
+        case = f"wn18rr_stacked_{'real' if real else 'dyadic'}_without_padding"
+        if real:
+            k3_errs[case] = close_rel(cut, fused_compose_reference(*whole),
+                                      K3_RTOL, K3_ATOL, f"K3 {case}")
+            log(f"[K3 check] {case}: max_abs_err {k3_errs[case]:.3g} against "
+                f"the padded view's plain sums (tol rtol {K3_RTOL}, atol "
+                f"{K3_ATOL} x max)")
+        else:
+            if not torch.equal(cut, fused_compose(*whole)):
+                raise AssertionError("K3 without the padding edges changed "
+                                     "the sums")
+            log(f"[K3 check] {case}: the same bits as with them")
+        del cut
+    first = fused_compose(*k3_real["powerlaw"])
+    if not torch.equal(first, fused_compose(*k3_real["powerlaw"])):
+        raise AssertionError("K3: two calls on the same inputs differ")
+    log("[K3 check] powerlaw on normal values: two calls bit-identical")
+    del first, whole
 
     # 4. timing -----------------------------------------------------------------
     # The graph pads each half with zero-norm edges, all in row N-1 of the
@@ -1453,7 +1597,7 @@ def main() -> int:
         pad = (f"; without the {msg.shape[0] - e_real} padding edges: "
                f"{t['ms_without_padding']:.4f} ms" if e_real is not None else "")
         log(f"[K1 time] {name}: kernel {t['ms']:.4f} ms (passes A / B "
-            f"{t['pass_a_us']:.1f} / {t['pass_b_us']:.1f} µs), plain "
+            f"{us(t['pass_a_us'])} / {us(t['pass_b_us'])} µs), plain "
             f"{t['plain_ms']:.4f} ms, index_add_ {t['library_ms']:.4f} ms, "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
             f"{t['bound_ms'] / t['ms']:.1%} of bound{pad}")
@@ -1461,11 +1605,16 @@ def main() -> int:
     for name in ("main", "fb15k237", "edge"):
         timings[f"k2_{name}"] = time_k2(name, *k2_cases[name][0],
                                         profile=name == "main")
+    timings["k3"] = time_k3(fused_compose, fused_compose_reference, k3_real,
+                            graph)
+    del k3_real
+    torch.cuda.empty_cache()
     if args.kernels_only:
         print(json.dumps({"kernels": [k1_entry(errs, timings, {})]
                           + k2_entries(k2_errs, timings, {}, {})
                           + basis_entries(basis_errs, timings["basis_config3"],
-                                          {}, {})}))
+                                          {}, {})
+                          + [k3_entry(k3_errs, timings["k3"], {})]}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -1555,47 +1704,6 @@ def main() -> int:
     log_profile("K4b at the WN18RR half shape",
                 lambda: bwd_products(g, a, b, c), steps=5)
     del a, b, c, g, ew_cases
-
-    # K3 at the stacked WN18RR shape on real operands.  "without padding"
-    # runs it on the edge list without the 410 zero-norm padding edges of
-    # rows N-1 and 2N-1 (same rows, same result); the yardstick is
-    # index_add_ of the precomposed (2 E_pad, d) messages into the 2N rows,
-    # as K7's is (no one PyTorch call composes and sums)
-    k3 = k3_args["wn18rr_stacked_real"]
-    x, src_, nm, rel_all, rel_, et, dst_, ip_, n_rows2 = k3
-    keep = torch.cat([torch.arange(graph.inb.e_real),
-                      graph.e_pad + torch.arange(graph.outb.e_real)]).to(device)
-    dst_cut = dst_[keep].contiguous()
-    ip_cut = torch.zeros_like(ip_)
-    ip_cut[1:] = torch.cumsum(torch.bincount(dst_cut.long(),
-                                             minlength=n_rows2), 0)
-    k3_cut = (x, src_[keep].contiguous(), nm[keep].contiguous(), rel_all,
-              rel_[keep].contiguous(), et[keep].contiguous(), dst_cut, ip_cut,
-              n_rows2)
-    if not torch.equal(fused_compose(*k3_cut), fused_compose(*k3)):
-        raise AssertionError("K3 without the padding edges changed the sums")
-    msg_pre = ((x[src_.long()] * nm[:, None]) * rel_all[rel_.long()]) * et
-    lib_out = torch.zeros(n_rows2, d_in, device=device)
-    dst_long = dst_.long()
-    t = time_in_turns({
-        "K3": lambda: fused_compose(*k3),
-        "K3_plain": lambda: fused_compose_reference(*k3),
-        "K3_yardstick": lambda: lib_out.index_add_(0, dst_long, msg_pre),
-        "K3_without_padding": lambda: fused_compose(*k3_cut),
-    })
-    t["K3_bound"], t["K3_bound_by"] = k3_bound(
-        ds.num_entity, n_rel_rows, et.shape[0], n_rows2, d_in)
-    timings["k3_wn18rr_stacked"] = t
-    log(f"[K3 time] wn18rr stacked (E {et.shape[0]}, rows {n_rows2}, d "
-        f"{d_in}, {n_rel_rows} relation rows): kernel {t['K3']:.4f} ms, plain "
-        f"{t['K3_plain']:.4f} ms, yardstick (index_add_ of the precomposed "
-        f"messages) {t['K3_yardstick']:.4f} ms, bound {t['K3_bound']:.4f} ms "
-        f"({t['K3_bound_by']}), {t['K3_bound'] / t['K3']:.1%} of bound; "
-        f"without the {et.shape[0] - keep.shape[0]} padding edges "
-        f"{t['K3_without_padding']:.4f} ms")
-    log_profile("K3 at the stacked WN18RR shape", lambda: fused_compose(*k3),
-                steps=5)
-    del k3, k3_cut, k3_args, msg_pre, lib_out, x, et
     torch.cuda.empty_cache()
 
     # 5. training ---------------------------------------------------------------
@@ -1973,22 +2081,7 @@ def main() -> int:
         "launches_by_path": by_path(5),
         "cases": {"max_abs_err": max_errs},
     })
-    t3k = timings["k3_wn18rr_stacked"]
-    entries.append({
-        "name": "fused_compose (K3)", "route": "cuda",
-        "source": "kgc_gcn_torch/csrc/fused_compose.cu",
-        "replaces": "kgc_gcn_tpu/ops/spmm_pallas.py:267",
-        "launches": sum(by_path(6).values()),
-        "max_abs_err": max(k3_errs.values()),
-        "ms": t3k["K3"], "plain_ms": t3k["K3_plain"],
-        "bound_ms": t3k["K3_bound"], "bound_by": t3k["K3_bound_by"],
-        "library_ms": None,
-        "yardstick": "index_add_ of the precomposed messages",
-        "yardstick_ms": t3k["K3_yardstick"],
-        "ms_without_padding": t3k["K3_without_padding"],
-        "launches_by_path": by_path(6),
-        "cases": {"max_abs_err": k3_errs},
-    })
+    entries.append(k3_entry(k3_errs, timings["k3"], by_path(6)))
     tew = timings["ew_wn18rr"]
     for i, (key, fn_name, line) in enumerate((("K4a", "compose_msg", 37),
                                               ("K4b", "bwd_products", 71))):

@@ -121,7 +121,7 @@ class MGCN(DecoderFamilyMixin, nn.Module):
             # stacked position k is its row k
             etab2 = self.edge_embeddings.reshape(2 * self.e_pad, -1)
             if cfg.spmm_mode == "stacked":
-                # one K3 launch for both halves, float32 messages whatever
+                # one K3 call for both halves, float32 messages whatever
                 # compute_dtype is (mgcn.py:286-299)
                 in_agg, out_agg = aggregate_stacked(
                     x, rel_all, etab2, graph.stacked, self.n_ent,

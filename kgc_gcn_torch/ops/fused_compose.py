@@ -9,13 +9,25 @@ computes, for edges sorted by ``dst`` with CSR pointers ``indptr``,
 
 — what ``kgc_gcn_tpu/ops/spmm_pallas.py:_fused_compose_segment_sum`` computes
 from the pre-gathered ``xgn = x[src] * norm``.  On CUDA tensors it launches
-the hand-written kernel ``csrc/fused_compose.cu``, which gathers the rows of
-``x`` itself (one warp per destination row; its header states the bound), or
-raises; on CPU tensors it runs the plain version.  There is no fallback from
-the card to the plain version.
+the hand-written kernel ``csrc/fused_compose.cu`` or raises; on CPU tensors
+it runs the plain version.  There is no fallback from the card to the plain
+version.
+
+The kernel gathers the rows of ``x`` itself and works on fixed chunks of 32
+edges (``fused_compose_schedule``): pass A composes and sums each chunk in
+edge order, one warp a chunk, writes the rows that lie inside it (and the
+zeros of the empty rows around them) and the partial sums of rows cut by a
+chunk boundary to a carry; pass B, launched after pass A, adds each cut
+row's partials in chunk order (a row of more than 32 chunks in
+fixed runs, one a warp, whose sums it adds in run order).  No warp walks
+more than one chunk, whatever the degrees (the stacked view's padding
+hubs, a power-law entity), and each row's summation order is fixed: two
+calls give the same bits.  One call is two CUDA launches;
+``fused_compose.launches`` counts calls.  The kernel's header states its
+bound.
 
 ``aggregate_stacked`` is ``spmm_pallas.py:_aggregate_stacked_cvjp``: both
-direction halves through one K3 launch over the stacked view's 2N rows, in
+direction halves through one K3 call over the stacked view's 2N rows, in
 float32 whatever ``compute_dtype`` is, and the backward of
 ``_agg_stacked_bwd`` in plain tensor ops around K1 (d_x over the stacked
 src order) and the few-segment relation sum.  The JAX backward's one-hot
@@ -24,7 +36,7 @@ hi/lo relation rows are a TPU schedule; the port gathers them.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,6 +44,28 @@ from kgc_gcn_torch.data.graph import GraphStacked
 from kgc_gcn_torch.ops.scatter import ONEHOT_LIMIT, segment_sum_few
 from kgc_gcn_torch.ops.segment_sum import segment_sum
 from kgc_gcn_torch.utils.cuda_build import check_launch, load_kernels
+
+
+# Edges per chunk of K3's pass A: a warp's lanes each load one edge's ids
+# (kChunk in csrc/fused_compose.cu, whose launcher refuses any other value).
+FUSED_COMPOSE_CHUNK = 32
+
+
+class FusedComposeSchedule(NamedTuple):
+    """K3's chunks and scratch, from the shape alone (no read of the
+    graph)."""
+    chunk: int            # pass A's chunk k: edges [k*chunk, (k+1)*chunk)
+    n_chunks: int         # pass A's warps
+    carry_shape: tuple    # pass A's partials, (n_chunks, 2, d) float32
+
+
+def fused_compose_schedule(e: int, d: int) -> FusedComposeSchedule:
+    """K3's chunks and the carry its launcher (``kgc_fused_compose``)
+    expects: slot 0 of chunk k holds the partial of the row of edge
+    k*chunk, slot 1 that of the chunk's last row where it starts later."""
+    n_chunks = -(-e // FUSED_COMPOSE_CHUNK)
+    return FusedComposeSchedule(FUSED_COMPOSE_CHUNK, n_chunks,
+                                (n_chunks, 2, d))
 
 
 def fused_compose_reference(x, src, norm, rel_all, rel, etab, dst, indptr,
@@ -72,8 +106,8 @@ def fused_compose(x: torch.Tensor, src: torch.Tensor, norm: torch.Tensor,
                   dst: torch.Tensor, indptr: torch.Tensor,
                   n_rows: int) -> torch.Tensor:
     """Composed messages of (E,) edges sorted by ``dst``, summed per row ->
-    (n_rows, d) float32.  ``fused_compose.launches`` counts the kernel
-    launches (never the plain version's calls)."""
+    (n_rows, d) float32.  ``fused_compose.launches`` counts the kernel's
+    calls, each two CUDA launches (never the plain version's calls)."""
     _check(x, src, norm, rel_all, rel, etab, dst, indptr, n_rows)
     if x.device.type == "cpu":
         if n_rows and int(indptr[-1]) > etab.shape[0]:
@@ -83,12 +117,15 @@ def fused_compose(x: torch.Tensor, src: torch.Tensor, norm: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"fused_compose runs on cpu or cuda, not {x.device}")
     if not all(t.is_contiguous() for t in (x, src, norm, rel_all, rel, etab,
-                                           indptr)):
+                                           dst, indptr)):
         raise ValueError("fused_compose's operands must be contiguous")
-    d = x.shape[1]
+    e, d = etab.shape
     out = torch.empty(n_rows, d, dtype=torch.float32, device=x.device)
     if n_rows == 0 or d == 0:
         return out
+    sched = fused_compose_schedule(e, d)
+    carry = torch.empty(sched.carry_shape, dtype=torch.float32,
+                        device=x.device)
     # the index ranges are asserted inside the kernel (a host check here
     # would synchronise the stream on every launch)
     kernels = load_kernels()
@@ -96,9 +133,9 @@ def fused_compose(x: torch.Tensor, src: torch.Tensor, norm: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = kernels.lib.kgc_fused_compose(
             x.data_ptr(), src.data_ptr(), norm.data_ptr(), rel_all.data_ptr(),
-            rel.data_ptr(), etab.data_ptr(), indptr.data_ptr(),
-            out.data_ptr(), n_rows, etab.shape[0], d, x.shape[0],
-            rel_all.shape[0], stream)
+            rel.data_ptr(), etab.data_ptr(), dst.data_ptr(), indptr.data_ptr(),
+            out.data_ptr(), carry.data_ptr(), n_rows, e, d, x.shape[0],
+            rel_all.shape[0], sched.chunk, stream)
     check_launch(kernels.lib, code, "fused_compose")
     fused_compose.launches += 1
     return out
@@ -154,7 +191,7 @@ def aggregate_stacked(
     few_limit: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both direction halves' aggregations ``(in_agg, out_agg)``, each
-    ``(N, d)`` float32, from one K3 launch, differentiable in ``x``,
+    ``(N, d)`` float32, from one K3 call, differentiable in ``x``,
     ``rel_all`` and ``etab2``.  ``fused`` and ``seg_sum`` let a caller run
     the same aggregation through the plain versions; ``few_limit``
     overrides ``ONEHOT_LIMIT`` for the relation gradient's sum."""

@@ -122,8 +122,8 @@ def load_kernels(force_build: bool = False) -> KernelLibrary:
     lib.kgc_basis_bwd.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
                                   i32, vp]
     lib.kgc_basis_bwd.restype = i32
-    lib.kgc_fused_compose.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32,
-                                      i32, i32, i32, i32, vp]
+    lib.kgc_fused_compose.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                      i32, i32, i32, i32, i32, i32, vp]
     lib.kgc_fused_compose.restype = i32
     i64 = ctypes.c_int64
     lib.kgc_compose_msg.argtypes = [vp, vp, vp, vp, i32, i64, vp]

@@ -746,15 +746,32 @@ def stacked_case(counts, d: int, seed: int, real: bool):
         i32(dst), i32(indptr))] + [len(counts)]
 
 
+def k3_counts():
+    """K3's cases, (per-row counts, d): case_counts(), and around K3's chunk
+    of 32 edges: a hub of many chunks between empty rows at d 100, rows of
+    32 and 33 edges (and 31, 64, 65, ...) at d 4, 37, 100 and 200, and the
+    stacked view's two padding hubs (the last row of each half) at d 100."""
+    rng = np.random.default_rng(5)
+    many = rng.integers(0, 3, size=60)
+    many[[0, 20, 22, 59]] = 0
+    many[21] = 5000                                    # 157 chunks
+    bounds = case_counts()["chunk_bounds"][0]
+    halves = rng.integers(0, 5, size=80)
+    halves[[39, 79]] = 205
+    return {**case_counts(), "many_chunks_d100": (many, 100),
+            "padding_hubs_d100": (halves, 100),
+            **{f"chunk_bounds_d{d}": (bounds, d) for d in (4, 37, 100, 200)}}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("real", [False, True])
-@pytest.mark.parametrize("case", sorted(case_counts()))
+@pytest.mark.parametrize("case", sorted(k3_counts()))
 def test_fused_compose_kernel_matches_plain(cuda, case, real):
     """K3 against its plain version: bit-equal on dyadic inputs; on normal
     values float32 sums in another order (rtol 1e-5, atol 1e-5 x max)."""
     from kgc_gcn_torch.ops.fused_compose import (
         fused_compose, fused_compose_reference)
-    counts, d = case_counts()[case]
+    counts, d = k3_counts()[case]
     args = stacked_case(counts, d, seed=2, real=real)
     before = fused_compose.launches
     got = fused_compose(*args)
@@ -764,6 +781,47 @@ def test_fused_compose_kernel_matches_plain(cuda, case, real):
     tol = 1e-5 if real else 0.0
     torch.testing.assert_close(got, want, rtol=tol,
                                atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["many_chunks_d100", "padding_hubs_d100",
+                                  "zipf", "chunk_bounds_d37"])
+def test_fused_compose_is_deterministic(cuda, case):
+    """K3 on normal values, whose float32 sums depend on their order: each
+    row's order is fixed (edge order within a chunk, then the chunks in
+    order), so repeated calls give the same bits."""
+    from kgc_gcn_torch.ops.fused_compose import fused_compose
+    counts, d = k3_counts()[case]
+    args = stacked_case(counts, d, seed=3, real=True)
+    first = fused_compose(*args)
+    for _ in range(2):
+        assert torch.equal(first, fused_compose(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,cut", [(0, 40), (37, 0), (64, 33)])
+def test_fused_compose_ignores_edges_outside_the_rows(cuda, lead, cut):
+    """indptr[0] > 0 or indptr[-1] < E: the edges before and after belong to
+    no row and must not be read (their src and rel lie out of range here, so
+    a read would fault on the device's bounds assertion)."""
+    from kgc_gcn_torch.ops.fused_compose import (
+        fused_compose, fused_compose_reference)
+    counts = np.array([0, 3, 40, 0, 0, 33, 1, 70, 0])
+    x, src, norm, rel_all, rel, etab, dst, indptr, n_rows = stacked_case(
+        counts, 36, seed=4, real=False)
+
+    def pad(t, lo, hi):
+        fill = lambda n, v: torch.full((n,) + t.shape[1:], v, dtype=t.dtype,
+                                       device=t.device)
+        return torch.cat([fill(lead, lo), t, fill(cut, hi)])
+
+    got = fused_compose(x, pad(src, 1 << 30, 1 << 30), pad(norm, 1.0, 1.0),
+                        rel_all, pad(rel, -1, -1), pad(etab, 1.0, 1.0),
+                        pad(dst, 0, n_rows - 1), indptr + lead, n_rows)
+    torch.cuda.synchronize()
+    want = fused_compose_reference(x, src, norm, rel_all, rel, etab, dst,
+                                   indptr, n_rows)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
