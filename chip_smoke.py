@@ -12,9 +12,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      on a power-law graph at FB15k-237's counts and in that graph's rel
      order, and twice on normal values (bit-identical calls), K2a / K2b
      (fused score + BCE, forward and backward, at the WN18RR and FB15k-237
-     shapes and K2b's edges: B above one row chunk, N below one tile and one
-     past a tile multiple, d 300 and d 1, masked rows; K2b twice on normal
-     values, bit-identical calls), K7 / K8
+     shapes and their edges: B above one row chunk, N below one tile and one
+     past a tile multiple, d 300, d 1, d 203 and d 496, h and ent not
+     16-byte aligned, masked rows; each twice on normal values,
+     bit-identical calls), K7 / K8
      (basis R-GCN aggregation and its backward at config 3, on an edge
      case, on rows above K7's piece length at d 100 and d 200 and on the
      power-law graph; bit-equal on dyadic inputs, then real values; K7
@@ -35,7 +36,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      B 128 and d 256 (column windows), K1's, K3's and K7's two passes
      apart, K2a / K2b also at the
      FB15k-237 shape and beside the yardsticks of one addmm and of K2b's
-     three products);
+     three products, K2a's two passes apart and K2a at every shape of its
+     check; phase 5 also gives K2a's device time in the fused step);
   5. training: the reference model (MGCN + ConvE at full width, WN18RR
      preset and dropout, random weights from --seed) on a WN18RR-shaped
      synthetic corpus: timed steps with loss_impl fused and auto (steps/s,
@@ -77,8 +79,8 @@ any order, so kernel and plain version must agree to the bit; K5
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Nothing of JAX is imported.
 
---kernels-only runs phases 1-3 and the time rows of K1 (each with its two
-passes' device times), K2a, K2b, K7, K8 and K3, then prints their entries and
+--kernels-only runs phases 1-3 and the time rows of K1, K2a, K7 and K3 (each
+with its two passes' device times), K2b and K8, then prints their entries and
 the last line: a quick check of the kernels that drives no path (their
 launch counts are 0).
 """
@@ -165,6 +167,8 @@ FB15K237 = (14541, 237, 272115, 17535, 20466)
 K7_PASSES = ("basis_sum_kernel", "basis_fixup_kernel")
 # K3's two kernels (csrc/fused_compose.cu); pass B is a plain second launch
 K3_PASSES = ("chunk_compose", "split_rows")
+# K2a's two launches: the pass over entity tiles, the sum of its partials
+K2A_PASSES = ("loss_tiles", "sum_partials")
 
 
 def log(msg: str) -> None:
@@ -294,9 +298,9 @@ def host_ms(fn, n: int) -> float:
 
 
 def profile_kernels(fn, steps: int = 3):
-    """(wall µs, device-busy µs, top kernels by device µs, top PyTorch ops by
-    self device µs) per call of ``fn`` under torch.profiler; busy is 0.0 if
-    the profiler saw no kernel."""
+    """(wall µs, device-busy µs, every kernel by device µs, top PyTorch ops
+    by self device µs) per call of ``fn`` under torch.profiler; busy is 0.0
+    if the profiler saw no kernel."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -311,7 +315,7 @@ def profile_kernels(fn, steps: int = 3):
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             by_name[evt.name] = (by_name.get(evt.name, 0.0)
                                  + evt.time_range.elapsed_us() / steps)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
     ops = []
     for avg in prof.key_averages():
         dev = getattr(avg, "self_device_time_total", None)
@@ -324,7 +328,17 @@ def profile_kernels(fn, steps: int = 3):
     return wall, sum(by_name.values()), top, ops[:12]
 
 
-def log_profile(what: str, fn, steps: int = 3) -> dict:
+def kinds_us(top, kinds) -> tuple:
+    """Device µs per call summed over the kernels of ``top`` whose names
+    hold each of ``kinds``; None for a kind the profiler did not see."""
+    return tuple(sum(t for kernel, t in top if kind in kernel)
+                 if any(kind in kernel for kernel, _ in top) else None
+                 for kind in kinds)
+
+
+def log_profile(what: str, fn, steps: int = 3, kinds=()) -> dict:
+    """Logs a profile of ``fn``; with ``kinds``, also the device µs of the
+    kernels whose names hold each (``kinds_us``), under "kinds_us"."""
     wall, busy, top, ops = profile_kernels(fn, steps)
     if busy == 0.0:
         log(f"[profile] {what}: device time not measured (the profiler saw "
@@ -332,11 +346,16 @@ def log_profile(what: str, fn, steps: int = 3) -> dict:
         return {}
     log(f"[profile] {what}: wall {wall:.1f} us, device busy {busy:.1f} us, "
         f"idle {1 - busy / wall:.1%}; top kernels: "
-        + "; ".join(f"{n[:90]} {t:.1f} us" for n, t in top))
+        + "; ".join(f"{n[:90]} {t:.1f} us" for n, t in top[:10]))
     if ops:
         log(f"[profile] {what}: top ops by self device time: "
             + "; ".join(f"{n} {t:.1f} us x{c}" for n, t, c in ops))
-    return {"wall_us": wall, "busy_us": busy, "idle": 1 - busy / wall}
+    out = {"wall_us": wall, "busy_us": busy, "idle": 1 - busy / wall}
+    if kinds:
+        out["kinds_us"] = dict(zip(kinds, kinds_us(top, kinds)))
+        log(f"[profile] {what}: device µs per call of the kernels "
+            + ", ".join(f"{k} {us(v)}" for k, v in out["kinds_us"].items()))
+    return out
 
 
 def phase_ms(trainer, batch, lr, n: int = 10) -> dict:
@@ -598,10 +617,7 @@ def passes_us(fn, kinds):
     """Device µs per call of ``fn`` under the profiler, summed over the
     kernels whose names hold each of ``kinds`` (a kernel's two passes);
     None for a kind whose kernel the profiler did not see."""
-    top = profile_kernels(fn, 5)[2]
-    return tuple(sum(t for kernel, t in top if kind in kernel)
-                 if any(kind in kernel for kernel, _ in top) else None
-                 for kind in kinds)
+    return kinds_us(profile_kernels(fn, 5)[2], kinds)
 
 
 def us(v) -> str:
@@ -772,22 +788,29 @@ def k3_entry(k3_errs: dict, t: dict, by_path: dict) -> dict:
     }
 
 
-def k2_case(b: int, n: int, d: int, masked, gen):
+def k2_case(b: int, n: int, d: int, masked, gen, offset: int = 0):
     """h, ent, bias, row mask as the training path gives them: h after
-    ReLU, entities after tanh, a small bias, padding rows masked."""
+    ReLU, entities after tanh, a small bias, padding rows masked; h and ent
+    start ``offset`` floats into their buffers on the card (1: no longer
+    16-byte aligned)."""
     h = torch.relu(torch.randn(b, d, generator=gen))
     ent = torch.tanh(torch.randn(n, d, generator=gen))
     bias = torch.randn(n, generator=gen) * 0.1
     w = torch.ones(b)
     w[list(masked)] = 0.0
-    return [t.cuda() for t in (h, ent, bias, w)]
+
+    def at_offset(t):
+        view = torch.empty(t.numel() + offset, device="cuda")[offset:]
+        return view.view(t.shape).copy_(t)
+    return [at_offset(h), at_offset(ent), bias.cuda(), w.cuda()]
 
 
 def time_k2(name: str, h, ent, bias, w, profile: bool = False) -> dict:
     """K2a / K2b time rows: each kernel, its plain version and its bound,
     beside two yardsticks (no one PyTorch call computes either function):
     the score product addmm(bias, h, ent.T), and K2b's three products
-    timed together on a precomputed dl (addmm, dl @ ent, dl.T @ h)."""
+    timed together on a precomputed dl (addmm, dl @ ent, dl.T @ h); K2a's
+    two passes' device µs per call from the profiler."""
     from kgc_gcn_torch.ops.fused_loss import (
         dense_grads, dense_grads_reference, dense_loss, dense_loss_reference)
     b, d = h.shape
@@ -807,27 +830,43 @@ def time_k2(name: str, h, ent, bias, w, profile: bool = False) -> dict:
     })
     t["K2a_bound"], t["K2a_bound_by"] = k2_bound(b, n, d, False)
     t["K2b_bound"], t["K2b_bound_by"] = k2_bound(b, n, d, True)
+    t["K2a_pass_a_us"], t["K2a_pass_b_us"] = passes_us(
+        lambda: dense_loss(h, ent, bias, w, base), K2A_PASSES)
     if profile:
         log_profile(f"K2a at the {name} shape",
                     lambda: dense_loss(h, ent, bias, w, base), steps=5)
         log_profile(f"K2b at the {name} shape",
                     lambda: dense_grads(g_t, h, ent, bias, w, base), steps=5)
-    log(f"[K2 time] {name} (B {b}, d {d}, N {n}): K2a {t['K2a']:.4f} ms, "
-        f"plain {t['K2a_plain']:.4f} ms, bound {t['K2a_bound']:.4f} ms "
-        f"({t['K2a_bound_by']}), {t['K2a_bound'] / t['K2a']:.1%} of bound; "
+    log(f"[K2 time] {name} (B {b}, d {d}, N {n}): K2a {t['K2a']:.4f} ms "
+        f"(passes A / B {us(t['K2a_pass_a_us'])} / {us(t['K2a_pass_b_us'])} "
+        f"µs), plain {t['K2a_plain']:.4f} ms, yardstick addmm(bias, h, "
+        f"ent.T) {t['addmm']:.4f} ms ({t['addmm'] / t['K2a']:.2f}x K2a), "
+        f"bound {t['K2a_bound']:.4f} ms ({t['K2a_bound_by']}), "
+        f"{t['K2a_bound'] / t['K2a']:.1%} of bound; "
         f"K2b {t['K2b']:.4f} ms, plain {t['K2b_plain']:.4f} ms, bound "
         f"{t['K2b_bound']:.4f} ms ({t['K2b_bound_by']}), "
-        f"{t['K2b_bound'] / t['K2b']:.1%} of bound; yardsticks: "
-        f"addmm(bias, h, ent.T) {t['addmm']:.4f} ms, K2b's three products "
-        f"(addmm, dl @ ent, dl.T @ h) {t['three_products']:.4f} ms")
+        f"{t['K2b_bound'] / t['K2b']:.1%} of bound; yardstick K2b's three "
+        f"products (addmm, dl @ ent, dl.T @ h) {t['three_products']:.4f} ms")
+    return t
+
+
+def time_k2a_cases(k2_cases: dict) -> dict:
+    """K2a's median ms at every shape of the K2 check, timed in turns."""
+    from kgc_gcn_torch.ops.fused_loss import dense_loss
+    t = time_in_turns({
+        name: (lambda a: lambda: dense_loss(*a, 1.0 / a[1].shape[0]))(args)
+        for name, (args, _) in k2_cases.items()})
+    log("[K2 time] K2a at every shape of the K2 check (ms): "
+        + ", ".join(f"{name} {v:.4f}" for name, v in t.items()))
     return t
 
 
 def k2_entries(k2_errs: dict, timings: dict, by_path_a: dict,
                by_path_b: dict) -> list:
     """K2a's and K2b's entries of the kernels line: the main shape's times,
-    the FB15k-237 and edge shapes' rows, every case's error, and the
-    launches of the paths driven."""
+    the FB15k-237 and edge shapes' rows, every case's error (K2a also its
+    time at every shape of the check), and the launches of the paths
+    driven."""
     main = timings["k2_main"]
     entries = []
     for key, fn_name, line, by_path in (
@@ -848,7 +887,10 @@ def k2_entries(k2_errs: dict, timings: dict, by_path_a: dict,
             "yardstick": "addmm(bias, h, ent.T)",
             "yardstick_ms": main["addmm"],
             **({"yardstick_three_products_ms": main["three_products"]}
-               if key == "K2b" else {}),
+               if key == "K2b" else {
+                   "pass_a_us": main["K2a_pass_a_us"],
+                   "pass_b_us": main["K2a_pass_b_us"],
+                   "check_cases_ms": timings["k2a_cases"]}),
             "launches_by_path": by_path,
             "cases": {**{name: {k: v for k, v in timings[f"k2_{name}"].items()
                                 if keep(k)}
@@ -911,10 +953,11 @@ class Launches:
 
 
 def timed_steps(trainer, launches: Launches, per_step, what: str,
-                seed: int) -> dict:
+                seed: int, kinds=()) -> dict:
     """3 set-up steps of ``trainer``'s epoch, then TIMED_STEPS warm ones
     (steps/s, edges/s, peak memory, mean loss), each of which must launch
-    ``per_step`` kernels; then a profile and the host phases of one step."""
+    ``per_step`` kernels; then a profile (with the device µs of the kernels
+    named by ``kinds``) and the host phases of one step."""
     from kgc_gcn_torch.train import optim
     host_rng = np.random.default_rng(seed)
     trainer.train_epoch(1, host_rng, max_steps=3)      # one-time set-up
@@ -937,7 +980,8 @@ def timed_steps(trainer, launches: Launches, per_step, what: str,
                           torch.ones(b, device=device))
     lr = optim.epoch_lr(trainer.cfg, 1)
     prof = log_profile(f"one {what} training step",
-                       lambda: trainer.train_step(lr, *batch), steps=3)
+                       lambda: trainer.train_step(lr, *batch), steps=3,
+                       kinds=kinds)
     phases = phase_ms(trainer, batch, lr)
     log(f"[train] {what} step phases (host ms, each ended by a sync): "
         + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
@@ -1306,7 +1350,9 @@ def main() -> int:
     b_main, d_out = cfg0.batch_size, cfg0.gcn_out_dim
     # K2b's edges: B above one row chunk of 128, N one past a tile multiple
     # of 64 and below one tile, d 300 (two column windows) and d 1, masked
-    # rows; the FB15k-237 preset's shape is the main path's other width
+    # rows; K2a's: d 203 (two windows, 4-byte copies), d 496 (three
+    # windows), h and ent one float past a 16-byte boundary (4-byte copies);
+    # the FB15k-237 preset's shape is the main path's other width
     k2_shapes = {
         "main": (b_main, ds.num_entity, d_out, ()),
         "fb15k237": (b_main, n_fb, d_out, ()),
@@ -1315,8 +1361,12 @@ def main() -> int:
         "b300": (300, 129, 40, (0, 150, 299)),
         "n_below_tile": (9, 50, 64, (4,)),
         "d1": (3, 65, 1, (1,)),
+        "d203": (b_main, 700, 203, (3,)),
+        "d496": (9, 50, 496, (4,)),
+        "misaligned": (70, 333, d_out, (2,)),
     }
-    k2_cases = {name: (k2_case(b_, n_, d_, m, gen), m)
+    k2_cases = {name: (k2_case(b_, n_, d_, m, gen,
+                               offset=int(name == "misaligned")), m)
                 for name, (b_, n_, d_, m) in k2_shapes.items()}
     k2_errs = {"K2a": {}, "K2b": {}}
     for name, ((h, ent, bias, w), _) in k2_cases.items():
@@ -1343,8 +1393,9 @@ def main() -> int:
             f"{float(want):.6g} (rtol {K2_LOSS_RTOL}); grads max_abs_err "
             f"{k2_errs['K2b'][name]:.3g} (rtol {K2_GRAD_RTOL}, atol "
             f"{K2_GRAD_ATOL} x max)")
-    # normal values, whose float32 sums depend on their order: d_h adds the
-    # blocks' partials in block order, so two calls give the same bits
+    # normal values, whose float32 sums depend on their order: K2a and
+    # K2b's d_h add the blocks' partials in block order, so two calls give
+    # the same bits
     h, ent, bias, w = (torch.randn(b_main, d_out, generator=gen),
                        torch.randn(ds.num_entity, d_out, generator=gen),
                        torch.randn(ds.num_entity, generator=gen),
@@ -1355,7 +1406,11 @@ def main() -> int:
     second = dense_grads(g_t, h, ent, bias, w, 1.0 / ds.num_entity)
     if not all(torch.equal(a, b_) for a, b_ in zip(first, second)):
         raise AssertionError("K2b: two calls on the same inputs differ")
-    log("[K2 check] main shape on normal values: two K2b calls bit-identical")
+    first = dense_loss(h, ent, bias, w, 1.0 / ds.num_entity)
+    if not torch.equal(first, dense_loss(h, ent, bias, w, 1.0 / ds.num_entity)):
+        raise AssertionError("K2a: two calls on the same inputs differ")
+    log("[K2 check] main shape on normal values: two K2a calls and two K2b "
+        "calls bit-identical")
     del h, ent, bias, w, first, second
 
     # K7 / K8 at BASELINE config 3's shape (FB15k-237 in-half, B 30, d 100),
@@ -1605,6 +1660,7 @@ def main() -> int:
     for name in ("main", "fb15k237", "edge"):
         timings[f"k2_{name}"] = time_k2(name, *k2_cases[name][0],
                                         profile=name == "main")
+    timings["k2a_cases"] = time_k2a_cases(k2_cases)
     timings["k3"] = time_k3(fused_compose, fused_compose_reference, k3_real,
                             graph)
     del k3_real
@@ -1721,7 +1777,8 @@ def main() -> int:
         fused = int(impl == "fused")
         train[impl] = timed_steps(
             trainer, launches, (4, fused, fused, 0, 0, 0, 0, 0, 0),
-            f"loss_impl={impl} ({trainer.loss_impl})", args.seed)
+            f"loss_impl={impl} ({trainer.loss_impl})", args.seed,
+            kinds=K2A_PASSES if fused else ())
         if fused:
             fused_trainer = trainer
 

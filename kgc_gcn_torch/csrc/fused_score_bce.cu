@@ -20,33 +20,57 @@
 // Both run in float32 on the CUDA cores (FMA; TF32 stays off, as in the rest
 // of the port).
 //
-// K2a: a score tile is a shared-memory tiled product (kBK-wide slices of the
-// h rows and entity rows staged as dst[k][row], a 4 x 4 register tile of
-// scores a thread); softplus is applied to the register tile, every block
-// writes one partial sum and a second pass adds the partials in a fixed
-// order.
+// Both kernels share one schedule and one score product.  Block x owns the
+// contiguous run of 64-entity tiles [x * tiles_per_block, ...) and rows in
+// chunks of 128; the wrapper sizes the runs so that there are about as many
+// blocks as the card has SMs (ops/fused_loss.py: loss_schedule,
+// grads_schedule; 128 blocks of 5 tiles at the WN18RR shape, 114 of 2 at
+// FB15k-237).  The chunk's h rows and the tile's entity rows arrive by
+// 16-byte cp.async (4-byte where d or a base is no multiple of 4 floats),
+// zero-filled past B, N and d, so that rows beyond N, which may hold
+// anything, are never read.  They are stored as float4 quads of 4 columns,
+// quad-major (hs[kq][r], es[kq][e]), and the score tile S (128 x 64) is a
+// register-tiled product, 4 rows x 8 entities a thread (score_product):
+// K-major LDS.128 reads of both operands, 12 a 128 FMAs, with no bank
+// conflict within a quarter-warp.  Columns run in windows when a whole row
+// does not fit in shared memory.
+//
+// K2a: one pass over the block's tiles, S never leaving the SM.
+//   * Block (x, y) takes run x and row chunk y: 512 threads, warp
+//     specialised.  Warps 0-7 (producers) compute S over the whole depth;
+//     warps 8-15 (epilogue) add the terms.  At d <= 200 (kLossMaxWindow; the
+//     presets' 200) h's chunk is staged once and the entity tile's two depth
+//     halves form the pipeline: each half of the next tile is copied under
+//     the product of the other half, one producer barrier a half.  A wider
+//     d stages h and the tile window by window, with no overlap.
+//   * The producers store S into one of two score buffers (128 x 66 floats)
+//     and arrive on its named "full" barrier; the epilogue warps wait on
+//     it, read 32 scores a thread (32 rows of one entity), arrive on the
+//     buffer's "empty" barrier and add w * (relu(s) - base*s +
+//     log1p(exp(-|s|))) in order, 16 at a time (the exps first, then the
+//     log1ps, so that the chains interleave), with a select dropping
+//     entities past N and rows past B (a zero-filled row scores log 2).
+//     So a tile's terms run while the producers compute the next tile.
+//   * Deterministic, no atomics: each block writes one partial (the
+//     threads' sums added warp by warp, then the 16 warp sums in warp
+//     order), and a second launch adds the partials in block order.
+//   * 228,160 bytes of shared memory at d 200 and 128 registers a thread:
+//     one block an SM.
+// What holds it back (tools/k2a_phases.py, PERF.md §6): the product runs
+// at the shared-memory rate of the 4 x 8 tile, 21.7k cycles a tile against
+// a 19.2k floor (8 x 8 tiles and splits of the depth over warp groups
+// were no faster); each softplus term is a ~50-instruction chain, and
+// log1pf keeps a branch of its own, so the epilogue warps, beside the
+// producers, take longer than the product (30.7k cycles a tile); the
+// producers' copies and barriers add 3.4k cycles a tile.
 //
 // K2b: one pass over entity tiles, each score tile computed once.
-//   * Block x owns the contiguous run of 64-entity tiles
-//     [x * tiles_per_block, ...) and all B rows, in chunks of 128; the
-//     wrapper sizes the runs so that there are about as many blocks, and so
-//     d_h partials, as the card has SMs (ops/fused_loss.py:grads_schedule;
-//     128 blocks of 5 tiles at the WN18RR shape).
-//   * Per (row chunk, tile): the score tile S (128 x 64, depth d) is a
-//     register-tiled product, 4 rows x 8 entities a thread; it becomes the
-//     dl tile, kept transposed in shared memory (dlT[e][r]); d_bias and
-//     d_ent = dlT h of the tile go straight out (each tile has one owner, so
-//     they need no reduction); dlT ent is added into the block's own d_h
-//     partial: three products, S computed once.
-//   * Operands: the chunk's h rows (once per chunk) and the tile's entity
-//     rows arrive by 16-byte cp.async (4-byte where d or a base is no
-//     multiple of 4 floats), zero-filled past B, N and d, so that rows
-//     beyond N, which may hold anything, are never read.  They are stored
-//     as float4 quads of 4 columns, quad-major (hs[kq][r], es[kq][e]), so
-//     that the score product reads both operands K-major as LDS.128 and the
-//     gradient products read 4 or 8 columns of a row as LDS.128.  Each
-//     product is a 4 x 8 (d_h, S) or 8 x 4 (d_ent) register tile a thread,
-//     12 LDS.128 per 128 FMAs, with no bank conflict within a quarter-warp.
+//   * Per (row chunk, tile): S becomes the dl tile, kept transposed in
+//     shared memory (dlT[e][r]); d_bias and d_ent = dlT h of the tile go
+//     straight out (each tile has one owner, so they need no reduction);
+//     dlT ent is added into the block's own d_h partial: three products,
+//     S computed once.  The gradient products read 4 or 8 columns of a row
+//     as LDS.128, a 4 x 8 (d_h) or 8 x 4 (d_ent) register tile a thread.
 //   * Stores write whole 32-byte sectors.  The d_h partial keeps each
 //     unit's quads lane-interleaved (a warp's store is 512 contiguous
 //     bytes), and the d_ent lanes of a pair take the two halves of one
@@ -84,19 +108,23 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBK = 16;              // K2a: depth of one staged slice
-// K2a: 64 rows x 64 entities per block, 4 x 4 scores per thread
-constexpr int kLossRows = 64;
-constexpr int kLossTileN = 64;
-// K2b: rows of h per chunk, entities per tile, slot strides (padded by 4 so
-// that the copies' 2 x 4-slot groups of a quarter-warp hit distinct banks)
-constexpr int kGradRows = 128;
-constexpr int kGradTileN = 64;
-constexpr int kLdH = kGradRows + 4;  // float4 slots per quad of hs
-constexpr int kLdE = kGradTileN + 4; // float4 slots per quad of es
-constexpr int kLdL = kGradRows + 4;  // floats per row of dlT
-constexpr int kMaxSmem = 232448;     // one block's opt-in maximum (227 KB)
-constexpr int kMaxWindow = 248;      // widest window whose operands fit
+// Rows of h per chunk, entities per tile, slot strides (padded by 4 so that
+// the copies' 2 x 4-slot groups of a quarter-warp hit distinct banks)
+constexpr int kChunkRows = 128;
+constexpr int kTileN = 64;
+constexpr int kLdH = kChunkRows + 4;  // float4 slots per quad of hs
+constexpr int kLdE = kTileN + 4;      // float4 slots per quad of es
+constexpr int kLdL = kChunkRows + 4;  // floats per row of dlT (K2b)
+constexpr int kMaxSmem = 232448;      // one block's opt-in maximum (227 KB)
+constexpr int kMaxWindow = 248;       // K2b's widest window whose operands fit
+// K2a: 8 producer warps (the score product) and 8 epilogue warps (the
+// softplus terms); floats per row of a handed-over score tile (66: the 4
+// rows a producer warp stores at once fall in distinct banks); the widest
+// window beside the two score buffers
+constexpr int kProducers = kThreads;
+constexpr int kLossThreads = 2 * kThreads;
+constexpr int kLdS = kTileN + 2;
+constexpr int kLossMaxWindow = 200;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -104,121 +132,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Stages columns [k0, k0 + kBK) of rows [r0, r0 + ROWS) of a row-major
-// (n_rows, d) matrix as dst[k][r]; out-of-range entries are zeros.
-template <int ROWS, int LD>
-__device__ __forceinline__ void stage(const float* __restrict__ src, int r0,
-                                      int n_rows, int d, int k0,
-                                      float (*dst)[LD]) {
-  for (int i = threadIdx.x; i < ROWS * kBK; i += kThreads) {
-    const int r = i / kBK, k = i % kBK;
-    const int row = r0 + r, col = k0 + k;
-    dst[k][r] = (row < n_rows && col < d)
-                    ? src[static_cast<int64_t>(row) * d + col] : 0.f;
-  }
-}
-
-// acc[i][j] += sum_k a[k][ar + i] * e[k][ec + j] over the whole depth d,
-// staging both operands slice by slice (all threads of the block call it).
-template <int AR, int EC, int ROWS, int COLS, int LDA, int LDE>
-__device__ __forceinline__ void score_tile(
-    const float* __restrict__ h, int r0, int b, const float* __restrict__ ent,
-    int n0, int n, int d, float (*as)[LDA], float (*es)[LDE], int ar, int ec,
-    float (&acc)[AR][EC]) {
-  for (int k0 = 0; k0 < d; k0 += kBK) {
-    stage<ROWS>(h, r0, b, d, k0, as);
-    stage<COLS>(ent, n0, n, d, k0, es);
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      float a[AR], e[EC];
-#pragma unroll
-      for (int i = 0; i < AR; ++i) a[i] = as[k][ar + i];
-#pragma unroll
-      for (int j = 0; j < EC; ++j) e[j] = es[k][ec + j];
-#pragma unroll
-      for (int i = 0; i < AR; ++i)
-#pragma unroll
-        for (int j = 0; j < EC; ++j) acc[i][j] = fmaf(a[i], e[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-__device__ __forceinline__ float bce_term(float s, float base) {
-  return fmaxf(s, 0.f) - base * s + log1pf(expf(-fabsf(s)));
-}
-
 __device__ __forceinline__ float dl_of(float s, float base, float wg) {
   return (1.f / (1.f + expf(-s)) - base) * wg;
-}
-
-// ---------------------------------------------------------------- K2a
-
-__global__ void __launch_bounds__(kThreads)
-loss_partials_kernel(const float* __restrict__ h, const float* __restrict__ ent,
-                     const float* __restrict__ bias, const float* __restrict__ w,
-                     float base, float* __restrict__ partials, int b, int n,
-                     int d) {
-  __shared__ float hs[kBK][kLossRows + 4];
-  __shared__ float es[kBK][kLossTileN + 4];
-  __shared__ float red[kThreads / 32];
-  const int n0 = blockIdx.x * kLossTileN;
-  const int r0 = blockIdx.y * kLossRows;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-  score_tile<4, 4, kLossRows, kLossTileN>(h, r0, b, ent, n0, n, d, hs, es,
-                                          ty * 4, tx * 4, acc);
-  float local = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (row < b && col < n) local += bce_term(acc[i][j] + bias[col], base) * w[row];
-    }
-  }
-  local = warp_sum(local);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = local;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float t = 0.f;
-#pragma unroll
-    for (int i = 0; i < kThreads / 32; ++i) t += red[i];
-    partials[blockIdx.y * gridDim.x + blockIdx.x] = t;
-  }
-}
-
-// One block adds the partials in a fixed order.
-__global__ void __launch_bounds__(1024)
-sum_partials_kernel(const float* __restrict__ partials, int n_part,
-                    float* __restrict__ out) {
-  __shared__ float red[32];
-  float t = 0.f;
-  for (int i = threadIdx.x; i < n_part; i += blockDim.x) t += partials[i];
-  t = warp_sum(t);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = t;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    t = threadIdx.x < (blockDim.x >> 5) ? red[threadIdx.x] : 0.f;
-    t = warp_sum(t);
-    if (threadIdx.x == 0) *out = t;
-  }
-}
-
-// ---------------------------------------------------------------- K2b
-
-__host__ __device__ inline int grads_smem_bytes(int window) {
-  return 16 * (window / 4) * (kLdH + kLdE) + 4 * kGradTileN * kLdL;
-}
-
-// float4 slots of one block's d_h partial: 256 a (row chunk, window, column
-// group of 8), rows padded to whole chunks of 128.
-__host__ __device__ inline int64_t grads_partial_slots(int b, int window,
-                                                       int n_windows) {
-  return static_cast<int64_t>((b + kGradRows - 1) / kGradRows) * n_windows *
-         (window / 8) * 256;
 }
 
 // 16- or 4-byte asynchronous copy; `valid` false copies nothing and fills
@@ -247,10 +162,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Starts copying columns [col0, col0 + 4 * kqw) of rows [row0, row0 + R) of
-// the row-major (n_rows, d) matrix src into quads dst[kq * ld + r].  A
-// warp takes 4 rows x 8 quads at a time (128 contiguous bytes of each row);
-// quads past n_rows or d are zero-filled without a read.  kVec: d and src
-// are multiples of 4 floats, so a quad is all in or all out.
+// the row-major (n_rows, d) matrix src into quads dst[kq * ld + r], by
+// threads 0 .. kThreads - 1.  A warp takes 4 rows x 8 quads at a time (128
+// contiguous bytes of each row); quads past n_rows or d are zero-filled
+// without a read.  kVec: d and src are multiples of 4 floats, so a quad is
+// all in or all out.
 template <bool kVec, int R>
 __device__ __forceinline__ void stage_quads(float4* dst, int ld,
                                             const float* __restrict__ src,
@@ -286,6 +202,231 @@ __device__ __forceinline__ float dot4(const float4& x, const float4& y,
   acc = fmaf(x.y, y.y, acc);
   acc = fmaf(x.z, y.z, acc);
   return fmaf(x.w, y.w, acc);
+}
+
+// The score tile of one thread over the kqw staged quads: acc[i][j] +=
+// h row 4rg+i . entity eg+8j (hs[kq][r], es[kq][e]), 12 LDS.128 a quad for
+// 128 FMAs.  A quarter-warp's 8 lanes share rg: its h reads are one
+// broadcast slot, its entity reads 8 consecutive slots.
+__device__ __forceinline__ void score_product(const float4* hs,
+                                              const float4* es, int kqw,
+                                              int rg, int eg,
+                                              float (&acc)[4][8]) {
+  const float4* hp = hs + 4 * rg;
+  const float4* ep = es + eg;
+#pragma unroll 2
+  for (int kq = 0; kq < kqw; ++kq) {
+    float4 a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = hp[kq * kLdH + i];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 e = ep[kq * kLdE + 8 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][j] = dot4(a[i], e, acc[i][j]);
+    }
+  }
+}
+
+// Named barrier `id` of `count` threads: wait for it, or only arrive.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---------------------------------------------------------------- K2a
+
+// K2a's named barriers: the producers among themselves; score buffer k
+// full (producers arrive, epilogue warps wait) and empty (the other way);
+// the epilogue warps among themselves.
+constexpr int kBarProducers = 1, kBarFull = 2, kBarEmpty = 4, kBarEpilogue = 6;
+
+// h's chunk, one entity tile, two score buffers, the chunk's row weights
+// and the 16 warp sums, at column window `window`
+__host__ __device__ constexpr int loss_smem_bytes(int window) {
+  return 16 * (window / 4) * (kLdH + kLdE) + 4 * 2 * kChunkRows * kLdS +
+         4 * kChunkRows + 4 * (kLossThreads / 32);
+}
+static_assert(loss_smem_bytes(kLossMaxWindow) <= kMaxSmem &&
+                  loss_smem_bytes(kLossMaxWindow + 8) > kMaxSmem,
+              "kLossMaxWindow is the widest window of 8 columns that fits");
+
+// sum + w * (relu(s) - base*s + log1p(exp(-|s|))), s = x[m] + bj, over 16
+// scores of one entity, in order; a select drops rows past B (bit m of
+// row_ok) and entities past N (ok).  The 16 exps come first, then the 16
+// log1ps, so that their chains interleave.
+__device__ __forceinline__ float add_terms(float sum, const float (&x)[16],
+                                          const float* wr, float bj, bool ok,
+                                          unsigned row_ok, float base) {
+  float s[16], e[16];
+#pragma unroll
+  for (int m = 0; m < 16; ++m) {
+    s[m] = x[m] + bj;
+    e[m] = expf(-fabsf(s[m]));
+  }
+#pragma unroll
+  for (int m = 0; m < 16; ++m) e[m] = log1pf(e[m]);
+#pragma unroll
+  for (int m = 0; m < 16; ++m) {
+    const float t = wr[m] * (fmaxf(s[m], 0.f) - base * s[m] + e[m]);
+    sum += ok && (row_ok >> m & 1) ? t : 0.f;
+  }
+  return sum;
+}
+
+// The pass over entity tiles (see the note at the top): block (x, y) adds
+// the terms of its tiles and of row chunk y into partials[y * gridDim.x +
+// x].  Warps 0-7 (the producers) compute each tile's scores, 4 rows x 8
+// entities a thread, over the whole depth, and store them in score buffer
+// u & 1 (the block's u-th tile); warps 8-15 add their terms, 32 rows of one
+// entity a thread, while the producers compute the next tile.
+template <bool kVec>
+__global__ void __launch_bounds__(kLossThreads, 1)
+loss_tiles_kernel(const float* __restrict__ h, const float* __restrict__ ent,
+                  const float* __restrict__ bias, const float* __restrict__ w,
+                  float base, float* __restrict__ partials, int b, int n,
+                  int d, int tiles_per_block, int window, int n_windows) {
+  extern __shared__ float4 smem4[];
+  const int kqw = window / 4;
+  float4* hs = smem4;                            // [kqw][kLdH]
+  float4* es = hs + kqw * kLdH;                  // [kqw][kLdE]
+  float* sb = reinterpret_cast<float*>(es + kqw * kLdE);  // [2][128][kLdS]
+  float* wsm = sb + 2 * kChunkRows * kLdS;       // [128]
+  float* red = wsm + kChunkRows;                 // [16]
+  const int n_tiles = (n + kTileN - 1) / kTileN;
+  const int first = blockIdx.x * tiles_per_block;
+  const int run = min(tiles_per_block, n_tiles - first);
+  const int r0 = blockIdx.y * kChunkRows;
+  float sum = 0.f;
+
+  if (threadIdx.x < kProducers) {
+    const int eg = threadIdx.x & 7, rg = threadIdx.x >> 3;  // rows 4rg+i,
+    const int hq = (kqw + 1) / 2;                         // entities eg+8j
+    if (n_windows == 1) {
+      // h's chunk once; the tile's depth halves double as a pipeline: half
+      // 0 of the next tile is copied under half 1's product and half 1
+      // under the next tile's half 0, each half's barrier both freeing it
+      // and showing the other half's copies
+      stage_quads<kVec, kChunkRows>(hs, kLdH, h, r0, b, d, 0, kqw);
+      stage_quads<kVec, kTileN>(es, kLdE, ent, first * kTileN, n, d, 0, kqw);
+      cp_async_commit();
+      cp_async_wait_all();
+      named_sync(kBarProducers, kProducers);
+    }
+    for (int u = 0; u < run; ++u) {
+      const int n0 = (first + u) * kTileN;
+      const bool more = u + 1 < run;
+      float acc[4][8] = {};
+      if (n_windows == 1) {
+        score_product(hs, es, hq, rg, eg, acc);
+        cp_async_wait_all();                    // this tile's half 1
+        named_sync(kBarProducers, kProducers);  // and half 0 is read
+        if (more)
+          stage_quads<kVec, kTileN>(es, kLdE, ent, n0 + kTileN, n, d, 0, hq);
+        cp_async_commit();
+        score_product(hs + hq * kLdH, es + hq * kLdE, kqw - hq, rg, eg, acc);
+        cp_async_wait_all();                    // the next tile's half 0
+        named_sync(kBarProducers, kProducers);  // and half 1 is read
+        if (more)
+          stage_quads<kVec, kTileN>(es + hq * kLdE, kLdE, ent, n0 + kTileN, n,
+                                    d, 4 * hq, kqw - hq);
+        cp_async_commit();
+      } else {
+        for (int win = 0; win < n_windows; ++win) {
+          named_sync(kBarProducers, kProducers);  // the last window is read
+          stage_quads<kVec, kChunkRows>(hs, kLdH, h, r0, b, d, win * window,
+                                        kqw);
+          stage_quads<kVec, kTileN>(es, kLdE, ent, n0, n, d, win * window,
+                                    kqw);
+          cp_async_commit();
+          cp_async_wait_all();
+          named_sync(kBarProducers, kProducers);
+          score_product(hs, es, kqw, rg, eg, acc);
+        }
+      }
+      // hand the tile over: buffer u & 1, once its last reader is done
+      float* out = sb + (u & 1) * kChunkRows * kLdS;
+      if (u >= 2) named_sync(kBarEmpty + (u & 1), kLossThreads);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          out[(4 * rg + i) * kLdS + eg + 8 * j] = acc[i][j];
+      named_arrive(kBarFull + (u & 1), kLossThreads);
+    }
+  } else {
+    // epilogue warps: entity q & 63 of each tile, rows 32 (q >> 6) + m
+    const int q = threadIdx.x - kProducers;
+    const int e = q & 63, m0 = 32 * (q >> 6);
+    if (q < kChunkRows) wsm[q] = r0 + q < b ? __ldg(w + r0 + q) : 0.f;
+    unsigned row_ok[2];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int rows = b - (r0 + m0 + 16 * c);  // rows left from there
+      row_ok[c] = rows >= 16 ? 0xffffu : rows > 0 ? (1u << rows) - 1 : 0u;
+    }
+    named_sync(kBarEpilogue, kLossThreads - kProducers);  // wsm is written
+    for (int u = 0; u < run; ++u) {
+      const int col = (first + u) * kTileN + e;
+      const bool ok = col < n;
+      const float bj = ok ? __ldg(bias + col) : 0.f;
+      named_sync(kBarFull + (u & 1), kLossThreads);
+      const float* in = sb + (u & 1) * kChunkRows * kLdS + m0 * kLdS + e;
+      float x[2][16];
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int m = 0; m < 16; ++m) x[c][m] = in[(16 * c + m) * kLdS];
+      if (u + 2 < run) named_arrive(kBarEmpty + (u & 1), kLossThreads);
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        sum = add_terms(sum, x[c], wsm + m0 + 16 * c, bj, ok, row_ok[c], base);
+    }
+  }
+  sum = warp_sum(sum);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = sum;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = red[0];
+#pragma unroll
+    for (int k = 1; k < kLossThreads / 32; ++k) t += red[k];
+    partials[blockIdx.y * gridDim.x + blockIdx.x] = t;
+  }
+}
+
+// *out = the n_part partials added in block order by thread 0, from
+// shared memory: the block loads kThreads partials at a time.
+__global__ void __launch_bounds__(kThreads)
+sum_partials_kernel(const float* __restrict__ partials, int n_part,
+                    float* __restrict__ out) {
+  __shared__ float part[kThreads];
+  float t = 0.f;
+  for (int p0 = 0; p0 < n_part; p0 += kThreads) {
+    const int m = min(kThreads, n_part - p0);
+    if (threadIdx.x < m) part[threadIdx.x] = partials[p0 + threadIdx.x];
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int i = 0; i < m; ++i) t += part[i];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *out = t;
+}
+
+// ---------------------------------------------------------------- K2b
+
+__host__ __device__ inline int grads_smem_bytes(int window) {
+  return 16 * (window / 4) * (kLdH + kLdE) + 4 * kTileN * kLdL;
+}
+
+// float4 slots of one block's d_h partial: 256 a (row chunk, window, column
+// group of 8), rows padded to whole chunks of 128.
+__host__ __device__ inline int64_t grads_partial_slots(int b, int window,
+                                                       int n_windows) {
+  return static_cast<int64_t>((b + kChunkRows - 1) / kChunkRows) * n_windows *
+         (window / 8) * 256;
 }
 
 // acc[0..7] += s * (lo, hi)
@@ -357,7 +498,7 @@ __device__ __forceinline__ void dh_window(const float* dlt, const float4* es,
     const float4* lp = reinterpret_cast<const float4*>(dlt) + rg;
     const float4* xp = es + 2 * cg * kLdE;
 #pragma unroll 4
-    for (int e = 0; e < kGradTileN; ++e) {
+    for (int e = 0; e < kTileN; ++e) {
       const float4 l = lp[e * (kLdL / 4)];
       const float4 x0 = xp[e], x1 = xp[kLdE + e];
       axpy8(acc[0], l.x, x0, x1);
@@ -401,7 +542,7 @@ __device__ __forceinline__ void dent_window(const float* dlt, const float4* hs,
     const float4* yp = hs + q * kLdH;
     const float4* lp = reinterpret_cast<const float4*>(dlt) + eg * (kLdL / 4);
 #pragma unroll 2
-    for (int rq = 0; rq < kGradRows / 4; ++rq) {
+    for (int rq = 0; rq < kChunkRows / 4; ++rq) {
       float4 l[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) l[i] = lp[8 * i * (kLdL / 4) + rq];
@@ -443,8 +584,8 @@ grads_kernel(const float* __restrict__ g, const float* __restrict__ h,
   const int kqw = window / 4, cg_n = window / 8;
   float4* hs = smem4;                                     // [kqw][kLdH]
   float4* es = hs + kqw * kLdH;                           // [kqw][kLdE]
-  float* dlt = reinterpret_cast<float*>(es + kqw * kLdE); // [kGradTileN][kLdL]
-  const int n_tiles = (n + kGradTileN - 1) / kGradTileN;
+  float* dlt = reinterpret_cast<float*>(es + kqw * kLdE); // [kTileN][kLdL]
+  const int n_tiles = (n + kTileN - 1) / kTileN;
   const int t_begin = blockIdx.x * tiles_per_block;
   const int t_end = min(t_begin + tiles_per_block, n_tiles);
   float4* part = reinterpret_cast<float4*>(partials) +
@@ -453,42 +594,29 @@ grads_kernel(const float* __restrict__ g, const float* __restrict__ h,
   const bool one_window = n_windows == 1;
   const int eg = threadIdx.x & 7, rg = threadIdx.x >> 3;  // score tile owner
 
-  for (int r0 = 0; r0 < b; r0 += kGradRows) {
+  for (int r0 = 0; r0 < b; r0 += kChunkRows) {
     if (one_window) {
-      stage_quads<kVec, kGradRows>(hs, kLdH, h, r0, b, d, 0, kqw);
-      stage_quads<kVec, kGradTileN>(es, kLdE, ent, t_begin * kGradTileN, n, d,
+      stage_quads<kVec, kChunkRows>(hs, kLdH, h, r0, b, d, 0, kqw);
+      stage_quads<kVec, kTileN>(es, kLdE, ent, t_begin * kTileN, n, d,
                                     0, kqw);
       cp_async_commit();
       cp_async_wait_all();
       __syncthreads();
     }
     for (int t = t_begin; t < t_end; ++t) {
-      const int n0 = t * kGradTileN;
+      const int n0 = t * kTileN;
       // 1. S: rows 4rg..4rg+3 x entities eg + 8j, K-major quads
       float acc[4][8] = {};
       for (int win = 0; win < n_windows; ++win) {
         if (!one_window) {
-          stage_quads<kVec, kGradRows>(hs, kLdH, h, r0, b, d, win * window, kqw);
-          stage_quads<kVec, kGradTileN>(es, kLdE, ent, n0, n, d, win * window,
+          stage_quads<kVec, kChunkRows>(hs, kLdH, h, r0, b, d, win * window, kqw);
+          stage_quads<kVec, kTileN>(es, kLdE, ent, n0, n, d, win * window,
                                         kqw);
           cp_async_commit();
           cp_async_wait_all();
           __syncthreads();
         }
-        const float4* hp = hs + 4 * rg;
-        const float4* ep = es + eg;
-#pragma unroll 2
-        for (int kq = 0; kq < kqw; ++kq) {
-          float4 a[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = hp[kq * kLdH + i];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float4 e = ep[kq * kLdE + 8 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) acc[i][j] = dot4(a[i], e, acc[i][j]);
-          }
-        }
+        score_product(hs, es, kqw, rg, eg, acc);
         if (!one_window && win + 1 < n_windows) __syncthreads();
       }
       // dl tile, transposed: dlT[e][r]; zero past B and N
@@ -516,10 +644,10 @@ grads_kernel(const float* __restrict__ g, const float* __restrict__ h,
       }
       __syncthreads();
       // d_bias of the tile, summed over the chunk's rows in order
-      if (threadIdx.x < kGradTileN && n0 + threadIdx.x < n) {
+      if (threadIdx.x < kTileN && n0 + threadIdx.x < n) {
         const float4* row = reinterpret_cast<const float4*>(dlt + threadIdx.x * kLdL);
         float s = 0.f;
-        for (int q = 0; q < kGradRows / 4; ++q) {
+        for (int q = 0; q < kChunkRows / 4; ++q) {
           const float4 v = row[q];
           s += v.x;
           s += v.y;
@@ -533,19 +661,19 @@ grads_kernel(const float* __restrict__ g, const float* __restrict__ h,
       for (int win = n_windows - 1; win >= 0; --win) {
         if (win != n_windows - 1) {
           __syncthreads();
-          stage_quads<kVec, kGradRows>(hs, kLdH, h, r0, b, d, win * window, kqw);
-          stage_quads<kVec, kGradTileN>(es, kLdE, ent, n0, n, d, win * window,
+          stage_quads<kVec, kChunkRows>(hs, kLdH, h, r0, b, d, win * window, kqw);
+          stage_quads<kVec, kTileN>(es, kLdE, ent, n0, n, d, win * window,
                                         kqw);
           cp_async_commit();
           cp_async_wait_all();
           __syncthreads();
         }
         dh_window(dlt, es,
-                  part + ((r0 / kGradRows) * n_windows + win) * cg_n * 256,
+                  part + ((r0 / kChunkRows) * n_windows + win) * cg_n * 256,
                   cg_n, t == t_begin);
         if (one_window && t + 1 < t_end) {
           __syncthreads();              // es is read no more: the next tile's
-          stage_quads<kVec, kGradTileN>(es, kLdE, ent, n0 + kGradTileN, n, d,
+          stage_quads<kVec, kTileN>(es, kLdE, ent, n0 + kTileN, n, d,
                                         0, kqw);
           cp_async_commit();            // rows arrive under the d_ent product
         }
@@ -588,7 +716,7 @@ dh_reduce_kernel(const float* __restrict__ partials, float* __restrict__ d_h,
   const int64_t cw = unit / cg_n;
   const int win = static_cast<int>(cw % n_windows);
   const int chunk = static_cast<int>(cw / n_windows);
-  const int row = chunk * kGradRows + 4 * rg + (k >> 1);
+  const int row = chunk * kChunkRows + 4 * rg + (k >> 1);
   const int c = win * window + 8 * cg + 4 * (k & 1);
   if (row >= b) return;
   float* out = d_h + static_cast<int64_t>(row) * d + c;
@@ -600,29 +728,61 @@ dh_reduce_kernel(const float* __restrict__ partials, float* __restrict__ d_h,
 
 }  // namespace
 
-// Number of per-block partial sums K2a writes (the caller's scratch size).
-extern "C" int kgc_fused_bce_loss_partials(int b, int n) {
-  return ((n + kLossTileN - 1) / kLossTileN) * ((b + kLossRows - 1) / kLossRows);
+// Shared memory of one K2a block at column window `window`.
+extern "C" int kgc_fused_bce_loss_smem(int window) {
+  return loss_smem_bytes(window);
 }
 
-// Launches K2a on `stream`; *out receives the sum.  Returns the cudaError_t
-// of the launches (0: success).  The caller guarantees b, n > 0, owns every
-// buffer and sizes `partials` by kgc_fused_bce_loss_partials.
+// Partials K2a writes for `b` rows and `n` entities in runs of
+// `tiles_per_block` tiles: one a block, a block a (run, row chunk).
+extern "C" int kgc_fused_bce_loss_partials(int b, int n, int tiles_per_block) {
+  const int n_tiles = (n + kTileN - 1) / kTileN;
+  return (n_tiles + tiles_per_block - 1) / tiles_per_block *
+         ((b + kChunkRows - 1) / kChunkRows);
+}
+
+// Launches K2a on `stream`: the pass over entity tiles, then the sum of the
+// partials; *out receives the dense term.  The schedule comes from the
+// caller (ops/fused_loss.py:loss_schedule): `blocks` runs of
+// `tiles_per_block` 64-entity tiles, none empty, each with every chunk of
+// 128 rows; columns in `n_windows` windows of `window` (a multiple of 8, at
+// most kLossMaxWindow); `partials` holds kgc_fused_bce_loss_partials
+// floats.  Returns the cudaError_t of the
+// launches (0: success; cudaErrorInvalidValue for a schedule that does not
+// fit these rules).  The caller guarantees b, n, d > 0 and owns every
+// buffer.
 extern "C" int kgc_fused_bce_loss(const void* h, const void* ent,
                                   const void* bias, const void* w, float base,
                                   void* partials, void* out, int b, int n,
-                                  int d, void* stream) {
+                                  int d, int tiles_per_block, int blocks,
+                                  int window, int n_windows, void* stream) {
+  const int n_tiles = (n + kTileN - 1) / kTileN;
+  const int64_t cols = static_cast<int64_t>(window) * n_windows;
+  if (window <= 0 || window % 8 || window > kLossMaxWindow || n_windows < 1 ||
+      cols < d || cols - window >= d || tiles_per_block <= 0 ||
+      blocks <= 0 || static_cast<int64_t>(blocks) * tiles_per_block < n_tiles ||
+      static_cast<int64_t>(blocks - 1) * tiles_per_block >= n_tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = loss_smem_bytes(window);
+  const void* ptrs[] = {h, ent};
+  bool aligned = d % 4 == 0;
+  for (const void* p : ptrs) aligned &= reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  const auto kernel = aligned ? loss_tiles_kernel<true> : loss_tiles_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n + kLossTileN - 1) / kLossTileN, (b + kLossRows - 1) / kLossRows);
-  loss_partials_kernel<<<grid, kThreads, 0, s>>>(
+  const int chunks = (b + kChunkRows - 1) / kChunkRows;
+  kernel<<<dim3(blocks, chunks), kLossThreads, smem, s>>>(
       static_cast<const float*>(h), static_cast<const float*>(ent),
       static_cast<const float*>(bias), static_cast<const float*>(w), base,
-      static_cast<float*>(partials), b, n, d);
-  cudaError_t err = cudaGetLastError();
+      static_cast<float*>(partials), b, n, d, tiles_per_block, window,
+      n_windows);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  sum_partials_kernel<<<1, 1024, 0, s>>>(static_cast<const float*>(partials),
-                                         kgc_fused_bce_loss_partials(b, n),
-                                         static_cast<float*>(out));
+  sum_partials_kernel<<<1, kThreads, 0, s>>>(
+      static_cast<const float*>(partials), blocks * chunks,
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -649,7 +809,7 @@ extern "C" int kgc_fused_bce_grads(const void* g, const void* h,
                                    int b, int n, int d, int tiles_per_block,
                                    int blocks, int window, int n_windows,
                                    void* stream) {
-  const int n_tiles = (n + kGradTileN - 1) / kGradTileN;
+  const int n_tiles = (n + kTileN - 1) / kTileN;
   const int64_t ld_part = static_cast<int64_t>(window) * n_windows;
   if (window <= 0 || window % 8 || window > kMaxWindow || ld_part < d ||
       ld_part - window >= d || tiles_per_block <= 0 || blocks <= 0 ||

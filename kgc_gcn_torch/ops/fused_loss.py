@@ -38,48 +38,90 @@ import torch
 
 from kgc_gcn_torch.utils.cuda_build import check_launch, load_kernels
 
-# K2b's schedule (csrc/fused_score_bce.cu): rows of h per chunk, entities
-# per tile, float4 slot strides of the staged h chunk and entity tile and of
-# the transposed dl tile, and the widest column window whose operands fit in
-# one block's 232,448 bytes of shared memory
-_GRAD_ROWS, _GRAD_TILE_N = 128, 64
-_GRAD_LD_H, _GRAD_LD_E, _GRAD_LD_L = 132, 68, 132
-_GRAD_MAX_WINDOW = 248
+# K2a's and K2b's schedule (csrc/fused_score_bce.cu): rows of h per chunk,
+# entities per tile, float4 slot strides of the staged h chunk and entity
+# tile and of K2b's transposed dl tile, and the widest column windows whose
+# operands fit in one block's 232,448 bytes of shared memory (K2a: h, the
+# entity tile, two score tiles of 128 x 66 floats, 128 row weights and 16
+# warp sums; K2b: h, the entity tile and the dl tile)
+_ROWS, _TILE_N = 128, 64
+_LD_H, _LD_E, _GRAD_LD_L = 132, 68, 132
+_LOSS_MAX_WINDOW, _GRAD_MAX_WINDOW = 200, 248
+_LOSS_FIXED_SMEM = 4 * (2 * _ROWS * (_TILE_N + 2) + _ROWS + 16)
 
 
 @dataclass(frozen=True)
-class GradsSchedule:
-    """K2b's launch schedule: block x owns entity tiles
-    ``tile_range(x)``, writes one d_h partial of (B rounded up to 128,
-    ``ld_partial``) floats, and stages columns in ``n_windows`` windows of
-    ``window``."""
+class _TileRuns:
+    """Block x owns the 64-entity tiles ``tile_range(x)``."""
     n_tiles: int
     tiles_per_block: int
     blocks: int
-    window: int
-    n_windows: int
-    ld_partial: int
-    scratch_floats: int
-    smem_bytes: int
 
     def tile_range(self, block: int) -> range:
         start = block * self.tiles_per_block
         return range(start, min(start + self.tiles_per_block, self.n_tiles))
 
 
+def _tile_runs(n: int, n_sm: int) -> Tuple[int, int, int]:
+    """Runs of 64-entity tiles for about ``n_sm`` blocks, none empty."""
+    n_tiles = -(-n // _TILE_N)
+    tiles_per_block = -(-n_tiles // max(1, n_sm))
+    return n_tiles, tiles_per_block, -(-n_tiles // tiles_per_block)
+
+
+def _windows(d: int, max_window: int) -> Tuple[int, int]:
+    """(window, n_windows): the fewest windows of at most ``max_window``
+    columns, a multiple of 8, that cover d >= 1."""
+    n_windows = -(-d // max_window)
+    per_window = -(-d // n_windows)
+    return -(-per_window // 8) * 8, n_windows
+
+
+@dataclass(frozen=True)
+class LossSchedule(_TileRuns):
+    """K2a's launch schedule: block (x, y) adds the terms of its tiles and
+    of the y-th chunk of 128 rows into one of ``partials``; columns are
+    staged in ``n_windows`` windows of ``window``."""
+    row_chunks: int
+    partials: int
+    window: int
+    n_windows: int
+    smem_bytes: int
+
+
+def loss_schedule(b: int, n: int, d: int, n_sm: int) -> LossSchedule:
+    """Runs of 64-entity tiles, none empty, for about ``n_sm`` blocks over
+    all row chunks, and column windows of at most 200 (a multiple of 8)
+    for K2a."""
+    chunks = -(-b // _ROWS)
+    runs = _tile_runs(n, max(1, n_sm // chunks))
+    window, n_windows = _windows(d, _LOSS_MAX_WINDOW)
+    smem = 16 * (window // 4) * (_LD_H + _LD_E) + _LOSS_FIXED_SMEM
+    return LossSchedule(*runs, chunks, runs[2] * chunks, window, n_windows,
+                        smem)
+
+
+@dataclass(frozen=True)
+class GradsSchedule(_TileRuns):
+    """K2b's launch schedule: block x owns entity tiles
+    ``tile_range(x)``, writes one d_h partial of (B rounded up to 128,
+    ``ld_partial``) floats, and stages columns in ``n_windows`` windows of
+    ``window``."""
+    window: int
+    n_windows: int
+    ld_partial: int
+    scratch_floats: int
+    smem_bytes: int
+
+
 def grads_schedule(b: int, n: int, d: int, n_sm: int) -> GradsSchedule:
     """Runs of 64-entity tiles for about ``n_sm`` blocks, none empty, and
     column windows of at most 248 (a multiple of 8) for K2b."""
-    n_tiles = -(-n // _GRAD_TILE_N)
-    tiles_per_block = -(-n_tiles // max(1, n_sm))
-    blocks = -(-n_tiles // tiles_per_block)
-    n_windows = -(-d // _GRAD_MAX_WINDOW)
-    per_window = -(-d // n_windows)
-    window = -(-per_window // 8) * 8
-    smem = 16 * (window // 4) * (_GRAD_LD_H + _GRAD_LD_E) \
-        + 4 * _GRAD_TILE_N * _GRAD_LD_L
+    n_tiles, tiles_per_block, blocks = _tile_runs(n, n_sm)
+    window, n_windows = _windows(d, _GRAD_MAX_WINDOW)
+    smem = 16 * (window // 4) * (_LD_H + _LD_E) + 4 * _TILE_N * _GRAD_LD_L
     ld_partial = window * n_windows
-    rows = -(-b // _GRAD_ROWS) * _GRAD_ROWS   # B in whole row chunks
+    rows = -(-b // _ROWS) * _ROWS   # B in whole row chunks
     return GradsSchedule(n_tiles, tiles_per_block, blocks, window, n_windows,
                          ld_partial, blocks * rows * ld_partial, smem)
 
@@ -198,23 +240,30 @@ def dense_loss(h: torch.Tensor, ent: torch.Tensor, bias: torch.Tensor,
                row_mask: torch.Tensor, base: float) -> torch.Tensor:
     """K2a: the dense term of the loss, a float32 scalar tensor.
 
-    ``dense_loss.launches`` counts the kernel's launches."""
+    ``dense_loss.launches`` counts the wrapper's launches (one per call:
+    the pass over entity tiles and the sum of its partials together)."""
     _check(h, ent, bias, row_mask)
     if not _on_card(h, ent, bias, row_mask):
         return dense_loss_reference(h, ent, bias, row_mask, base)
     b, d = h.shape
     n = ent.shape[0]
-    out = torch.zeros((), dtype=torch.float32, device=h.device)
     if b == 0 or n == 0:
-        return out
+        return torch.zeros((), dtype=torch.float32, device=h.device)
+    if d == 0:   # the JAX kernel refuses d 0 too
+        raise ValueError("K2a takes d >= 1")
+    out = torch.empty((), dtype=torch.float32, device=h.device)
+    sched = loss_schedule(
+        b, n, d, torch.cuda.get_device_properties(h.device).multi_processor_count)
+    partials = torch.empty(sched.partials, dtype=torch.float32,
+                           device=h.device)
     kernels = load_kernels()
-    n_part = kernels.lib.kgc_fused_bce_loss_partials(b, n)
-    partials = torch.empty(n_part, dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         code = kernels.lib.kgc_fused_bce_loss(
             h.data_ptr(), ent.data_ptr(), bias.data_ptr(), row_mask.data_ptr(),
-            float(base), partials.data_ptr(), out.data_ptr(), b, n, d, stream)
+            float(base), partials.data_ptr(), out.data_ptr(), b, n, d,
+            sched.tiles_per_block, sched.blocks, sched.window, sched.n_windows,
+            stream)
     check_launch(kernels.lib, code, "fused_bce_loss (K2a)")
     dense_loss.launches += 1
     return out

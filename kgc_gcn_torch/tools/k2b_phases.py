@@ -62,14 +62,14 @@ def instrument(src: str) -> str:
     if "kq < kq_end; ++kq) {" in src:    # the score product split by depth
         rep("kq < kq_end; ++kq) {", "kq < (SKIP_P1 ? kq_begin : kq_end); ++kq) {")
     else:
-        rep("for (int kq = 0; kq < kqw; ++kq) {\n          float4 a[",
+        rep("for (int kq = 0; kq < kqw; ++kq) {\n    float4 a[",
             "for (int kq = 0; kq < (SKIP_P1 ? 0 : kqw); ++kq) {\n"
-            "          float4 a[")
+            "    float4 a[")
     for old, new in (
-            ("for (int rq = 0; rq < kGradRows / 4; ++rq) {",
-             "for (int rq = 0; rq < (SKIP_P2 ? 0 : kGradRows / 4); ++rq) {"),
-            ("for (int e = 0; e < kGradTileN; ++e) {\n      const float4 l",
-             "for (int e = 0; e < (SKIP_P3 ? 0 : kGradTileN); ++e) {\n"
+            ("for (int rq = 0; rq < kChunkRows / 4; ++rq) {",
+             "for (int rq = 0; rq < (SKIP_P2 ? 0 : kChunkRows / 4); ++rq) {"),
+            ("for (int e = 0; e < kTileN; ++e) {\n      const float4 l",
+             "for (int e = 0; e < (SKIP_P3 ? 0 : kTileN); ++e) {\n"
              "      const float4 l"),
             ("    for (int t = t_begin; t < t_end; ++t) {\n",
              "    for (int t = t_begin; t < t_end; ++t) {\n"

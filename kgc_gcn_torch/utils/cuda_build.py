@@ -105,10 +105,12 @@ def load_kernels(force_build: bool = False) -> KernelLibrary:
     lib.kgc_segment_sum.restype = i32
     lib.kgc_segment_max.argtypes = [vp, vp, vp, i32, i32, i32, vp]
     lib.kgc_segment_max.restype = i32
-    lib.kgc_fused_bce_loss_partials.argtypes = [i32, i32]
+    lib.kgc_fused_bce_loss_smem.argtypes = [i32]
+    lib.kgc_fused_bce_loss_smem.restype = i32
+    lib.kgc_fused_bce_loss_partials.argtypes = [i32, i32, i32]
     lib.kgc_fused_bce_loss_partials.restype = i32
     lib.kgc_fused_bce_loss.argtypes = [vp, vp, vp, vp, f32, vp, vp, i32, i32,
-                                       i32, vp]
+                                       i32, i32, i32, i32, i32, vp]
     lib.kgc_fused_bce_loss.restype = i32
     lib.kgc_fused_bce_grads_smem.argtypes = [i32]
     lib.kgc_fused_bce_grads_smem.restype = i32

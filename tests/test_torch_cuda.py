@@ -24,7 +24,7 @@ from kgc_gcn_torch.ops.basis import (
     basis_bwd_window, basis_segment_sum, basis_segment_sum_reference)
 from kgc_gcn_torch.ops.fused_loss import (
     dense_grads, dense_grads_reference, dense_loss, dense_loss_reference,
-    grads_schedule)
+    grads_schedule, loss_schedule)
 from kgc_gcn_torch.ops.kernels import PLAIN
 from kgc_gcn_torch.ops.segment_max import segment_max, segment_max_reference
 from kgc_gcn_torch.ops.segment_sum import segment_sum, segment_sum_reference
@@ -182,19 +182,23 @@ K2_LOSS_RTOL = 1e-5
 K2_GRAD_RTOL = K2_GRAD_ATOL = 1e-4
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,n,d,masked", [
-    (128, 4099, 200, ()), (5, 1001, 37, (1, 3)), (7, 300, 300, (6,)),
-    (70, 33, 64, (0, 69)),
-    # K2b's edges: B above one row chunk of 128 (and with two windows), N
-    # below one tile of 64, N one past a tile multiple, d 1, runs of two
-    # tiles a block with a ragged last tile
-    (300, 129, 40, (0, 150, 299)), (130, 200, 300, (0, 129)),
-    (9, 50, 64, (4,)), (3, 65, 1, (1,)), (64, 19201, 200, (5,))])
-def test_k2_kernels_match_plain(cuda, b, n, d, masked):
+def _on_card_at(t: torch.Tensor, offset: int, cuda) -> torch.Tensor:
+    """``t`` copied to the card as a contiguous view ``offset`` floats into
+    its buffer (the allocator's buffers start 16-byte aligned)."""
+    buf = torch.empty(t.numel() + offset, device=cuda)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def k2_match_plain(cuda, b, n, d, masked, offset=0):
+    """K2a and K2b on the card against their plain versions, one launch
+    each, masked rows with a zero d_h; h and ent start ``offset`` floats
+    into their buffers."""
     gen = torch.Generator().manual_seed(b + n)
-    h = torch.relu(torch.randn(b, d, generator=gen)).to(cuda)
-    ent = torch.tanh(torch.randn(n, d, generator=gen)).to(cuda)
+    h = _on_card_at(torch.relu(torch.randn(b, d, generator=gen)), offset, cuda)
+    ent = _on_card_at(torch.tanh(torch.randn(n, d, generator=gen)), offset,
+                      cuda)
     bias = (torch.randn(n, generator=gen) * 0.1).to(cuda)
     w = torch.ones(b)
     w[list(masked)] = 0.0
@@ -217,6 +221,29 @@ def test_k2_kernels_match_plain(cuda, b, n, d, masked):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,masked", [
+    (128, 4099, 200, ()), (5, 1001, 37, (1, 3)), (7, 300, 300, (6,)),
+    (70, 33, 64, (0, 69)),
+    # K2b's edges: B above one row chunk of 128 (and with two windows), N
+    # below one tile of 64, N one past a tile multiple, d 1, runs of two
+    # tiles a block with a ragged last tile
+    (300, 129, 40, (0, 150, 299)), (130, 200, 300, (0, 129)),
+    (9, 50, 64, (4,)), (3, 65, 1, (1,)), (64, 19201, 200, (5,)),
+    # K2a's edges: d 203 (two windows of 104, 4-byte copies), d 496 (three
+    # windows of 168)
+    (128, 700, 203, (3,)), (9, 50, 496, (4,))])
+def test_k2_kernels_match_plain(cuda, b, n, d, masked):
+    k2_match_plain(cuda, b, n, d, masked)
+
+
+@pytest.mark.cuda
+def test_k2_kernels_take_misaligned_views(cuda):
+    """h and ent as views one float past a 16-byte boundary: both kernels
+    take their 4-byte copies."""
+    k2_match_plain(cuda, 70, 333, 200, (2,), offset=1)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,n,d", [(128, 19201, 200), (130, 700, 300)])
 def test_k2b_is_deterministic(cuda, b, n, d):
     """d_h is added over the blocks' partials in a fixed order and d_ent,
@@ -232,6 +259,45 @@ def test_k2b_is_deterministic(cuda, b, n, d):
     second = dense_grads(g, h, ent, bias, w, 1.0 / n)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_k2a_refuses_d0(cuda):
+    """d 0 raises on the card, as the JAX kernel refuses it."""
+    h, ent = torch.zeros(3, 0, device=cuda), torch.zeros(5, 0, device=cuda)
+    with pytest.raises(ValueError, match="d >= 1"):
+        dense_loss(h, ent, torch.zeros(5, device=cuda),
+                   torch.ones(3, device=cuda), 0.2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d", [(128, 19201, 200), (130, 700, 300)])
+def test_k2a_is_deterministic(cuda, b, n, d):
+    """Each block adds its terms in a fixed order and the partials are
+    added in block order: two calls on normal values, whose float32 sums
+    depend on their order, give the same bits."""
+    gen = torch.Generator().manual_seed(b * n + 1)
+    h, ent = (torch.randn(b, d, generator=gen).to(cuda),
+              torch.randn(n, d, generator=gen).to(cuda))
+    bias = torch.randn(n, generator=gen).to(cuda)
+    w = torch.ones(b, device=cuda)
+    first = dense_loss(h, ent, bias, w, 1.0 / n)
+    second = dense_loss(h, ent, bias, w, 1.0 / n)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_k2a_schedule_matches_the_source(cuda):
+    """loss_schedule's shared-memory size and partial count are the
+    launcher's, for every d from 1 to 1,000."""
+    from kgc_gcn_torch.utils.cuda_build import load_kernels
+    lib = load_kernels().lib
+    for d in range(1, 1001):
+        sched = loss_schedule(128, 40943, d, 132)
+        assert lib.kgc_fused_bce_loss_smem(sched.window) == sched.smem_bytes
+        assert lib.kgc_fused_bce_loss_partials(
+            128, 40943, sched.tiles_per_block) == sched.partials
 
 
 @pytest.mark.cuda

@@ -38,3 +38,22 @@ def test_passes_us_reports_unseen_passes_as_not_measured(smoke, monkeypatch,
     assert calls == [5]
     assert got == want
     assert tuple(smoke.us(v) for v in got) == shown
+
+
+@pytest.mark.parametrize("top,want", [
+    # the fused step's profile: K2a's two launches among the step's kernels
+    ([("void (anonymous namespace)::loss_tiles_kernel<true>(...)", 65.3),
+      ("(anonymous namespace)::sum_partials_kernel(float const*, int, float*)",
+       1.7), ("void at::native::vectorized_elementwise_kernel", 9.0)],
+     {"loss_tiles": 65.3, "sum_partials": 1.7}),
+    # a step without K2a (loss_impl auto): not measured, not 0 µs
+    ([("void at::native::vectorized_elementwise_kernel", 9.0)],
+     {"loss_tiles": None, "sum_partials": None}),
+])
+def test_log_profile_gives_the_named_kernels_device_time(smoke, monkeypatch,
+                                                         top, want):
+    monkeypatch.setattr(smoke, "profile_kernels",
+                        lambda fn, steps=3: (100.0, 76.0, top, []))
+    got = smoke.log_profile("one step", lambda: None, kinds=smoke.K2A_PASSES)
+    assert got["kinds_us"] == want
+    assert "kinds_us" not in smoke.log_profile("one step", lambda: None)
