@@ -21,7 +21,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      power-law graph; bit-equal on dyadic inputs, then real values; K7
      twice on the power-law graph, bit-identical calls; K8 at B 128 and
      d 256, in column windows: one launch, equal to the plain backward),
-     K5 (segment-max), K4a / K4b (the one-pass compose and backward
+     K5 (segment-max at the RGAT path's shape, the FB15k-237 in-half,
+     the power-law graph and edge cases; twice on the power-law graph,
+     bit-identical calls), K4a / K4b (the one-pass compose and backward
      products, bit-equal on any input, also ragged and
      misaligned), K3 (the stacked fused compose + segment-sum at the
      stacked WN18RR and FB15k-237 views, on the power-law graph and on an
@@ -31,7 +33,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. timing: each kernel, its plain version and the one-call library
      equivalent or yardstick, with CUDA events, beside the least time the
      card needs (K1, K3, K5, K7, K8 also without the graph's padding edges,
-     K1, K3, K7, K8 also on the power-law graph, K3 also at the stacked
+     K1, K3, K5, K7, K8 also on the power-law graph, K5 also at the
+     FB15k-237 in-half (with and without its padding edges) with its
+     profiler interval, K3 also at the stacked
      FB15k-237 view, K7, K8 also at a second layer's d 200, K8 also at
      B 128 and d 256 (column windows), K1's, K3's and K7's two passes
      apart, K2a / K2b also at the
@@ -80,7 +84,7 @@ The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Nothing of JAX is imported.
 
 --kernels-only runs phases 1-3 and the time rows of K1, K2a, K7 and K3 (each
-with its two passes' device times), K2b and K8, then prints their entries and
+with its two passes' device times), K2b, K8 and K5, then prints their entries and
 the last line: a quick check of the kernels that drives no path (their
 launch counts are 0).
 """
@@ -788,6 +792,79 @@ def k3_entry(k3_errs: dict, t: dict, by_path: dict) -> dict:
     }
 
 
+def time_k5(segment_max, segment_max_reference, max_cases: dict,
+            e_real: dict) -> dict:
+    """K5's time rows: at the RGAT path's shape and the FB15k-237 in-half
+    (each also without its padding edges: indptr[-1] = ``e_real[name]``)
+    and the power-law graph, each beside its plain version, one library call
+    (``torch.segment_reduce`` max over the CSR lengths where it gives the
+    plain version's result, -inf on empty rows; else ``scatter_reduce_``
+    amax), its bound (logits, indptr and out once) and the kernel's profiler
+    interval."""
+    out = {}
+    for name in ("wn18rr_h4", "fb15k237_h4", "powerlaw_h4"):
+        lg, dd, ip, n_rows = max_cases[name]
+        lengths = (ip[1:] - ip[:-1]).long()
+        seg_reduce = lambda: torch.segment_reduce(lg, "max", lengths=lengths,
+                                                  axis=0, unsafe=True)
+        want = segment_max_reference(lg, dd, ip, n_rows)
+        if torch.equal(seg_reduce(), want):
+            library, library_name = seg_reduce, "torch.segment_reduce max"
+        else:
+            idx = dd.long()[:, None].expand(-1, lg.shape[1])
+            library, library_name = (
+                lambda: torch.full_like(want, -math.inf).scatter_reduce_(
+                    0, idx, lg, "amax"), "scatter_reduce_ amax")
+        fns = {"ms": lambda: segment_max(lg, dd, ip, n_rows),
+               "plain_ms": lambda: segment_max_reference(lg, dd, ip, n_rows),
+               "library_ms": library}
+        pad = ""
+        if name in e_real:
+            cut = ip.clone()
+            cut[-1] = e_real[name]
+            fns["ms_without_padding"] = lambda: segment_max(lg, dd, cut, n_rows)
+        t = time_in_turns(fns)
+        t["bound_ms"], t["bound_by"] = max_bound(lg.shape[0], lg.shape[1],
+                                                 n_rows)
+        t["library"] = library_name
+        t["kernel_us"] = log_profile(
+            f"K5 {name}", fns["ms"], steps=5,
+            kinds=("segment_max_kernel",)).get(
+                "kinds_us", {}).get("segment_max_kernel")
+        if name in e_real:
+            pad = (f"; without the {lg.shape[0] - e_real[name]} padding "
+                   f"edges {t['ms_without_padding']:.4f} ms")
+        out[name] = t
+        log(f"[K5 time] {name} (E {lg.shape[0]}, H {lg.shape[1]}, rows "
+            f"{n_rows}, largest row {int(lengths.max())}): kernel "
+            f"{t['ms']:.4f} ms ({us(t['kernel_us'])} µs under the profiler), "
+            f"plain {t['plain_ms']:.4f} ms, {library_name} "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of bound{pad}")
+    return out
+
+
+def k5_entry(max_errs: dict, t: dict, launches_by_path: dict) -> dict:
+    """K5's entry of the kernels line: the RGAT path's shape (WN18RR in-half,
+    H 4) first, every timed shape, and the check's errors."""
+    t5 = t["wn18rr_h4"]
+    return {
+        "name": "segment_max (K5)", "route": "cuda",
+        "source": "kgc_gcn_torch/csrc/segment_max.cu",
+        "replaces": "kgc_gcn_tpu/ops/spmm_pallas.py:801",
+        "launches": sum(launches_by_path.values()),
+        "max_abs_err": max(max_errs.values()),
+        "ms": t5["ms"], "plain_ms": t5["plain_ms"],
+        "bound_ms": t5["bound_ms"], "bound_by": t5["bound_by"],
+        "library_ms": t5["library_ms"], "library": t5["library"],
+        "ms_without_padding": t5["ms_without_padding"],
+        "kernel_us": t5["kernel_us"],
+        "shapes": t,
+        "launches_by_path": launches_by_path,
+        "cases": {"max_abs_err": max_errs},
+    }
+
+
 def k2_case(b: int, n: int, d: int, masked, gen, offset: int = 0):
     """h, ent, bias, row mask as the training path gives them: h after
     ReLU, entities after tanh, a small bias, padding rows masked; h and ent
@@ -1247,8 +1324,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
-                    help="phases 1-3 and the K1, K2, K7, K8 and K3 time rows "
-                    "only")
+                    help="phases 1-3 and the K1, K2, K7, K8, K5 and K3 time "
+                    "rows only")
     args = ap.parse_args()
 
     # 1. device ---------------------------------------------------------------
@@ -1509,8 +1586,17 @@ def main() -> int:
         lg[int(hub_ptr[1]):int(hub_ptr[2])] = -math.inf
         return lg
 
+    fb_logits = torch.randn(fb_graph.inb.dst.shape[0], n_heads, generator=gen)
+    fb_logits[fb_graph.inb.norm == 0] = -math.inf
     max_cases = {"wn18rr_h4": (path_logits, graph.inb.dst, graph.inb.indptr,
-                               ds.num_entity)}
+                               ds.num_entity),
+                 # the FB15k-237 in-half and the power-law in-degrees at
+                 # FB15k-237's counts (rows of tens of thousands of edges)
+                 "fb15k237_h4": (fb_logits, fb_graph.inb.dst,
+                                 fb_graph.inb.indptr, n_fb),
+                 "powerlaw_h4": (torch.randn(pl_dst.shape[0], n_heads,
+                                             generator=gen), pl_dst, pl_ptr,
+                                 n_fb)}
     for h in (1, 5, 40):
         max_cases[f"edge_h{h}"] = (edge_logits(h), hub_dst, hub_ptr,
                                    hub.shape[0])
@@ -1530,6 +1616,15 @@ def main() -> int:
             f"{int(torch.isneginf(want).all(1).sum())}): max_abs_err "
             f"{max_errs[name]:.3g} (tol 0: bit-equal, -inf where the plain "
             "version has it)")
+    # hub rows are combined by whichever piece arrives last; the order of
+    # the combination is fixed, so two calls give the same bits
+    lg, dd, ip, n_rows = max_cases["powerlaw_h4"]
+    first = segment_max(lg, dd, ip, n_rows)
+    if not torch.equal(first.view(torch.int32),
+                       segment_max(lg, dd, ip, n_rows).view(torch.int32)):
+        raise AssertionError("K5: two calls on the same inputs differ")
+    log("[K5 check] powerlaw_h4: two calls bit-identical")
+    del first
 
     # K4a / K4b at the WN18RR half shape (the ew_impl=pallas path: E_pad x
     # d_in float32 operands, float32 and bf16 outputs) and an edge case whose
@@ -1665,12 +1760,16 @@ def main() -> int:
                             graph)
     del k3_real
     torch.cuda.empty_cache()
+    timings["k5"] = time_k5(segment_max, segment_max_reference, max_cases,
+                            {"wn18rr_h4": graph.inb.e_real,
+                             "fb15k237_h4": fb_graph.inb.e_real})
     if args.kernels_only:
         print(json.dumps({"kernels": [k1_entry(errs, timings, {})]
                           + k2_entries(k2_errs, timings, {}, {})
                           + basis_entries(basis_errs, timings["basis_config3"],
                                           {}, {})
-                          + [k3_entry(k3_errs, timings["k3"], {})]}))
+                          + [k5_entry(max_errs, timings["k5"], {}),
+                             k3_entry(k3_errs, timings["k3"], {})]}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -1694,41 +1793,6 @@ def main() -> int:
         log(f"[few-segment sum] {name}: {n_seg} x {half.rel.shape[0]} x {d_in}: "
             f"one-hot product {t['onehot']:.4f} ms, index_add_ "
             f"{t['index_add']:.4f} ms")
-
-    # K5 at the RGAT path's shape; the library call is one
-    # torch.segment_reduce over the CSR lengths where it gives the plain
-    # version's result (-inf on empty rows), else scatter_reduce_("amax")
-    lg, dd, ip, n_rows = max_cases["wn18rr_h4"]
-    lengths = (ip[1:] - ip[:-1]).long()
-    seg_reduce = lambda: torch.segment_reduce(lg, "max", lengths=lengths,
-                                              axis=0, unsafe=True)
-    want = segment_max_reference(lg, dd, ip, n_rows)
-    if torch.equal(seg_reduce(), want):
-        library, library_name = seg_reduce, "torch.segment_reduce max"
-    else:
-        idx = dd.long()[:, None].expand(-1, lg.shape[1])
-        library, library_name = (lambda: torch.full_like(want, -math.inf)
-                                 .scatter_reduce_(0, idx, lg, "amax"),
-                                 "scatter_reduce_ amax")
-    cut = ip.clone()
-    cut[-1] = graph.inb.e_real
-    t = time_in_turns({
-        "ms": lambda: segment_max(lg, dd, ip, n_rows),
-        "plain_ms": lambda: segment_max_reference(lg, dd, ip, n_rows),
-        "library_ms": library,
-        "ms_without_padding": lambda: segment_max(lg, dd, cut, n_rows),
-    })
-    t["bound_ms"], t["bound_by"] = max_bound(lg.shape[0], lg.shape[1], n_rows)
-    t["library"] = library_name
-    timings["k5_wn18rr_h4"] = t
-    log(f"[K5 time] wn18rr_h4 (E {lg.shape[0]}, H {lg.shape[1]}, rows "
-        f"{n_rows}): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-        f"{library_name} {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} "
-        f"ms ({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of bound; "
-        f"without the {lg.shape[0] - graph.inb.e_real} padding edges "
-        f"{t['ms_without_padding']:.4f} ms")
-    log_profile("K5 at the RGAT path's shape",
-                lambda: segment_max(lg, dd, ip, n_rows), steps=5)
 
     # K4a / K4b at the WN18RR half shape, float32 and bf16 outputs; no one
     # PyTorch call computes either function (no library time)
@@ -2021,7 +2085,8 @@ def main() -> int:
     # backward K1 for edge_compose's d_h and both gather_rows_sorted
     train["rgat"] = timed_steps(trainer_a, launches,
                                 (10, 0, 0, 0, 0, 2, 0, 0, 0),
-                                "rgat + distmult, 1-vs-all", args.seed)
+                                "rgat + distmult, 1-vs-all", args.seed,
+                                kinds=("segment_max_kernel",))
 
     # one kernel step against the same step through the plain versions, from
     # the warm state (non-zero attention bias), with one dropout mask
@@ -2124,20 +2189,7 @@ def main() -> int:
     entries += k2_entries(k2_errs, timings, by_path(1), by_path(2))
     t3 = timings["basis_config3"]
     entries += basis_entries(basis_errs, t3, by_path(3), by_path(4))
-    t5 = timings["k5_wn18rr_h4"]
-    entries.append({
-        "name": "segment_max (K5)", "route": "cuda",
-        "source": "kgc_gcn_torch/csrc/segment_max.cu",
-        "replaces": "kgc_gcn_tpu/ops/spmm_pallas.py:801",
-        "launches": sum(by_path(5).values()),
-        "max_abs_err": max(max_errs.values()),
-        "ms": t5["ms"], "plain_ms": t5["plain_ms"],
-        "bound_ms": t5["bound_ms"], "bound_by": t5["bound_by"],
-        "library_ms": t5["library_ms"], "library": t5["library"],
-        "ms_without_padding": t5["ms_without_padding"],
-        "launches_by_path": by_path(5),
-        "cases": {"max_abs_err": max_errs},
-    })
+    entries.append(k5_entry(max_errs, timings["k5"], by_path(5)))
     entries.append(k3_entry(k3_errs, timings["k3"], by_path(6)))
     tew = timings["ew_wn18rr"]
     for i, (key, fn_name, line) in enumerate((("K4a", "compose_msg", 37),

@@ -103,7 +103,8 @@ def load_kernels(force_build: bool = False) -> KernelLibrary:
     lib.kgc_segment_sum.argtypes = [vp, i32, vp, vp, vp, vp, i32, i32, i32,
                                     vp]
     lib.kgc_segment_sum.restype = i32
-    lib.kgc_segment_max.argtypes = [vp, vp, vp, i32, i32, i32, vp]
+    lib.kgc_segment_max.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32,
+                                    vp]
     lib.kgc_segment_max.restype = i32
     lib.kgc_fused_bce_loss_smem.argtypes = [i32]
     lib.kgc_fused_bce_loss_smem.restype = i32

@@ -26,7 +26,9 @@ from kgc_gcn_torch.ops.fused_loss import (
     dense_grads, dense_grads_reference, dense_loss, dense_loss_reference,
     grads_schedule, loss_schedule)
 from kgc_gcn_torch.ops.kernels import PLAIN
-from kgc_gcn_torch.ops.segment_max import segment_max, segment_max_reference
+from kgc_gcn_torch.ops.segment_max import (
+    SEGMENT_MAX_CHUNK, SEGMENT_MAX_LIMIT, arrival_counters, segment_max,
+    segment_max_reference)
 from kgc_gcn_torch.ops.segment_sum import segment_sum, segment_sum_reference
 
 # Exact: the messages are multiples of 2**-8 below 2 in magnitude (also after
@@ -641,6 +643,99 @@ def test_segment_max_kernel_matches_plain(cuda, case):
                                equal_nan=case == "nan")
     if case == "nan":
         assert int(torch.isnan(got).sum()) == 3
+
+
+def k5_layouts():
+    """Per-row counts where K5's rules are tight, at its own chunk C and
+    limit L: rows of exactly C and C+1 edges and of L and L+1, a hub of many
+    pieces, runs of empty rows across a chunk boundary, empty first and last
+    rows; and the power-law in-degrees at FB15k-237's counts (272,115 edges
+    over 14,541 rows, row ~ rank**-1.1, a row of tens of thousands)."""
+    c, lim = SEGMENT_MAX_CHUNK, SEGMENT_MAX_LIMIT
+    rng = np.random.default_rng(1)
+    n_fb, e_fb = 14541, 272115
+    rank_w = (rng.permutation(n_fb) + 1.0) ** -1.1
+    power = np.bincount(rng.choice(n_fb, size=e_fb, p=rank_w / rank_w.sum()),
+                        minlength=n_fb)
+    return {"bounds": [0, c, c + 1, 0, 0, lim, lim + 1, 1, c - 1, 0, 2,
+                       lim - 1, 0],
+            "hub_pieces": [0, 3, 9 * c + 17, 1, 0, 0, 5, 4 * lim, 0],
+            "empty_runs": [0] * 5 + [c - 3] + [0] * 40 + [7] + [0] * 9,
+            "powerlaw": power}
+
+
+def k5_on_card(counts, h: int, cuda, lead: int = 0, cut: int = 0,
+               offset: int = 0, seed: int = 7):
+    """K5's operands on the card with ``lead`` edges before indptr[0] and
+    ``cut`` after indptr[-1] (rows 0 and N-1 in dst, in no row's range),
+    logits ``offset`` floats into their buffer; and the plain version's
+    result over the rows' edges."""
+    logits, dst, indptr = max_case(counts, h, seed)
+    n_rows = len(indptr) - 1
+    rng = np.random.default_rng(seed + 1)
+    logits = np.concatenate([rng.normal(size=(lead, h)), logits,
+                             rng.normal(size=(cut, h))]).astype(np.float32)
+    dst = np.concatenate([np.zeros(lead), dst,
+                          np.full(cut, n_rows - 1)]).astype(np.int32)
+    indptr = (indptr + lead).astype(np.int32)
+    lg = _on_card_at(torch.from_numpy(logits), offset, cuda)
+    dd, ip = torch.from_numpy(dst).to(cuda), torch.from_numpy(indptr).to(cuda)
+    a, b = lead, lead + int(indptr[-1] - indptr[0])
+    want = segment_max_reference(lg[a:b], dd[a:b], ip, n_rows)
+    return lg, dd, ip, n_rows, want
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [1, 4, 5, 40])
+@pytest.mark.parametrize("name", sorted(k5_layouts()))
+def test_segment_max_kernel_on_tight_layouts(cuda, name, h):
+    """K5 equals its plain version bit for bit on the layouts where its
+    chunk, owner, limit and piece rules are tight, also with edges outside
+    [indptr[0], indptr[-1]); one launch a call, two calls bit-identical."""
+    counts = k5_layouts()[name]
+    for lead, cut in ((0, 0), (SEGMENT_MAX_CHUNK + 3, 50)):
+        lg, dd, ip, n_rows, want = k5_on_card(counts, h, cuda, lead, cut)
+        before = segment_max.launches
+        got = segment_max(lg, dd, ip, n_rows)
+        torch.cuda.synchronize()
+        assert segment_max.launches == before + 1
+        torch.testing.assert_close(got, want, rtol=0.0, atol=0.0)
+        assert torch.equal(bits(got), bits(segment_max(lg, dd, ip, n_rows)))
+
+
+@pytest.mark.cuda
+def test_segment_max_takes_a_misaligned_base(cuda):
+    """Logits 4 bytes into their buffer (no float4 loads) at H 4 and H 40,
+    on the hub layout: bit-equal to the plain version."""
+    for h in (4, 40):
+        lg, dd, ip, n_rows, want = k5_on_card(k5_layouts()["hub_pieces"], h,
+                                              cuda, offset=1)
+        assert lg.data_ptr() % 16
+        torch.testing.assert_close(segment_max(lg, dd, ip, n_rows), want,
+                                   rtol=0.0, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_segment_max_counters_reset_across_calls(cuda):
+    """Back-to-back calls on one stream whose row counts grow and shrink
+    (the hub rows' arrival counters are grown, never shrunk, and each call
+    leaves them at 0): every call bit-equal to the plain version."""
+    layouts = k5_layouts()
+    seq = ["hub_pieces", "powerlaw", "bounds", "hub_pieces", "powerlaw",
+           "empty_runs", "powerlaw"]
+    cases = {name: k5_on_card(layouts[name], 4, cuda, seed=3)
+             for name in set(seq)}
+    outs = [(name, segment_max(*cases[name][:4])) for name in seq]
+    torch.cuda.synchronize()
+    for name, got in outs:
+        torch.testing.assert_close(got, cases[name][4], rtol=0.0, atol=0.0)
+    device = cases["powerlaw"][0].device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    assert not arrival_counters(device, stream, 0).any()
 
 
 @pytest.mark.cuda
