@@ -75,13 +75,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      same step through the plain versions; then one CLI epoch with
      --use_pallas --spmm_mode stacked, its checkpoint served through the CLI
      (--do_test, --do_predict) and its kernel encode held against the plain
-     encode.
+     encode;
+ 12. the model surface: (a) MGCN + ConvE at the WN18RR preset's widths with
+     2 layers (100 -> 200 -> 200) and the corr composition on the corpus of
+     phase 5: 50 timed steps (K1 8 a step), one kernel step against the
+     plain step, one CLI epoch (--num_layers 2 --composition corr), its
+     checkpoint served through the CLI with --do_test --per_relation
+     (per_relation.json checked against the corpus metrics) and
+     --do_predict, and its kernel encode held against the plain encode;
+     (b) the decoders at their presets' widths, 10 timed steps each and one
+     kernel step against the plain step: MGCN + ComplEx on the fused loss
+     (K1 4, K2a 1, K2b 1), MGCN + TransE and + RotatE (dense loss, K1 4) on
+     the corpus of phase 5, R-GCN config 3 with ComplEx and with RotatE on
+     negatives (K1 2, K7 2, K8 2) on the corpus of phase 7; (c) BASELINE
+     config 4, MGCN + ConvE at the WN18RR preset on K = E/8 sampled edges
+     per half (bench.py's sampled mode): 50 timed steps (no kernel: the
+     sample is summed by index_add_), one CLI epoch (--edge_sample_size),
+     whose full-graph validation launches K1, its checkpoint served through
+     the CLI and its kernel encode held against the plain encode.
 K1, K3, K7 and K8 checks use dyadic inputs, whose float32 sums are exact in
 any order, so kernel and plain version must agree to the bit; K5
 (segment-max, phase 3: the RGAT path's shape and edge cases), K4a and K4b
 (products in the plain version's order) are exact on any input.
 The line before the last is {"kernels": [...]}; the last is
-{"ok": true, "device": {...}}.  Nothing of JAX is imported.
+{"ok": true, "device": {...}}.  Before them a line gives the card, its
+power limit and the wall seconds of the whole script and of phase 12.
+Nothing of JAX is imported.
 
 --kernels-only runs phases 1-3 and the time rows of K1, K2a, K7 and K3 (each
 with its two passes' device times), K2b, K8 and K5, then prints their entries and
@@ -1030,28 +1049,30 @@ class Launches:
 
 
 def timed_steps(trainer, launches: Launches, per_step, what: str,
-                seed: int, kinds=()) -> dict:
-    """3 set-up steps of ``trainer``'s epoch, then TIMED_STEPS warm ones
-    (steps/s, edges/s, peak memory, mean loss), each of which must launch
-    ``per_step`` kernels; then a profile (with the device µs of the kernels
-    named by ``kinds``) and the host phases of one step."""
+                seed: int, kinds=(), steps: int = 0) -> dict:
+    """3 set-up steps of ``trainer``'s epoch, then ``steps`` (default
+    TIMED_STEPS) warm ones (steps/s, edges/s, peak memory, mean loss), each
+    of which must launch ``per_step`` kernels; then a profile (with the
+    device µs of the kernels named by ``kinds``) and the host phases of one
+    step."""
     from kgc_gcn_torch.train import optim
+    steps = steps or TIMED_STEPS
     host_rng = np.random.default_rng(seed)
     trainer.train_epoch(1, host_rng, max_steps=3)      # one-time set-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     launches.zero()
     t0 = time.perf_counter()
-    loss = trainer.train_epoch(1, host_rng, max_steps=TIMED_STEPS)
+    loss = trainer.train_epoch(1, host_rng, max_steps=steps)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     got = launches.read()
     peak = torch.cuda.max_memory_allocated()
-    want = tuple(TIMED_STEPS * c for c in per_step)
+    want = tuple(steps * c for c in per_step)
     if got != want or not math.isfinite(loss):
         raise AssertionError(f"{what}: launches {Launches.show(got)}; want "
                              f"{Launches.show(want)}; loss {loss}")
-    sps = TIMED_STEPS / dt
+    sps = steps / dt
     b, device = trainer.cfg.batch_size, trainer.device
     batch = trainer.batch(torch.arange(b, device=device),
                           torch.ones(b, device=device))
@@ -1063,7 +1084,7 @@ def timed_steps(trainer, launches: Launches, per_step, what: str,
     log(f"[train] {what} step phases (host ms, each ended by a sync): "
         + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
     n_msgs = trainer.graph.num_messages
-    log(f"[train] {what}: {TIMED_STEPS} warm steps in {dt:.3f} s = "
+    log(f"[train] {what}: {steps} warm steps in {dt:.3f} s = "
         f"{sps:.2f} steps/s, {sps * n_msgs:.4g} edges/s (2E+N = {n_msgs}); "
         f"mean loss {loss:.6f}; launches per step "
         + ", ".join(f"{k} {c}" for k, c in zip(Launches.NAMES, per_step) if c)
@@ -1072,7 +1093,7 @@ def timed_steps(trainer, launches: Launches, per_step, what: str,
     return {"steps_per_s": sps, "edges_per_s": sps * n_msgs,
             "peak_bytes": peak, "loss": loss, **prof, "phases_ms": phases,
             "launches_per_step": dict(zip(Launches.NAMES,
-                                          (c / TIMED_STEPS for c in got)))}
+                                          (c / steps for c in got)))}
 
 
 class KinkReplay:
@@ -1318,6 +1339,53 @@ def served_encode(run_dir: str, ds, graph, banks, queries, logged: dict,
     return rec
 
 
+def check_per_relation(path: str, run_dir: str, ds, graph, banks,
+                       logged: dict) -> None:
+    """The ``--do_test --per_relation`` file of the checkpoint in
+    ``run_dir``: one row per relation whose counts add up to the test
+    queries and whose values are the per-relation table of the same
+    checkpoint (rounded to 5 digits); the table's count-weighted MRR equals
+    the corpus MRR (the tail and head sums over all queries) to 1e-6; the
+    test metrics the CLI logged are the table's corpus metrics."""
+    from kgc_gcn_torch.config import Config
+    from kgc_gcn_torch.models import build_model
+    from kgc_gcn_torch.ops.ranking import corpus_from_per_rel
+    from kgc_gcn_torch.train.checkpoint import load_checkpoint
+    from kgc_gcn_torch.train.loop import _bank_sums, evaluate_per_relation
+    with open(path) as f:
+        rows = json.load(f)
+    cfg = Config.from_json(os.path.join(run_dir, "params.json"))
+    model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge)
+    model.load_state_dict(load_checkpoint(run_dir, cfg)[0])
+    model = model.to(graph.device).eval()
+    per = evaluate_per_relation(cfg, model, graph, banks, "test")
+    count = per["count"]
+    weighted = float(np.nansum(per["mrr"] * count) / count.sum())
+    with torch.no_grad():
+        all_ent, all_rel = model.encode(graph)
+        sums = [_bank_sums(model, all_ent, all_rel, banks[f"test_{d}"],
+                           cfg.batch_size) for d in ("tail", "head")]
+    exact = (sums[0]["mrr"] + sums[1]["mrr"]) / (2 * sums[0]["count"])
+    n_test = len(ds.test_triples)
+    if not (len(rows) == ds.num_relation
+            and sum(r["count"] for r in rows) == n_test == int(count.sum())
+            and all(r["count"] == int(c) for r, c in zip(rows, count))
+            and all((r["mrr"] is None) == (c == 0) for r, c in zip(rows, count))
+            and all(abs(r["mrr"] - float(per["mrr"][i])) <= 5e-6 + 1e-9
+                    for i, r in enumerate(rows) if r["mrr"] is not None)
+            and abs(weighted - exact) <= 1e-6
+            and all(abs(logged[k] - v) <= 5e-4 + 1e-9
+                    for k, v in corpus_from_per_rel(per).items())):
+        raise AssertionError(f"per_relation.json: {len(rows)} rows, counts "
+                             f"{[r['count'] for r in rows]} of {n_test}; "
+                             f"weighted MRR {weighted} vs {exact}; logged "
+                             f"{logged}")
+    log(f"[serve] per_relation.json: {len(rows)} relations, counts add up to "
+        f"the {n_test} test queries; count-weighted MRR {weighted:.9f} vs "
+        f"the corpus MRR {exact:.9f} (|diff| {abs(weighted - exact):.3g}, tol "
+        "1e-6); the logged test metrics are the table's")
+
+
 # ------------------------------------------------------------------- phases
 
 def main() -> int:
@@ -1327,6 +1395,7 @@ def main() -> int:
                     help="phases 1-3 and the K1, K2, K7, K8, K5 and K3 time "
                     "rows only")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     # 1. device ---------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2057,12 +2126,14 @@ def main() -> int:
     rgcn_serve_launches, metrics3 = cli_serve(
         serve_base, qfile3, len(test3), ds_cli.entity2id, launches,
         (0, 0, 0, 4, 0, 0, 0, 0, 0), "rgcn")
+    graph_cli, banks_cli = graph3, banks3
     if cli_root != fb_root:
-        graph3 = build_graph(ds_cli.train_triples, ds_cli.num_entity,
-                             ds_cli.num_relation).to(device)
-        banks3 = make_banks(ds_cli, device)
-    served_encode(run3, ds_cli, graph3, banks3, test3[:128], metrics3, "rgcn")
-    del graph3, banks3
+        graph_cli = build_graph(ds_cli.train_triples, ds_cli.num_entity,
+                                ds_cli.num_relation).to(device)
+        banks_cli = make_banks(ds_cli, device)
+    served_encode(run3, ds_cli, graph_cli, banks_cli, test3[:128], metrics3,
+                  "rgcn")
+    del graph_cli, banks_cli
     torch.cuda.empty_cache()
 
     # 9. RGAT training (bench.py's rgat_pallas) ---------------------------------
@@ -2177,6 +2248,151 @@ def main() -> int:
         (0, 0, 0, 0, 0, 0, 2, 0, 0), "mgcn stacked")
     serve_stacked = served_encode(run_s, ds, graph, banks, test[:128],
                                   metrics_s, "mgcn stacked")
+
+    # 12. the model surface --------------------------------------------------------
+    t12 = time.perf_counter()
+    preset_flags = []
+    for flag in ("learning_rate", "gcn_drop", "feat_drop", "hidden_drop"):
+        preset_flags += [f"--{flag}", str(getattr(cfg0, flag))]
+
+    # 12a. MGCN + ConvE at the WN18RR preset's widths, 2 layers (100 -> 200,
+    # 200 -> 200), corr composition, on the corpus of phase 5.  The preset's
+    # use_pallas refuses sub and corr in both packages; the CLI's preset
+    # yields it, as the JAX CLI's does.  Per layer and half: K1 forward (dst
+    # order) and backward d_x (src order); d_rel is an index_add_ below the
+    # one-hot limit
+    cfg_c = dataset_preset("WN18RR", seed=args.seed, num_layers=2,
+                           composition="corr", use_pallas=False)
+    model_c = build_model(cfg_c, ds.num_entity, ds.num_relation, ds.num_edge,
+                          e_pad=graph.e_pad,
+                          generator=torch.Generator().manual_seed(args.seed)
+                          ).to(device)
+    trainer_c = Trainer(cfg_c, model_c, graph, banks)
+    log(f"[surface] mgcn depth: {cfg_c.num_layers} layers "
+        f"({cfg_c.gcn_in_dim} -> {cfg_c.gcn_out_dim} -> {cfg_c.gcn_out_dim}),"
+        f" composition {cfg_c.composition}, decoder {cfg_c.decoder}, "
+        f"loss_impl {cfg_c.loss_impl} = {trainer_c.loss_impl}, batch "
+        f"{cfg_c.batch_size}, {cfg_c.compute_dtype}; "
+        f"{sum(p.numel() for p in model_c.parameters())} parameters")
+    per_c = (8, 0, 0, 0, 0, 0, 0, 0, 0)
+    train["mgcn_depth_corr"] = timed_steps(
+        trainer_c, launches, per_c, "mgcn 2 layers corr", args.seed)
+    paths["mgcn_depth_corr_steps"] = tuple(TIMED_STEPS * c for c in per_c)
+    idx = torch.randperm(bank.n_queries, generator=gen)[:cfg_c.batch_size]
+    same_step(trainer_c,
+              trainer_c.batch(idx.to(device),
+                              torch.ones(cfg_c.batch_size, device=device)),
+              args.seed + 7, launches, per_c, "mgcn 2 layers corr",
+              degenerate=DEGENERATE)
+    del trainer_c, model_c
+    torch.cuda.empty_cache()
+    exp_c = os.path.join(work.name, "experiments_depth")
+    run_c = os.path.join(exp_c, "SYN")
+    flags_c = ["--num_layers", "2", "--composition", "corr"]
+    paths["mgcn_depth_train"], ep = cli_epoch(
+        ["--dataset", "SYN", "--data_dir", corpus_root, "--experiments_dir",
+         exp_c, "--do_train", "--max_epoch", "1", "--eval_every", "1",
+         "--seed", str(args.seed)] + flags_c + preset_flags,
+        run_c, launches, (8 * steps_per_epoch + 4, 0, 0, 0, 0, 0, 0, 0, 0),
+        f"cli {' '.join(flags_c)} --max_epoch 1 ({steps_per_epoch} steps)")
+    train["mgcn_depth_corr"]["cli_epoch_s"] = ep["sec"]
+    serve_c = os.path.join(work.name, "serve_depth")
+    paths["mgcn_depth_serve"], metrics_c = cli_serve(
+        ["--dataset", "SYN", "--data_dir", corpus_root, "--restore_dir", run_c,
+         "--experiments_dir", serve_c, "--per_relation"],
+        qfile, len(test), ds.entity2id, launches,
+        (8, 0, 0, 0, 0, 0, 0, 0, 0), "mgcn depth corr (--per_relation)")
+    check_per_relation(os.path.join(serve_c, "SYN", "per_relation.json"),
+                       run_c, ds, graph, banks, metrics_c)
+    served_encode(run_c, ds, graph, banks, test[:128], metrics_c,
+                  "mgcn depth corr")
+
+    # 12b. the decoders at their presets' full widths: MGCN + ComplEx on the
+    # fused loss (K2a / K2b), MGCN + TransE and RotatE (no trunk: the dense
+    # loss) on the corpus of phase 5; R-GCN config 3 with ComplEx and
+    # RotatE on negatives (K = 64) on the corpus of phase 7
+    surface_steps = min(10, TIMED_STEPS)
+    for name, cfg_d, g_, b_, per_d in (
+            ("mgcn + complex, fused",
+             dataset_preset("WN18RR", seed=args.seed, decoder="complex",
+                            loss_impl="fused"), graph, banks,
+             (4, 1, 1, 0, 0, 0, 0, 0, 0)),
+            ("mgcn + transe", dataset_preset("WN18RR", seed=args.seed,
+                                             decoder="transe"),
+             graph, banks, (4, 0, 0, 0, 0, 0, 0, 0, 0)),
+            ("mgcn + rotate", dataset_preset("WN18RR", seed=args.seed,
+                                             decoder="rotate"),
+             graph, banks, (4, 0, 0, 0, 0, 0, 0, 0, 0)),
+            ("rgcn + complex, negative sampling",
+             cfg3.replace(decoder="complex"), graph3, banks3,
+             (2, 0, 0, 2, 2, 0, 0, 0, 0)),
+            ("rgcn + rotate, negative sampling",
+             cfg3.replace(decoder="rotate"), graph3, banks3,
+             (2, 0, 0, 2, 2, 0, 0, 0, 0))):
+        n_ent_d = g_.n_ent
+        model_d = build_model(cfg_d, n_ent_d, g_.n_rel, g_.n_edge,
+                              e_pad=g_.e_pad,
+                              generator=torch.Generator().manual_seed(
+                                  args.seed)).to(device)
+        trainer_d = (NegativeSamplingTrainer
+                     if cfg_d.train_mode == "negative_sampling"
+                     else Trainer)(cfg_d, model_d, g_, b_)
+        loss_d = (cfg_d.neg_loss if cfg_d.train_mode == "negative_sampling"
+                  else trainer_d.loss_impl)
+        log(f"[surface] {name}: d_in {cfg_d.gcn_in_dim}, d_out "
+            f"{cfg_d.gcn_out_dim}, loss {loss_d}, batch "
+            f"{cfg_d.batch_size}, {cfg_d.compute_dtype}; "
+            f"{sum(p.numel() for p in model_d.parameters())} parameters")
+        train[name] = timed_steps(
+            trainer_d, launches, per_d, name, args.seed,
+            kinds=K2A_PASSES if per_d[1] else (), steps=surface_steps)
+        paths[f"{name} steps"] = tuple(surface_steps * c for c in per_d)
+        idx = torch.randperm(trainer_d.n_train, generator=gen)[
+            :cfg_d.batch_size]
+        same_step(trainer_d,
+                  trainer_d.batch(idx.to(device),
+                                  torch.ones(cfg_d.batch_size, device=device)),
+                  args.seed + 7, launches, per_d, name)
+        del trainer_d, model_d
+        torch.cuda.empty_cache()
+    del graph3, banks3
+
+    # 12c. BASELINE config 4: MGCN + ConvE at the WN18RR preset on sampled
+    # edges, K = E/8 per half (bench.py's sampled mode): the steps launch no
+    # kernel (an unsorted index_add_ of the sample); the full-graph
+    # evaluation launches K1 once per half
+    k_sample = ds.num_edge // 8
+    cfg_s4 = dataset_preset("WN18RR", seed=args.seed,
+                            edge_sample_size=k_sample)
+    model_s4 = build_model(cfg_s4, ds.num_entity, ds.num_relation, ds.num_edge,
+                           e_pad=graph.e_pad,
+                           generator=torch.Generator().manual_seed(args.seed)
+                           ).to(device)
+    trainer_s4 = Trainer(cfg_s4, model_s4, graph, banks)
+    train["mgcn_sampled"] = timed_steps(
+        trainer_s4, launches, (0,) * 9,
+        f"mgcn sampled K={k_sample} (E/8) per half", args.seed)
+    del trainer_s4, model_s4
+    torch.cuda.empty_cache()
+    exp_s4 = os.path.join(work.name, "experiments_sampled")
+    run_s4 = os.path.join(exp_s4, "SYN")
+    flags_s4 = ["--edge_sample_size", str(k_sample)]
+    paths["mgcn_sampled_train"], ep = cli_epoch(
+        ["--dataset", "SYN", "--data_dir", corpus_root, "--experiments_dir",
+         exp_s4, "--do_train", "--max_epoch", "1", "--eval_every", "1",
+         "--seed", str(args.seed)] + flags_s4 + preset_flags,
+        run_s4, launches, (2, 0, 0, 0, 0, 0, 0, 0, 0),
+        f"cli {' '.join(flags_s4)} --max_epoch 1 ({steps_per_epoch} steps)")
+    train["mgcn_sampled"]["cli_epoch_s"] = ep["sec"]
+    paths["mgcn_sampled_serve"], metrics_s4 = cli_serve(
+        ["--dataset", "SYN", "--data_dir", corpus_root, "--restore_dir",
+         run_s4, "--experiments_dir", os.path.join(work.name, "serve_sampled")],
+        qfile, len(test), ds.entity2id, launches,
+        (4, 0, 0, 0, 0, 0, 0, 0, 0), "mgcn sampled")
+    served_encode(run_s4, ds, graph, banks, test[:128], metrics_s4,
+                  "mgcn sampled")
+    phase12_s = time.perf_counter() - t12
+    log(f"[surface] phase 12 (model surface) {phase12_s:.1f} s")
     work.cleanup()
 
     paths.update({"mgcn_train": train_launches, "mgcn_serve": serve_launches,
@@ -2209,6 +2425,8 @@ def main() -> int:
             "launches_by_path": by_path(7 + i),
             "cases": {"max_abs_err": ew_errs[key]},
         })
+    log(f"[smoke] {torch.cuda.get_device_name(0)}; {smi}; whole script "
+        f"{time.perf_counter() - t_start:.1f} s, phase 12 {phase12_s:.1f} s")
     log(json.dumps({"training": train, "serve_rgat": serve_rgat,
                     "serve_mgcn_stacked": serve_stacked, "few_sum": {
                         k: v for k, v in timings.items()

@@ -11,31 +11,39 @@
         --restore_dir experiments/Toy
 
 Every flag of the JAX CLI (and so of the reference driver, main.py:18-46) is
-accepted with the same name and default.  ``--do_train`` trains MGCN + ConvE,
-basis R-GCN + DistMult (``--model rgcn --decoder distmult``) or RGAT +
-DistMult (``--model rgat --decoder distmult --num_heads H``), 1-vs-all or
-on sampled negatives (``--train_mode negative_sampling``), and writes
-``params.json``, ``train.log``, ``metrics.jsonl`` and, on every validation
-improvement, ``last.ckpt`` under
+accepted with the same name and default.  ``--do_train`` trains MGCN, basis
+R-GCN (``--model rgcn``) or RGAT (``--model rgat --num_heads H``) with any
+decoder (``--decoder conve|distmult|transe|complex|rotate``); MGCN also at
+depth (``--num_layers``), with the ``sub`` and ``corr`` compositions
+(``--composition``) and on sampled edges (``--edge_sample_size K``).  It
+trains 1-vs-all or on sampled negatives (``--train_mode
+negative_sampling``), and writes ``params.json``, ``train.log``,
+``metrics.jsonl`` and, on every validation improvement, ``last.ckpt`` under
 ``<experiments_dir>/<dataset>``; with ``--restore_dir`` it resumes from that
-checkpoint, optimizer state included.  ``--do_test`` and ``--do_predict``
-serve a checkpoint that either package wrote (``--restore_dir``, whose
-``params.json`` supplies the model-shape flags).  ``--device`` (default
-``cuda``) picks the card or, when asked for, the CPU.  ``--spmm_mode`` picks
-MGCN's aggregation schedule (``ew_impl``, as in the JAX CLI, has no flag: it
-is a ``Config`` field).  The flags that steer only the JAX package's TPU
-schedules (``--prng_impl``, ``--compile_cache_dir``, ``--bwd_perm``,
-``--rel_compose``, ``--remat``, ``--no_scan_epoch``, ``--use_pallas``,
-``--no_use_pallas``) are accepted and have no effect.
+checkpoint, optimizer state included, and ``--init_embeddings`` warm-starts
+the embedding tables from an ``.npz`` first.  ``--do_test`` and
+``--do_predict`` serve a checkpoint that either package wrote
+(``--restore_dir``, whose ``params.json`` supplies the model-shape flags);
+``--do_test --per_relation`` also writes ``per_relation.json``.
+``--device`` (default ``cuda``) picks the card or, when asked for, the CPU.
+``--spmm_mode`` picks MGCN's aggregation schedule (``ew_impl``, as in the
+JAX CLI, has no flag: it is a ``Config`` field).  The flags that steer only
+the JAX package's TPU schedules (``--prng_impl``, ``--compile_cache_dir``,
+``--bwd_perm``, ``--rel_compose``, ``--remat``, ``--no_scan_epoch``,
+``--use_pallas``, ``--no_use_pallas``) are accepted and have no effect,
+except that ``sub``/``corr`` are refused with an explicit ``--use_pallas``
+or with ``--edge_sample_size``, as in the JAX CLI.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import sys
 
+import numpy as np
 import torch
 
 from kgc_gcn_torch.config import Config, dataset_preset
@@ -43,9 +51,12 @@ from kgc_gcn_torch.data.batching import make_banks
 from kgc_gcn_torch.data.dataset import load_dataset
 from kgc_gcn_torch.data.graph import build_graph
 from kgc_gcn_torch.models import build_model
+from kgc_gcn_torch.models.common import init_embeddings_from_npz
+from kgc_gcn_torch.ops.ranking import corpus_from_per_rel
 from kgc_gcn_torch.serve import Predictor, serve_file, serve_stream
 from kgc_gcn_torch.train.checkpoint import load_checkpoint
-from kgc_gcn_torch.train.loop import Trainer, evaluate, train_and_evaluate
+from kgc_gcn_torch.train.loop import (
+    Trainer, evaluate, evaluate_per_relation, log_metrics, train_and_evaluate)
 from kgc_gcn_torch.train.negative import NegativeSamplingTrainer
 from kgc_gcn_torch.utils.device import resolve_device
 from kgc_gcn_torch.utils.logging import set_logger
@@ -202,18 +213,26 @@ def config_from_args(args: argparse.Namespace) -> Config:
             for field in shape_fields:
                 if field not in overrides:   # explicit flags still win
                     overrides[field] = getattr(saved, field)
-    return cfg.replace(**overrides)
+    cfg = cfg.replace(**overrides)
+
+    # a PRESET-sourced use_pallas yields to the flags that the JAX package's
+    # kernels cannot serve, as in its CLI (cli.py:245-258; the others there
+    # are refused here anyway); an explicit --use_pallas still conflicts
+    # (models/mgcn.py:check_config raises)
+    if cfg.use_pallas and "use_pallas" not in overrides and (
+            cfg.composition != "mult" or cfg.edge_sample_size > 0):
+        logging.info("preset use_pallas yields to a kernel-incompatible "
+                     "flag")
+        cfg = cfg.replace(use_pallas=False)
+    return cfg
 
 
 def _check_ported(cfg: Config, args: argparse.Namespace) -> None:
     """Raise on what the port cannot run yet (ROADMAP.md §1)."""
     unported = [
         ("--restore_torch", cfg.restore_torch is not None, 5),
-        ("--init_embeddings", args.init_embeddings is not None, 4),
-        ("--per_relation", args.per_relation, 4),
         ("--partition", cfg.partition != "contiguous", 8),
         ("--data_axis/--graph_axis", cfg.data_axis * cfg.graph_axis > 1, 8),
-        ("--edge_sample_size", cfg.edge_sample_size > 0, 4),
         ("--ckpt_every (orbax async checkpoints)", cfg.ckpt_every > 0, 9),
         ("--profile_dir", args.profile_dir is not None, 9),
     ]
@@ -222,6 +241,32 @@ def _check_ported(cfg: Config, args: argparse.Namespace) -> None:
             raise NotImplementedError(
                 f"{flag} is not ported to kgc_gcn_torch yet "
                 f"(ROADMAP.md §1 item {item})")
+
+
+def write_per_relation(cfg: Config, model, graph, banks, relation2id,
+                       num_relation: int, model_dir: str) -> None:
+    """``--do_test --per_relation`` (``kgc_gcn_tpu/cli.py:424-452``): ONE
+    ranking pass gives the per-relation table, written to
+    ``<model_dir>/per_relation.json``, and the corpus metrics, logged as
+    the test metrics (their count-weighted mean is exact); the five worst
+    and best relations by MRR are logged."""
+    per = evaluate_per_relation(cfg, model, graph, banks, "test")
+    log_metrics("Test", corpus_from_per_rel(per))
+    id2rel = {i: r for r, i in relation2id.items() if i < num_relation}
+    rows = [{"relation": id2rel[i], "count": int(per["count"][i]),
+             **{k: (None if np.isnan(v[i]) else round(float(v[i]), 5))
+                for k, v in per.items() if k != "count"}}
+            for i in range(num_relation)]
+    with open(os.path.join(model_dir, "per_relation.json"), "w") as f:
+        json.dump(rows, f, indent=2)
+    ranked = sorted((r for r in rows if r["count"]), key=lambda r: r["mrr"])
+    worst = ranked[:5]
+    best = [r for r in ranked[-5:] if r not in worst]
+    for tag, sel in (("worst", worst), ("best", best)):
+        for r in sel:
+            logging.info("- per-relation (%s): %s  mrr=%.3f hits@10=%.3f n=%d",
+                         tag, r["relation"], r["mrr"], r["hits@10"],
+                         r["count"])
 
 
 def main(argv=None) -> int:
@@ -250,6 +295,11 @@ def main(argv=None) -> int:
     banks = make_banks(ds, device)
     model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
                         e_pad=graph.e_pad)
+    if args.init_embeddings:
+        # after init and before any restore, as in the JAX CLI
+        init_embeddings_from_npz(model, args.init_embeddings)
+        logging.info("Initialized embedding tables from %s",
+                     args.init_embeddings)
     best, opt_state = 0.0, None
     if cfg.restore_dir is not None:
         state_dict, best, *opt = load_checkpoint(
@@ -273,7 +323,10 @@ def main(argv=None) -> int:
                      cfg.decoder, cfg.train_mode, trainer.loss_impl, device)
         best = train_and_evaluate(trainer, model_dir, best,
                                   seed=cfg.seed % 2**32)
-    if cfg.do_test:
+    if cfg.do_test and args.per_relation:
+        write_per_relation(cfg, model, graph, banks, ds.relation2id,
+                           ds.num_relation, model_dir)
+    elif cfg.do_test:
         evaluate(cfg, model, graph, banks, "test", mark="Test")
     if args.do_predict:
         predictor = Predictor(cfg, model, graph, ds.entity2id, ds.relation2id)

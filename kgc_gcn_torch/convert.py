@@ -2,11 +2,12 @@
 
 The port keeps the JAX parameter layout and names, so a JAX ``MGCNParams`` /
 ``MGCNState`` pair maps onto ``models.mgcn.MGCN``, an ``RGCNParams`` onto
-``models.rgcn.RGCN`` and an ``RGATParams`` onto ``models.rgat.RGAT``, by name
-alone, with no transposes.  Leaves travel
+``models.rgcn.RGCN`` and an ``RGATParams`` onto ``models.rgat.RGAT``, with
+any decoder, by name alone, with no transposes.  Leaves travel
 as numpy arrays keyed by their dotted JAX paths (``entity_embedding``,
-``conv.in_weight``, ``decoder.bn0.scale``, ``layers.0.basis``;
-``conv_bn.mean``, ``decoder.bn1.var`` for the state).  The optimizer state
+``conv.in_weight``, ``decoder.bn0.scale``, ``layers.0.basis``,
+``extra_convs.0.in_weight``, ``extra_edge_embeddings.0``; ``conv_bn.mean``,
+``decoder.bn1.var``, ``extra_bn.0.var`` for the state).  The optimizer state
 follows the parameters' order (``opt_state_leaves``).
 """
 
@@ -21,38 +22,65 @@ from kgc_gcn_torch.config import Config
 from kgc_gcn_torch.train.optim import AdamState, moment_dtype
 
 
+def _bn(prefix: str, leaves=("scale", "bias")) -> List[str]:
+    return [f"{prefix}.{x}" for x in leaves]
+
+
+_STATS = ("mean", "var")
+_CONV = ("in_weight", "out_weight", "loop_weight", "rels_weight", "loop_rel",
+         "loop_edge")
+
+
+def _decoder_leaf_names(cfg: Config) -> Tuple[List[str], List[str]]:
+    """The decoder's parameters and state: ConvE's BatchNorms, filters and
+    fc layer, or the entity bias alone (DistMult, TransE, ComplEx, RotatE,
+    whose state has no leaves)."""
+    if cfg.decoder != "conve":
+        return ["decoder.ent_bias"], []
+    params = (_bn("decoder.bn0") + ["decoder.conv_w"]
+              + (["decoder.conv_b"] if cfg.bias else [])
+              + _bn("decoder.bn1") + ["decoder.fc_w", "decoder.fc_b"]
+              + _bn("decoder.bn2") + ["decoder.ent_bias"])
+    state = [n for k in range(3) for n in _bn(f"decoder.bn{k}", _STATS)]
+    return params, state
+
+
 def jax_leaf_names(cfg: Config) -> Tuple[List[str], List[str]]:
     """Dotted paths of the JAX model's parameters and of its state, each in
     the order ``jax.tree.flatten`` lists them (dataclass field order; the
-    ``None`` leaves, such as RGCN's ``blocks`` in basis mode, drop out).
-    MGCN+ConvE, and RGCN+DistMult and RGAT+DistMult (which have no state)."""
+    ``None`` leaves, such as RGCN's ``blocks`` in basis mode or MGCN's conv
+    ``bias``, drop out), for every family and decoder."""
+    dec_params, dec_state = _decoder_leaf_names(cfg)
+    depth = max(1, cfg.num_layers)
     layer_leaves = {"rgcn": ("basis", "coeff", "self_weight"),
                     "rgat": ("weight", "rel_mult", "att_src", "att_dst",
                              "rel_bias", "self_weight")}.get(cfg.model)
     if layer_leaves:
-        layers = [f"layers.{i}.{w}" for i in range(max(1, cfg.num_layers))
+        layers = [f"layers.{i}.{w}" for i in range(depth)
                   for w in layer_leaves]
         return (["entity_embedding", "relation_embedding"] + layers
-                + ["decoder.ent_bias"]), []
-    bn = lambda p, leaves=("scale", "bias"): [f"{p}.{x}" for x in leaves]
+                + dec_params), dec_state
+    conv = lambda p: [f"{p}.{w}" for w in _CONV] + _bn(f"{p}.bn")
+    extra = range(depth - 1)
     params = (["entity_embedding", "relation_embedding", "edge_embeddings"]
-              + [f"conv.{w}" for w in ("in_weight", "out_weight", "loop_weight",
-                                       "rels_weight", "loop_rel", "loop_edge")]
-              + bn("conv.bn") + bn("decoder.bn0") + ["decoder.conv_w"]
-              + (["decoder.conv_b"] if cfg.bias else [])
-              + bn("decoder.bn1") + ["decoder.fc_w", "decoder.fc_b"]
-              + bn("decoder.bn2") + ["decoder.ent_bias"])
-    stats = ("mean", "var")
-    state = (bn("conv_bn", stats) + bn("decoder.bn0", stats)
-             + bn("decoder.bn1", stats) + bn("decoder.bn2", stats))
+              + conv("conv") + dec_params
+              + [n for i in extra for n in conv(f"extra_convs.{i}")]
+              + [f"extra_edge_embeddings.{i}" for i in extra])
+    state = (_bn("conv_bn", _STATS) + dec_state
+             + [n for i in extra for n in _bn(f"extra_bn.{i}", _STATS)])
     return params, state
 
 
 def _module_key(state_name: str) -> str:
     """JAX state path -> port state-dict key (``conv_bn.*`` are the buffers
-    of ``conv.bn``; ``decoder.bnK.*`` keep their names)."""
-    return ("conv.bn." + state_name[len("conv_bn."):]
-            if state_name.startswith("conv_bn.") else state_name)
+    of ``conv.bn``, ``extra_bn.i.*`` those of ``extra_convs.i.bn``;
+    ``decoder.bnK.*`` keep their names)."""
+    if state_name.startswith("conv_bn."):
+        return "conv.bn." + state_name[len("conv_bn."):]
+    if state_name.startswith("extra_bn."):
+        _, i, stat = state_name.split(".")
+        return f"extra_convs.{i}.bn.{stat}"
+    return state_name
 
 
 def model_params(model, cfg: Config) -> List[torch.Tensor]:

@@ -9,24 +9,13 @@ from kgc_gcn_torch.models.rgcn import RGCN
 
 __all__ = ["MGCN", "RGAT", "RGCN", "build_model"]
 
-# the decoder each ported family runs
-_DECODERS = {"mgcn": "conve", "rgcn": "distmult", "rgat": "distmult"}
-
 
 def _unported(cfg: Config):
     """(flag, ROADMAP.md §1 item, refused) for each setting the port cannot
     run yet."""
-    mgcn = cfg.model == "mgcn"
     return [
-        (f"decoder={cfg.decoder!r} with model={cfg.model!r}", 4,
-         cfg.model in _DECODERS and cfg.decoder != _DECODERS[cfg.model]),
         (f"num_blocks={cfg.num_blocks} (rgcn block mode)", 7,
          cfg.model == "rgcn" and cfg.num_blocks > 0),
-        (f"num_layers={cfg.num_layers} with model='mgcn'", 4,
-         mgcn and cfg.num_layers > 1),
-        (f"composition={cfg.composition!r}", 4,
-         mgcn and cfg.composition != "mult"),
-        (f"agg_schedule={cfg.agg_schedule!r}", 4, cfg.agg_schedule != "fused"),
         (f"entity_sharded={cfg.entity_sharded!r}", 8,
          cfg.entity_sharded != "none"),
     ]

@@ -8,6 +8,7 @@ dropout (the port's ``kgc_gcn_tpu/models/common.py``).
     batch variance and updates the running variance with the UNBIASED one;
     eval uses the running statistics (reference model.py:56,137-139).
   * dropout: inverted dropout ``where(keep, x / (1 - p), 0)``.
+  * ``init_embeddings_from_npz``: warm-start tables (``--init_embeddings``).
 
 Initializers and dropout masks draw from an explicit ``torch.Generator``.
 """
@@ -17,6 +18,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -129,3 +131,38 @@ def dropout(x: torch.Tensor, rate: float,
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+# ------------------------------------------------------------------ warm start
+
+def init_embeddings_from_npz(model: nn.Module, path: str) -> None:
+    """Warm-start the model's embedding tables from an ``.npz``, in place
+    (``kgc_gcn_tpu/models/common.py:init_embeddings_from_npz``).
+
+    Recognized keys: ``entity_embedding`` (N, gcn_in_dim) and
+    ``relation_embedding`` (2R, d), the PARAMETER tables (not the encoder
+    outputs that ``serve.Predictor.export_tables`` writes).  Shapes must
+    match exactly, and at least one key must apply."""
+    updates = {}
+    with np.load(path, allow_pickle=False) as data:
+        for key in ("entity_embedding", "relation_embedding"):
+            if key not in data.files:
+                continue
+            if not hasattr(model, key):
+                raise ValueError(f"{key!r} in {path} but this model family "
+                                 "has no such parameter")
+            cur = getattr(model, key)
+            arr = np.asarray(data[key], np.float32)
+            if arr.shape != tuple(cur.shape):
+                raise ValueError(
+                    f"{key} shape {arr.shape} != model shape "
+                    f"{tuple(cur.shape)} (is this an export_tables file? "
+                    "those hold ENCODED tables, not parameters)")
+            updates[key] = arr
+        if not updates:
+            raise ValueError(
+                f"{path} has none of entity_embedding/relation_embedding "
+                f"(found: {sorted(data.files)})")
+    with torch.no_grad():
+        for key, arr in updates.items():
+            getattr(model, key).copy_(torch.from_numpy(arr))

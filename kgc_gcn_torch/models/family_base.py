@@ -1,8 +1,9 @@
 """Decoder plumbing shared by the model families (the port's
 ``kgc_gcn_tpu/models/family_base.py:DecoderFamilyMixin``).
 
-A family mixing this in has ``self.cfg``, a ``self.decoder`` module with
-``forward``, ``query`` and ``ent_bias``, and an
+A family mixing this in has ``self.cfg``, a ``self.decoder`` module
+(``models/decoders.py``: ``forward``, ``score_candidates``, ``ent_bias``,
+and ``query`` where ``has_trunk``), and an
 ``encode(graph, train, rngs, kernels) -> (all_ent, all_rel)``.  Decoder state
 (ConvE's BatchNorm statistics) lives in the decoder's buffers, so nothing is
 threaded back out.
@@ -41,14 +42,14 @@ class DecoderFamilyMixin:
                          cand: torch.Tensor, train: bool = False,
                          rngs: Optional[Dict[str, torch.Generator]] = None
                          ) -> torch.Tensor:
-        """(B,) queries and (B, K) candidate ids -> (B, K) logits
-        ``h · all_ent[cand] + ent_bias[cand]``: the candidates' columns of
-        the trunk's logits, as the JAX candidate scorers of both ported
-        decoders compute them (``decoders.py:191-207,248-263``)."""
+        """(B,) queries and (B, K) candidate ids -> (B, K) logits, through
+        the decoder's own scorer (the JAX ``CANDIDATE_SCORERS``): the
+        candidates' columns of the trunk's logits, or ``-||q - e_k||^2 +
+        b_k`` for TransE and RotatE."""
         cand = cand.long()
-        h, ent_bias = self.query_and_bias(all_ent, all_rel, src, rel, train,
-                                          rngs)
-        return torch.einsum("bd,bkd->bk", h, all_ent[cand]) + ent_bias[cand]
+        return self.decoder.score_candidates(
+            all_ent[src.long()], all_rel[rel.long()], all_ent[cand], cand,
+            train, rngs)
 
     def make_rngs(self, generator: torch.Generator
                   ) -> Dict[str, torch.Generator]:

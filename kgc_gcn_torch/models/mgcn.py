@@ -1,25 +1,41 @@
-"""M-GCN encoder + ConvE decoder (the port's ``kgc_gcn_tpu/models/mgcn.py``).
+"""M-GCN encoder + a decoder (the port's ``kgc_gcn_tpu/models/mgcn.py``).
 
   * Three xavier-initialized tables: entities ``(N, d_in)``, relations
     ``(2R, d_in)`` and one learned embedding per edge, stored positionally as
     ``(2, E_pad, d_in)``: ``[0]`` holds the in-half's edges in its dst-sorted
     order, ``[1]`` the out-half's (reference model.py:16-18).
-  * One relational conv layer: per-edge messages ``x[src] * rel * edge``
-    aggregated per direction half through the CSR segment-sum kernel K1
+  * A relational conv layer: per-edge messages ``phi(x[src], rel) * edge``
+    (``phi`` the composition: ``mult``, ``sub`` or ``corr``) aggregated per
+    direction half through the CSR segment-sum kernel K1
     (``spmm_mode=halves``; with ``ew_impl=pallas`` the compose and the
     backward's products run through K4a/K4b), or both halves at once over
     the stacked view (``stacked_xla``: K1 over 2N rows; ``stacked``: K3),
     the direction weights applied after aggregation, a dense self-loop term,
     ``(in + out + loop) / 3``, BatchNorm, tanh; relations projected by
     ``rels_weight`` without the appended loop relation (model.py:82-118).
+    ``sub`` and ``corr`` compose on ``halves`` and ``stacked_xla``; K3 and
+    K4a/K4b compose by multiplication and refuse them.
+  * Depth (``num_layers > 1``, ``mgcn.py:209-233,334-364``): each further
+    layer has its own ``MGCNConv`` (d_out -> d_out, BatchNorm included) in
+    ``extra_convs`` and its own ``(2, E_pad, d_out)`` per-edge table in
+    ``extra_edge_embeddings``, takes the previous layer's entity and
+    relation outputs, and always runs the ``halves`` schedule.
+  * Edge sampling (``edge_sample_size`` K > 0, one layer, training only):
+    each half aggregates K edges drawn on the device (``ops/sampler.py``),
+    summed with ``index_add_``; evaluation encodes the full graph.
+  * ``agg_schedule=reference`` (bench only): every edge message projected
+    and summed unsorted (``ops/scatter.py:
+    aggregate_half_reference_schedule``).
   * ``encode`` runs once per graph (per step in training); ``decode``,
     ``query_and_bias`` and ``score_candidates`` come from
     ``models/family_base.py``.
   * Training (``train=True``): BatchNorm on batch statistics, moving its
     running ones in place, and dropout at the sites of ``make_rngs``:
-    ``conv_in``/``conv_out`` on the two direction results (not the loop
-    term), ``gcn`` on the encoded entities before both the query gather and
-    the scoring product, ``feat``/``hidden`` in the decoder.
+    ``conv_in``/``conv_out`` (``conv_in{i}``/``conv_out{i}`` in depth layer
+    i) on the two direction results (not the loop term), ``layer{i}``
+    (``gcn_drop``) on the entities entering depth layer i, ``gcn`` on the
+    encoded entities before both the query gather and the scoring product,
+    ``feat``/``hidden`` in the decoder.
 
 Parameters keep the JAX layout and names (``in_weight`` is ``(d_in, d_out)``
 used as ``x @ W``), so ``convert.py`` maps a JAX model onto this one by name.
@@ -37,12 +53,14 @@ from torch import nn
 from kgc_gcn_torch.config import Config
 from kgc_gcn_torch.data.graph import Graph, padded_edge_count
 from kgc_gcn_torch.models.common import BatchNorm, dropout, mm, xavier_uniform
-from kgc_gcn_torch.models.decoders import ConvE
+from kgc_gcn_torch.models.decoders import build_decoder
 from kgc_gcn_torch.models.family_base import DecoderFamilyMixin
 from kgc_gcn_torch.ops.fused_compose import aggregate_stacked
 from kgc_gcn_torch.ops.kernels import KERNELS, Kernels
+from kgc_gcn_torch.ops.sampler import aggregate_sampled_half, sample_half
 from kgc_gcn_torch.ops.scatter import (
-    aggregate_half, aggregate_stacked_xla, loop_messages)
+    aggregate_half, aggregate_half_reference_schedule, aggregate_stacked_xla,
+    loop_messages)
 
 
 class MGCNConv(nn.Module):
@@ -62,13 +80,47 @@ class MGCNConv(nn.Module):
         self.bn = BatchNorm(d_out)
 
 
+def _edge_table(n_edge: int, e_pad: int, d: int,
+                generator: torch.Generator) -> nn.Parameter:
+    """A positional (2, E_pad, d) per-edge table.  The xavier bound comes
+    from the REFERENCE shape (2E, d), so the real rows' distribution matches
+    reference utils.py:113-118; padding rows meet zero-norm edges and never
+    contribute."""
+    b = math.sqrt(6.0 / (2 * n_edge + d))
+    return nn.Parameter(torch.empty(2, e_pad, d).uniform_(
+        -b, b, generator=generator))
+
+
+def check_config(cfg: Config) -> None:
+    """The JAX package's refusals (``mgcn.py:110-120``), and the port's
+    schedules that compose by multiplication only (K3, K4a/K4b)."""
+    if cfg.num_layers > 1 and cfg.edge_sample_size > 0:
+        raise ValueError(
+            "edge_sample_size is only supported with num_layers=1")
+    if cfg.composition != "mult" and (
+            cfg.use_pallas or cfg.edge_sample_size > 0
+            or cfg.agg_schedule == "reference"):
+        raise ValueError(
+            f"composition={cfg.composition!r} requires the default XLA "
+            "aggregation path (use_pallas=False, edge_sample_size=0, "
+            "agg_schedule='fused'); the Pallas kernels and the reference "
+            "bench schedule compose multiplicatively")
+    if cfg.composition != "mult" and (cfg.spmm_mode == "stacked"
+                                      or cfg.ew_impl == "pallas"):
+        raise ValueError(
+            f"composition={cfg.composition!r} cannot run on K3 "
+            "(spmm_mode='stacked') or K4a/K4b (ew_impl='pallas'): they "
+            "compose by multiplication")
+
+
 class MGCN(DecoderFamilyMixin, nn.Module):
-    """Model family 'mgcn' with the ConvE decoder."""
+    """Model family 'mgcn' with any decoder (``cfg.decoder``)."""
 
     def __init__(self, cfg: Config, n_ent: int, n_rel: int, n_edge: int,
                  e_pad: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        check_config(cfg)
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.seed % 2**32)
         self.cfg = cfg
@@ -77,17 +129,18 @@ class MGCN(DecoderFamilyMixin, nn.Module):
         self.e_pad = e_pad if e_pad is not None else padded_edge_count(n_edge)
         d_in, d_out = cfg.gcn_in_dim, cfg.gcn_out_dim
         self.conv = MGCNConv(d_in, d_out, generator)
-        self.decoder = ConvE(cfg, n_ent, generator)
+        self.decoder = build_decoder(cfg, n_ent, generator)
         self.entity_embedding = nn.Parameter(
             xavier_uniform((n_ent, d_in), generator))
         self.relation_embedding = nn.Parameter(
             xavier_uniform((2 * n_rel, d_in), generator))
-        # xavier bound from the REFERENCE shape (2E, d_in), so the real rows'
-        # distribution matches reference utils.py:113-118; padding rows meet
-        # zero-norm edges and never contribute
-        b = math.sqrt(6.0 / (2 * n_edge + d_in))
-        self.edge_embeddings = nn.Parameter(torch.empty(
-            2, self.e_pad, d_in).uniform_(-b, b, generator=generator))
+        self.edge_embeddings = _edge_table(n_edge, self.e_pad, d_in, generator)
+        n_extra = max(1, cfg.num_layers) - 1
+        self.extra_convs = nn.ModuleList(
+            MGCNConv(d_out, d_out, generator) for _ in range(n_extra))
+        self.extra_edge_embeddings = nn.ParameterList(
+            _edge_table(n_edge, self.e_pad, d_out, generator)
+            for _ in range(n_extra))
         # the JAX package's two warnings (mgcn.py:143-157)
         if cfg.spmm_mode == "stacked_xla" and cfg.compute_dtype == "bfloat16":
             logging.warning(
@@ -107,8 +160,9 @@ class MGCN(DecoderFamilyMixin, nn.Module):
                kernels: Kernels = KERNELS
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-graph encoder -> (all_ent (N, d_out), all_rel (2R, d_out)).
-        The aggregation follows ``cfg.spmm_mode`` and ``cfg.ew_impl``
-        (``mgcn.py:272-316,456-488``); ``kernels`` selects the kernels or
+        Layer 1's aggregation follows the sampler in training, then
+        ``cfg.spmm_mode``, ``cfg.agg_schedule`` and ``cfg.ew_impl``
+        (``mgcn.py:242-344,456-488``); ``kernels`` selects the kernels or
         their plain versions (default: the kernels on the card)."""
         cfg = self.cfg
         rngs = rngs or {}
@@ -116,7 +170,18 @@ class MGCN(DecoderFamilyMixin, nn.Module):
         dt = cfg.compute_dtype
         x = self.entity_embedding
         rel_all = torch.cat([self.relation_embedding, c.loop_rel], dim=0)
-        if cfg.spmm_mode in ("stacked", "stacked_xla"):
+        if train and cfg.edge_sample_size > 0 and "sample_in" in rngs:
+            # K edges per half drawn on the device, rescaled by E/K
+            # (mgcn.py:259-271): an unsorted sum, projected in float32
+            in_res, out_res = (
+                aggregate_sampled_half(
+                    x, rel_all, self.edge_embeddings[i],
+                    sample_half(rngs[name], half, cfg.edge_sample_size,
+                                self.n_edge), self.n_ent) @ w
+                for i, (half, name, w) in enumerate((
+                    (graph.inb, "sample_in", c.in_weight),
+                    (graph.outb, "sample_out", c.out_weight))))
+        elif cfg.spmm_mode in ("stacked", "stacked_xla"):
             # the whole positional table as (2*E_pad, d_in), a view:
             # stacked position k is its row k
             etab2 = self.edge_embeddings.reshape(2 * self.e_pad, -1)
@@ -131,34 +196,78 @@ class MGCN(DecoderFamilyMixin, nn.Module):
                 # (mgcn.py:272-285)
                 in_agg, out_agg = aggregate_stacked_xla(
                     x, rel_all, etab2, graph.stacked, self.n_ent, dt,
-                    kernels.seg_sum)
+                    kernels.seg_sum, composition=cfg.composition)
+            in_res, out_res = (mm(in_agg, c.in_weight, dt),
+                               mm(out_agg, c.out_weight, dt))
+        elif cfg.agg_schedule == "reference":
+            # project every edge message, then an unsorted sum (bench only)
+            in_res, out_res = (
+                aggregate_half_reference_schedule(
+                    x, rel_all, self.edge_embeddings[i], half, w, self.n_ent)
+                for i, (half, w) in enumerate(((graph.inb, c.in_weight),
+                                               (graph.outb, c.out_weight))))
         else:
-            ew = ((kernels.compose_msg, kernels.bwd_products)
-                  if cfg.ew_impl == "pallas" else None)
-            in_agg, out_agg = (
-                aggregate_half(x, rel_all, self.edge_embeddings[i], half,
-                               self.n_ent, dt, kernels.seg_sum, ew=ew)
-                for i, half in enumerate((graph.inb, graph.outb)))
-        loop_res = mm(loop_messages(x, c.loop_rel, c.loop_edge),
-                      c.loop_weight, dt)
-        # (drop(in) + drop(out) + loop) / 3 — the loop term is NOT dropped
-        # (reference model.py:103)
-        out = (dropout(mm(in_agg, c.in_weight, dt), cfg.conv_drop,
-                       rngs.get("conv_in"), train)
-               + dropout(mm(out_agg, c.out_weight, dt), cfg.conv_drop,
-                         rngs.get("conv_out"), train)
-               + loop_res) / 3.0
-        all_ent = torch.tanh(c.bn(out, train))
-        all_rel = mm(rel_all, c.rels_weight, dt)[:-1]
+            in_agg, out_agg = self._agg_halves(x, rel_all,
+                                               self.edge_embeddings, graph,
+                                               kernels)
+            in_res, out_res = (mm(in_agg, c.in_weight, dt),
+                               mm(out_agg, c.out_weight, dt))
+        all_ent, all_rel = self._combine(c, x, rel_all, in_res, out_res,
+                                         train, rngs, "")
+        # depth layers: layer i + 2 takes layer i + 1's entity and relation
+        # outputs, with its own per-edge table (mgcn.py:334-364)
+        for i, (ck, et_k) in enumerate(zip(self.extra_convs,
+                                           self.extra_edge_embeddings)):
+            x_k = dropout(all_ent, cfg.gcn_drop, rngs.get(f"layer{i}"), train)
+            rel_k = torch.cat([all_rel, ck.loop_rel], dim=0)
+            in_agg, out_agg = self._agg_halves(x_k, rel_k, et_k, graph,
+                                               kernels)
+            all_ent, all_rel = self._combine(
+                ck, x_k, rel_k, mm(in_agg, ck.in_weight, dt),
+                mm(out_agg, ck.out_weight, dt), train, rngs, str(i))
         # post-encoder entity dropout (reference model.py:34), before BOTH
         # the query gather and the all-entity scoring product
         all_ent = dropout(all_ent, cfg.gcn_drop, rngs.get("gcn"), train)
         return all_ent, all_rel
 
+    def _agg_halves(self, x: torch.Tensor, rel_all: torch.Tensor,
+                    et_full: torch.Tensor, graph: Graph, kernels: Kernels
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Both direction halves of a (2, E_pad, d) edge table through K1
+        (``mgcn.py:_agg_halves``), with K4a/K4b under ``ew_impl=pallas``."""
+        cfg = self.cfg
+        ew = ((kernels.compose_msg, kernels.bwd_products)
+              if cfg.ew_impl == "pallas" else None)
+        return tuple(
+            aggregate_half(x, rel_all, et_full[i], half, self.n_ent,
+                           cfg.compute_dtype, kernels.seg_sum, ew=ew,
+                           composition=cfg.composition)
+            for i, half in enumerate((graph.inb, graph.outb)))
+
+    def _combine(self, c: MGCNConv, x: torch.Tensor, rel_all: torch.Tensor,
+                 in_res: torch.Tensor, out_res: torch.Tensor, train: bool,
+                 rngs: Dict[str, torch.Generator], site: str
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(drop(in) + drop(out) + loop) / 3`` (the loop term is NOT
+        dropped, reference model.py:103), BatchNorm, tanh; relations
+        projected without the appended loop relation."""
+        cfg, dt = self.cfg, self.cfg.compute_dtype
+        loop_res = mm(loop_messages(x, c.loop_rel, c.loop_edge,
+                                    cfg.composition), c.loop_weight, dt)
+        out = (dropout(in_res, cfg.conv_drop, rngs.get(f"conv_in{site}"),
+                       train)
+               + dropout(out_res, cfg.conv_drop, rngs.get(f"conv_out{site}"),
+                         train)
+               + loop_res) / 3.0
+        return (torch.tanh(c.bn(out, train)),
+                mm(rel_all, c.rels_weight, dt)[:-1])
+
     def make_rngs(self, generator: torch.Generator
                   ) -> Dict[str, torch.Generator]:
-        """The dropout sites of one training step, each drawing from the
-        trainer's one generator in the order the step reaches them
+        """The dropout and sampling sites of one training step, each drawing
+        from the trainer's one generator, in the order the step reaches them
         (``mgcn.py:553-563``; a site missing here would silently not drop)."""
-        return dict.fromkeys(("conv_in", "conv_out", "gcn", "feat", "hidden"),
-                             generator)
+        names = ["sample_in", "sample_out", "conv_in", "conv_out"]
+        for i in range(len(self.extra_convs)):
+            names += [f"layer{i}", f"conv_in{i}", f"conv_out{i}"]
+        return dict.fromkeys(names + ["gcn", "feat", "hidden"], generator)

@@ -1,4 +1,4 @@
-"""Relational graph attention (RGAT) + DistMult (the port's
+"""Relational graph attention (RGAT) + a decoder (the port's
 ``kgc_gcn_tpu/models/rgat.py`` on one device, on its kernel path).
 
 Per layer and direction half, with H heads of ``dh = d_out / H``:
@@ -34,7 +34,7 @@ from torch import nn
 from kgc_gcn_torch.config import Config
 from kgc_gcn_torch.data.graph import Graph, GraphHalf
 from kgc_gcn_torch.models.common import dropout, xavier_uniform
-from kgc_gcn_torch.models.decoders import DistMult
+from kgc_gcn_torch.models.decoders import build_decoder
 from kgc_gcn_torch.models.family_base import DecoderFamilyMixin
 from kgc_gcn_torch.ops.kernels import KERNELS, Kernels
 from kgc_gcn_torch.ops.sorted_ops import (
@@ -108,7 +108,7 @@ class RGATLayer(nn.Module):
 
 
 class RGAT(DecoderFamilyMixin, nn.Module):
-    """Model family 'rgat' with the DistMult decoder."""
+    """Model family 'rgat' with any decoder (``cfg.decoder``)."""
 
     def __init__(self, cfg: Config, n_ent: int, n_rel: int, n_edge: int,
                  generator: Optional[torch.Generator] = None):
@@ -135,7 +135,7 @@ class RGAT(DecoderFamilyMixin, nn.Module):
             xavier_uniform((n_ent, cfg.gcn_in_dim), generator))
         self.relation_embedding = nn.Parameter(
             xavier_uniform((n_rel2, cfg.gcn_out_dim), generator))
-        self.decoder = DistMult(cfg, n_ent)
+        self.decoder = build_decoder(cfg, n_ent, generator)
 
     def encode(self, graph: Graph, train: bool = False,
                rngs: Optional[Dict[str, torch.Generator]] = None,

@@ -1,4 +1,4 @@
-"""R-GCN with basis-decomposed relation weights + DistMult (the port's
+"""R-GCN with basis-decomposed relation weights + a decoder (the port's
 ``kgc_gcn_tpu/models/rgcn.py`` in basis mode).
 
   * Per layer ``W_r = Σ_b coeff[r, b] · basis[b]``.  Because the projection is
@@ -26,7 +26,7 @@ from torch import nn
 from kgc_gcn_torch.config import Config
 from kgc_gcn_torch.data.graph import Graph
 from kgc_gcn_torch.models.common import dropout, xavier_uniform
-from kgc_gcn_torch.models.decoders import DistMult
+from kgc_gcn_torch.models.decoders import build_decoder
 from kgc_gcn_torch.models.family_base import DecoderFamilyMixin
 from kgc_gcn_torch.ops.basis import basis_aggregate
 from kgc_gcn_torch.ops.kernels import KERNELS, Kernels
@@ -45,7 +45,8 @@ class RGCNLayer(nn.Module):
 
 
 class RGCN(DecoderFamilyMixin, nn.Module):
-    """Model family 'rgcn' (basis decomposition) with the DistMult decoder."""
+    """Model family 'rgcn' (basis decomposition) with any decoder
+    (``cfg.decoder``)."""
 
     def __init__(self, cfg: Config, n_ent: int, n_rel: int, n_edge: int,
                  generator: Optional[torch.Generator] = None):
@@ -67,7 +68,7 @@ class RGCN(DecoderFamilyMixin, nn.Module):
             xavier_uniform((n_ent, cfg.gcn_in_dim), generator))
         self.relation_embedding = nn.Parameter(
             xavier_uniform((n_rel2, cfg.gcn_out_dim), generator))
-        self.decoder = DistMult(cfg, n_ent)
+        self.decoder = build_decoder(cfg, n_ent, generator)
 
     def encode(self, graph: Graph, train: bool = False,
                rngs: Optional[Dict[str, torch.Generator]] = None,

@@ -7,13 +7,15 @@ The rank of a known target is a comparison count,
 
 where every known-true entity is pushed to -inf first (reference
 main.py:122-126 filters the same way).  Under exact ties this is the
-optimistic rank.
+optimistic rank.  The per-relation sums (``--per_relation``) fold each
+query's relation onto its forward id and split the same quantities by it.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Sequence
 
+import numpy as np
 import torch
 
 
@@ -61,3 +63,54 @@ def combine_head_tail(
         res[f"hits@{k}"] = round(
             (float(tail[f"hits@{k}"]) + float(head[f"hits@{k}"])) / (2 * count), 5)
     return res
+
+
+def rank_metric_sums_by_rel(ranks: torch.Tensor, rels: torch.Tensor,
+                            num_rels: int, hits_at: Sequence[int] = (1, 3, 10)
+                            ) -> Dict[str, torch.Tensor]:
+    """Per-relation sums (``ranking.py:rank_metric_sums_by_rel``): count,
+    mr, mrr and hits@k as (R,) float64 tensors summed over the FORWARD
+    relation id ``rel % R``, so the head direction's reverse relations fold
+    onto their forward relation."""
+    r = ranks.double()
+    seg = (rels.long() % num_rels)
+
+    def s(v: torch.Tensor) -> torch.Tensor:
+        return torch.zeros(num_rels, dtype=torch.float64,
+                           device=v.device).index_add_(0, seg, v)
+
+    out = {"count": s(torch.ones_like(r)), "mr": s(r), "mrr": s(1.0 / r)}
+    for k in hits_at:
+        out[f"hits@{k}"] = s((r <= k).double())
+    return out
+
+
+def combine_head_tail_by_rel(tail: Dict[str, np.ndarray],
+                             head: Dict[str, np.ndarray],
+                             hits: Sequence[int] = (1, 3, 10)
+                             ) -> Dict[str, np.ndarray]:
+    """``combine_head_tail`` per relation (``ranking.py:
+    combine_head_tail_by_rel``): the two directions' sums averaged, NaN for
+    a relation with no queries."""
+    count = np.asarray(tail["count"])
+    denom = np.maximum(2.0 * count, 1.0)
+    out = {"count": count}
+    for k in ("mr", "mrr", *(f"hits@{k}" for k in hits)):
+        out[k] = np.where(count > 0,
+                          (np.asarray(tail[k]) + np.asarray(head[k])) / denom,
+                          np.nan)
+    return out
+
+
+def corpus_from_per_rel(per: Dict[str, np.ndarray],
+                        hits: Sequence[int] = (1, 3, 10)) -> Dict[str, float]:
+    """The corpus metrics from the per-relation table: their count-weighted
+    mean, which is exact (``ranking.py:corpus_from_per_rel``), so that one
+    ranking pass gives both reports."""
+    c = np.asarray(per["count"], np.float64)
+    total = max(float(c.sum()), 1.0)
+    out = {}
+    for k in ("mr", "mrr", *(f"hits@{h}" for h in hits)):
+        v = np.where(c > 0, np.nan_to_num(np.asarray(per[k])), 0.0)
+        out[k] = round(float((v * c).sum() / total), 5)
+    return out

@@ -8,7 +8,8 @@
     mask 0 and, as in the JAX package, enter the decoder's BN statistics.
   * Evaluation encodes the graph ONCE per pass and scores the query batches
     against the cached entity table; ranks are comparison counts
-    (``ops/ranking.py``).
+    (``ops/ranking.py``).  ``evaluate_per_relation`` splits the same ranks
+    by forward relation (``--per_relation``).
   * ``train_and_evaluate`` is the reference's epoch loop
     (reference main.py:138-174): eval every ``eval_every`` epochs, best
     validation MRR saved to ``last.ckpt``, the patience quirk (an improvement
@@ -35,7 +36,9 @@ from kgc_gcn_torch.models.common import mm
 from kgc_gcn_torch.ops.fused_loss import fused_score_bce, sparse_bce_with_logits
 from kgc_gcn_torch.ops.kernels import KERNELS, PLAIN, Kernels
 from kgc_gcn_torch.ops.losses import bce_with_logits
-from kgc_gcn_torch.ops.ranking import combine_head_tail, filtered_ranks, rank_metrics
+from kgc_gcn_torch.ops.ranking import (
+    combine_head_tail, combine_head_tail_by_rel, filtered_ranks,
+    rank_metric_sums_by_rel, rank_metrics)
 from kgc_gcn_torch.train import optim
 from kgc_gcn_torch.train.checkpoint import save_checkpoint
 
@@ -58,7 +61,7 @@ class Trainer:
         self.banks = banks
         self.n_ent = graph.n_ent
         self.device = graph.device
-        self.loss_impl = self._resolve_loss_impl(cfg)
+        self.loss_impl = self._resolve_loss_impl(cfg, model)
         self.params = model_params(model, cfg)
         self.opt_state = optim.init_state(self.params, cfg)
         self.generator = torch.Generator(device=self.device)
@@ -66,10 +69,22 @@ class Trainer:
         self.kernels = PLAIN if plain else KERNELS
 
     @staticmethod
-    def _resolve_loss_impl(cfg: Config) -> str:
-        # auto is sparse, as in the JAX package: it never materializes the
-        # (B, N) label matrix; fused is opt-in
-        return "sparse" if cfg.loss_impl == "auto" else cfg.loss_impl
+    def _resolve_loss_impl(cfg: Config, model) -> str:
+        """``loss.py:88-110``: auto is sparse, as in the JAX package (it
+        never materializes the (B, N) label matrix; fused is opt-in); a
+        decoder without an ``h @ all_ent.T + bias`` trunk (TransE, RotatE)
+        takes the dense loss, with a warning when sparse or fused was asked
+        for."""
+        impl = "sparse" if cfg.loss_impl == "auto" else cfg.loss_impl
+        if impl in ("sparse", "fused") and not model.decoder.has_trunk:
+            if cfg.loss_impl != "auto":
+                logging.warning(
+                    "loss_impl=%s requires a decoder with an "
+                    "h @ all_ent.T + bias query trunk; decoder=%s has "
+                    "none — falling back to the dense (B, N) loss",
+                    cfg.loss_impl, cfg.decoder)
+            impl = "dense"
+        return impl
 
     @property
     def n_train(self) -> int:
@@ -139,17 +154,28 @@ class Trainer:
         return evaluate(self.cfg, self.model, self.graph, self.banks, split,
                         mark, kernels=self.kernels)
 
+    def evaluate_per_relation(self, split: str = "valid"
+                              ) -> Dict[str, np.ndarray]:
+        return evaluate_per_relation(self.cfg, self.model, self.graph,
+                                     self.banks, split, kernels=self.kernels)
+
 
 # ------------------------------------------------------------------ evaluation
+
+def _bank_ranks(model, all_ent, all_rel, bank: QueryBank, batch_size: int):
+    """(queries (B, 3), filtered ranks (B,)) of each query batch of a bank."""
+    for lo in range(0, bank.n_queries, batch_size):
+        q = bank.queries[lo:lo + batch_size]
+        logits = model.decode(all_ent, all_rel, q[:, 0], q[:, 1])
+        yield q, filtered_ranks(logits, q[:, 2],
+                                bank.label_idx[lo:lo + batch_size])
+
 
 @torch.no_grad()
 def _bank_sums(model, all_ent, all_rel, bank: QueryBank,
                batch_size: int) -> Dict[str, float]:
     sums: Dict[str, float] = {}
-    for lo in range(0, bank.n_queries, batch_size):
-        q = bank.queries[lo:lo + batch_size]
-        logits = model.decode(all_ent, all_rel, q[:, 0], q[:, 1])
-        ranks = filtered_ranks(logits, q[:, 2], bank.label_idx[lo:lo + batch_size])
+    for _, ranks in _bank_ranks(model, all_ent, all_rel, bank, batch_size):
         for k, v in rank_metrics(ranks).items():
             sums[k] = sums.get(k, 0.0) + v
     return sums
@@ -167,6 +193,25 @@ def evaluate(cfg: Config, model, graph: Graph, banks: Dict[str, QueryBank],
     results = combine_head_tail(tail, head)
     log_metrics(mark, results)
     return results
+
+
+@torch.no_grad()
+def evaluate_per_relation(cfg: Config, model, graph: Graph,
+                          banks: Dict[str, QueryBank], split: str = "valid",
+                          kernels: Kernels = KERNELS) -> Dict[str, np.ndarray]:
+    """Per-relation filtered metrics (``loop.py:evaluate_per_relation``):
+    (R,) arrays keyed count/mr/mrr/hits@{1,3,10}, head and tail combined
+    onto the forward relation id; NaN for relations with no queries."""
+    bs = cfg.eval_batch_size or cfg.batch_size
+    all_ent, all_rel = model.encode(graph, kernels=kernels)
+    sums = {}
+    for d in ("tail", "head"):
+        parts = [rank_metric_sums_by_rel(ranks, q[:, 1], graph.n_rel)
+                 for q, ranks in _bank_ranks(model, all_ent, all_rel,
+                                             banks[f"{split}_{d}"], bs)]
+        sums[d] = {k: torch.stack([p[k] for p in parts]).sum(0).cpu().numpy()
+                   for k in parts[0]}
+    return combine_head_tail_by_rel(sums["tail"], sums["head"])
 
 
 def log_metrics(mark: str, results: Dict[str, float]) -> None:

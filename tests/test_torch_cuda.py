@@ -2,7 +2,8 @@
 plain PyTorch version on the card, the encoder through the kernels, the
 RGAT attention wrappers' gradients through K1, and one training step through
 the kernels against the same step in plain PyTorch (MGCN 1-vs-all, also
-under each aggregation schedule; R-GCN on sampled negatives, RGAT
+under each aggregation schedule, at 2 layers with corr and with ComplEx on
+the fused loss; R-GCN on sampled negatives, also with RotatE; RGAT
 1-vs-all).
 
 This file imports neither JAX nor kgc_gcn_tpu, so that it runs on a machine
@@ -790,6 +791,18 @@ def test_k6_through_k1_matches_plain(cuda, name, k1_launches):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def disagreement(name, agree, gk, gp, uk, up, plain_grads) -> str:
+    """Where a leaf's updates disagree: the share that agrees, the first
+    element that does (its gradient and update in the kernel and plain
+    steps) and the step's largest gradient."""
+    j = tuple((~agree).nonzero()[0].tolist())
+    return (f"{name}: {float(agree.float().mean())} of the updates agree; "
+            f"{name}{list(j)}: gradient {float(gk[j]):.4g} / "
+            f"{float(gp[j]):.4g}, update {float(uk[j]):.4g} / "
+            f"{float(up[j]):.4g}; the step's largest gradient "
+            f"{max(float(g.abs().max()) for g in plain_grads):.3g}")
+
+
 @pytest.mark.cuda
 def test_rgat_kernel_step_matches_plain_step(cuda):
     """One 2-layer, 4-head RGAT + DistMult 1-vs-all step with dropout
@@ -798,6 +811,7 @@ def test_rgat_kernel_step_matches_plain_step(cuda):
     import copy
 
     from kgc_gcn_torch.config import dataset_preset
+    from kgc_gcn_torch.convert import jax_leaf_names
     from kgc_gcn_torch.data.batching import make_banks
     from kgc_gcn_torch.data.dataset import build_dataset
     from kgc_gcn_torch.data.graph import build_graph
@@ -838,14 +852,17 @@ def test_rgat_kernel_step_matches_plain_step(cuda):
     # float32 sums in another order through one forward and backward pass
     torch.testing.assert_close(out["kernel"][0], out["plain"][0], rtol=1e-5,
                                atol=0.0)
+    names = jax_leaf_names(cfg)[0]
     for i, (gk, gp) in enumerate(zip(out["kernel"][1], out["plain"][1])):
-        assert torch.isfinite(gk).all()
+        assert torch.isfinite(gk).all(), names[i]
         torch.testing.assert_close(gk, gp, rtol=1e-4,
-                                   atol=1e-4 * float(gp.abs().max()))
+                                   atol=1e-4 * float(gp.abs().max()),
+                                   msg=names[i])
         uk = kernel.params[i].detach() - before[i]
         up = plain.params[i].detach() - before[i]
         agree = torch.isclose(uk, up, rtol=1e-3, atol=1e-7)
-        assert float(agree.float().mean()) > 0.999
+        assert float(agree.float().mean()) > 0.999, disagreement(
+            names[i], agree, gk, gp, uk, up, out["plain"][1])
 
 
 # K4a / K4b: elementwise products in the plain version's order, each rounded
@@ -1052,3 +1069,78 @@ def test_mgcn_schedule_kernel_step_matches_plain_step(cuda, schedule,
         up = plain.params[i].detach() - before[i]
         agree = torch.isclose(uk, up, rtol=1e-3, atol=1e-7)
         assert float(agree.float().mean()) > 0.999, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,fields,per_step", [
+    ("mgcn_2_layers_corr", dict(num_layers=2, composition="corr"),
+     dict(K1=8)),
+    ("mgcn_complex_fused", dict(decoder="complex", loss_impl="fused"),
+     dict(K1=4, K2a=1, K2b=1)),
+    ("rgcn_rotate_negatives", dict(model="rgcn", decoder="rotate",
+                                   num_bases=4, num_negatives=8,
+                                   train_mode="negative_sampling"),
+     dict(K1=2, K7=2, K8=2))])
+def test_model_surface_kernel_step_matches_plain_step(cuda, case, fields,
+                                                      per_step):
+    """One training step with dropout of a configuration of the model
+    surface (a 2-layer corr MGCN; MGCN + ComplEx on the fused loss; R-GCN +
+    RotatE on sampled negatives) through the kernels and through the plain
+    versions (same weights, negatives and dropout masks): launches, loss
+    and gradients, and finite updates.  The updates are not compared
+    element by element: Adam's first step divides each gradient by its
+    magnitude plus eps (1e-8), so an element whose gradient lies near eps
+    moves by float noise (the RGAT step's record, ROADMAP.md §3)."""
+    import copy
+
+    from kgc_gcn_torch.config import dataset_preset
+    from kgc_gcn_torch.convert import jax_leaf_names
+    from kgc_gcn_torch.data.batching import make_banks
+    from kgc_gcn_torch.data.dataset import build_dataset
+    from kgc_gcn_torch.data.graph import build_graph
+    from kgc_gcn_torch.data.toy import toy_triples
+    from kgc_gcn_torch.models import build_model
+    from kgc_gcn_torch.train import optim
+    from kgc_gcn_torch.train.loop import Trainer
+    from kgc_gcn_torch.train.negative import NegativeSamplingTrainer
+
+    counters = {"K1": segment_sum, "K2a": dense_loss, "K2b": dense_grads,
+                "K7": basis_segment_sum, "K8": basis_backward}
+    ds = build_dataset("toy", *toy_triples(n_ent=40, n_rel=5, n_train=300))
+    graph = build_graph(ds.train_triples, ds.num_entity,
+                        ds.num_relation).to(cuda)
+    banks = make_banks(ds, cuda)
+    cfg = dataset_preset("Toy", gcn_in_dim=16, gcn_out_dim=32, k_w=4, k_h=8,
+                         num_filter=4, kernel_size=3, batch_size=16,
+                         gcn_drop=0.2, feat_drop=0.2, hidden_drop=0.3, seed=5,
+                         **fields)
+    model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
+                        e_pad=graph.e_pad).to(cuda)
+    trainer_cls = (NegativeSamplingTrainer
+                   if cfg.train_mode == "negative_sampling" else Trainer)
+    kernel = trainer_cls(cfg, model, graph, banks)
+    plain = trainer_cls(cfg, copy.deepcopy(model), graph, banks, plain=True)
+    batch = kernel.batch(torch.arange(16, device=cuda),
+                         torch.ones(16, device=cuda))
+    out = {}
+    for name, t in (("kernel", kernel), ("plain", plain)):
+        t.generator.manual_seed(9)
+        start = {k: f.launches for k, f in counters.items()}
+        loss = t.loss(*batch)
+        grads = torch.autograd.grad(loss, t.params)
+        optim.step(t.params, list(grads), t.opt_state, cfg, 1e-3)
+        out[name] = (loss.detach(), grads, {
+            k: f.launches - start[k] for k, f in counters.items()})
+    assert out["kernel"][2] == {k: per_step.get(k, 0) for k in counters}
+    assert not any(out["plain"][2].values())
+    # float32 sums in another order through one forward and backward pass
+    torch.testing.assert_close(out["kernel"][0], out["plain"][0], rtol=1e-5,
+                               atol=0.0)
+    for i, name in enumerate(jax_leaf_names(cfg)[0]):
+        if name in ("decoder.bn0.scale", "decoder.bn0.bias"):
+            continue   # BN1 cancels them: float noise on both sides
+        gk, gp = out["kernel"][1][i], out["plain"][1][i]
+        assert torch.isfinite(gk).all(), name
+        torch.testing.assert_close(gk, gp, rtol=1e-3,
+                                   atol=1e-4 * float(gp.abs().max()), msg=name)
+        assert torch.isfinite(kernel.params[i]).all(), name

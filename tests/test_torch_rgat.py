@@ -146,7 +146,7 @@ def test_rgat_rejects_bad_heads(toy_cfg, heads):
 
 
 @pytest.mark.parametrize("override", [
-    dict(decoder="conve"), dict(decoder="transe"),
+    dict(entity_sharded="ring"), dict(entity_sharded="boundary"),
     dict(entity_sharded="gather")])
 def test_unported_rgat_configurations_raise(toy_cfg, override):
     cfg = port_cfg(rgat_cfg(toy_cfg, **override))

@@ -208,9 +208,9 @@ def test_cli_predict_and_test_on_cpu(tmp_path, toy_cfg, capsys, caplog):
 
 def test_cli_refuses_what_it_cannot_run(tmp_path):
     base = ["--dataset", "Toy", "--experiments_dir", str(tmp_path)]
-    for flags in (["--model", "rgat", "--decoder", "transe"],
+    for flags in (["--restore_torch", str(tmp_path / "last.ckpt")],
                   ["--model", "rgcn", "--num_blocks", "2"],
-                  ["--edge_sample_size", "8"], ["--ckpt_every", "1"],
+                  ["--partition", "locality"], ["--ckpt_every", "1"],
                   ["--profile_dir", str(tmp_path)]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             cli.main(base + ["--do_train", "--device", "cpu"] + flags)
@@ -219,3 +219,29 @@ def test_cli_refuses_what_it_cannot_run(tmp_path):
     if not torch.cuda.is_available():   # the default device needs a card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(base + ["--do_test", "--restore_dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--model", "rgat", "--decoder", "transe", "--num_heads", "4"],
+    ["--model", "rgcn", "--decoder", "rotate", "--num_bases", "3",
+     "--train_mode", "negative_sampling"],
+    ["--decoder", "complex", "--loss_impl", "fused"],
+    ["--num_layers", "2", "--composition", "corr"],
+    ["--edge_sample_size", "8"]])
+def test_cli_trains_the_model_surface_on_the_cpu(tmp_path, flags):
+    """The decoders on every family, MGCN depth with ``corr`` and the edge
+    sampler train one step an epoch through the CLI on the CPU, and the
+    checkpoint serves ``--do_test --per_relation``."""
+    write_toy(str(tmp_path / "data"))
+    base = ["--dataset", "Toy", "--data_dir", str(tmp_path / "data"),
+            "--experiments_dir", str(tmp_path / "exp"), "--device", "cpu",
+            "--gcn_in_dim", "8", "--gcn_out_dim", "16", "--k_w", "4",
+            "--k_h", "4", "--num_filter", "4", "--kernel_size", "3"]
+    assert cli.main(base + ["--do_train", "--max_epoch", "1", "--batch_size",
+                            "512"] + flags) == 0
+    run = tmp_path / "exp" / "Toy"
+    rec = json.loads((run / "metrics.jsonl").read_text().splitlines()[-1])
+    assert rec["epoch"] == 1 and np.isfinite(rec["loss"])
+    assert cli.main(base + ["--do_test", "--per_relation", "--restore_dir",
+                            str(run)]) == 0
+    assert (run / "per_relation.json").exists()
