@@ -92,14 +92,33 @@ Phases, in order; any failure raises and the script exits non-zero:
      per half (bench.py's sampled mode): 50 timed steps (no kernel: the
      sample is summed by index_add_), one CLI epoch (--edge_sample_size),
      whose full-graph validation launches K1, its checkpoint served through
-     the CLI and its kernel encode held against the plain encode.
+     the CLI and its kernel encode held against the plain encode;
+ 13. the last single-device modules, 20 timed steps and one kernel step
+     against the plain step (the same knob, warm Adam state) each: (a)
+     bench.py's fb15k_cb (MGCN + ConvE at the FB15k-237 preset's widths,
+     use_pallas, float32, KGC_MGCN_CONTRIB=bf16; K1 4) and (b) rgcn_best
+     (config 3, KGC_BASIS_READBACK=bf16; K1 2, K7 2, K8 2) on the corpus of
+     phase 7; (c) rgcn_block (config 3 with 10 blocks; K1 4, peak memory),
+     then one CLI epoch (--num_blocks 10), its checkpoint served through the
+     CLI and its kernel encode held against the plain encode; (d)
+     rgat_pallas with KGC_EDGE_CONTRIB=bf16 (K5 2, K1 10); (e) MGCN halves
+     at the WN18RR preset with bwd_perm operands and fwdw (K1 4), and one
+     step's gradients of each against contrib's; (f) the CLI on data/Toy
+     with --max_epoch 2 --profile_dir --ckpt_every 1 (the trace of epoch 2
+     names K1's kernel, periodic.ckpt equals the final parameters, epoch 2
+     has no steps_per_s), and the trace's bound at the WN18RR preset
+     (TRACE_STEPS steps recorded of 10 more: size, events, seconds with and
+     without it, host memory); (g) phase 5's weights written by
+     save_reference_checkpoint and served through --restore_torch, whose
+     encode equals phase 6's to the bit.
 K1, K3, K7 and K8 checks use dyadic inputs, whose float32 sums are exact in
 any order, so kernel and plain version must agree to the bit; K5
 (segment-max, phase 3: the RGAT path's shape and edge cases), K4a and K4b
 (products in the plain version's order) are exact on any input.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Before them a line gives the card, its
-power limit and the wall seconds of the whole script and of phase 12.
+power limit and the wall seconds of the whole script and of phases 12
+and 13.
 Nothing of JAX is imported.
 
 --kernels-only runs phases 1-3 and the time rows of K1, K2a, K7 and K3 (each
@@ -180,6 +199,9 @@ RGAT_DEGENERATE = ("att_dst",)
 # longest R-GCN CLI epoch the smoke runs at full size; above it the CLI
 # trains on fewer triples over the same entities and relations
 CLI_EPOCH_LIMIT_S = 180.0
+# phase 13c's block-mode CLI epoch: above this estimate the corpus keeps
+# its entities and relations and has fewer train triples
+BLOCK_EPOCH_LIMIT_S = 45.0
 TIMED_STEPS = 50
 # WN18RR's and FB15k-237's counts (scripts/make_synth_corpus.py): entities,
 # relations, train / valid / test triples
@@ -503,6 +525,10 @@ def k1_cases(ds, graph, fb_graph, power_counts, d: int, gen) -> dict:
         "wn18rr_d200_f32": half_case(graph.inb, n_wn, 200, f32, gen),
         "wn18rr_src_d200_f32": half_case(graph.inb, n_wn, 200, f32, gen,
                                          "src"),
+        # KGC_EDGE_CONTRIB=bf16: the edge message's d_h in bf16 (the MGCN
+        # and basis streams are fb15k237_src_bf16's shape)
+        "wn18rr_src_d200_bf16": half_case(graph.inb, n_wn, 200, bf16, gen,
+                                          "src"),
         # power-law hubs (no padding) and FB15k-237's rel order in float32
         "fb15k237_powerlaw_f32": csr_case(power_counts, d, f32, gen),
         "fb15k237_powerlaw_bf16": csr_case(power_counts, d, bf16, gen),
@@ -1216,6 +1242,235 @@ def same_step(trainer, batch, seed: int, launches: Launches, per_step,
     return errs
 
 
+@contextlib.contextmanager
+def knob(module, name: str, value: str):
+    """Within: ``module.name`` (an opt-in bf16 stream's constant) is
+    ``value``."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def opt_in_steps(cfg, graph, banks, launches: Launches, per_step, what: str,
+                 seed: int, steps: int, gen, **checks):
+    """A model of ``cfg`` made from ``seed`` on ``graph``: ``steps`` timed
+    steps (``timed_steps``), then one kernel step against the plain step
+    from the warm state (``same_step``, with ``checks``).  Returns the
+    timing record and the launches of the timed steps."""
+    from kgc_gcn_torch.models import build_model
+    from kgc_gcn_torch.train.loop import Trainer
+    from kgc_gcn_torch.train.negative import NegativeSamplingTrainer
+    device = graph.device
+    model = build_model(cfg, graph.n_ent, graph.n_rel, graph.n_edge,
+                        e_pad=graph.e_pad,
+                        generator=torch.Generator().manual_seed(seed)
+                        ).to(device)
+    trainer = (NegativeSamplingTrainer
+               if cfg.train_mode == "negative_sampling"
+               else Trainer)(cfg, model, graph, banks)
+    log(f"[opt-in] {what}: {cfg.model} + {cfg.decoder}, d_in "
+        f"{cfg.gcn_in_dim}, d_out {cfg.gcn_out_dim}, batch {cfg.batch_size}, "
+        f"{cfg.compute_dtype}, use_pallas {cfg.use_pallas}, bwd_perm "
+        f"{cfg.bwd_perm}; {sum(p.numel() for p in model.parameters())} "
+        "parameters")
+    rec = timed_steps(trainer, launches, per_step, what, seed, steps=steps)
+    b = cfg.batch_size
+    idx = torch.randperm(trainer.n_train, generator=gen)[:b]
+    same_step(trainer, trainer.batch(idx.to(device),
+                                     torch.ones(b, device=device)),
+              seed + 7, launches, per_step, what, **checks)
+    return rec, tuple(steps * c for c in per_step)
+
+
+def bwd_perm_grads(ds, graph, banks, seed: int, gen) -> dict:
+    """One MGCN step at the WN18RR preset (use_pallas) under bwd_perm
+    contrib, operands and fwdw, from one set of weights with one batch and
+    one dropout mask, on the contrib step's side of every ReLU kink: each
+    schedule's gradients against contrib's within TOL (rtol, and atol x the
+    leaf's largest; the BN directions that BN1 cancels checked finite
+    only).  Returns the largest errors."""
+    from kgc_gcn_torch.config import dataset_preset
+    from kgc_gcn_torch.convert import jax_leaf_names
+    from kgc_gcn_torch.models import build_model
+    from kgc_gcn_torch.train.loop import Trainer
+    cfg = dataset_preset("WN18RR", seed=seed)
+    device = graph.device
+    b = cfg.batch_size
+    idx = torch.randperm(banks["train"].n_queries, generator=gen)[:b]
+    grads, kinks = {}, KinkReplay()
+    for perm in ("contrib", "operands", "fwdw"):
+        cfg_p = cfg.replace(bwd_perm=perm)       # the same weights each time
+        model = build_model(cfg_p, ds.num_entity, ds.num_relation,
+                            ds.num_edge, e_pad=graph.e_pad,
+                            generator=torch.Generator().manual_seed(seed)
+                            ).to(device)
+        t = Trainer(cfg_p, model, graph, banks)
+        t.generator.manual_seed(seed + 11)
+        with kinks.patched(replay=perm != "contrib"):
+            loss = t.loss(*t.batch(idx.to(device),
+                                   torch.ones(b, device=device)))
+        grads[perm] = torch.autograd.grad(loss, t.params)
+    errs = {}
+    for perm in ("operands", "fwdw"):
+        errs[perm] = 0.0
+        for name, g, want in zip(jax_leaf_names(cfg)[0], grads[perm],
+                                 grads["contrib"]):
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"bwd_perm={perm}: non-finite {name}")
+            if name in DEGENERATE:
+                continue
+            errs[perm] = max(errs[perm], close_rel(
+                g, want, TOL, TOL, f"bwd_perm={perm} grad {name}"))
+    log(f"[opt-in] one step's gradients under bwd_perm operands / fwdw "
+        f"against contrib: max abs err {errs} (rtol {TOL}, atol {TOL} x "
+        f"max); {kinks.ties} ReLU inputs tied to contrib's side")
+    return errs
+
+
+def _rss_bytes() -> int:
+    """This process's resident set now (Linux)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def bounded_trace(graph, banks, work: str, seed: int) -> dict:
+    """``--profile_dir``'s trace at the WN18RR preset's widths: a model
+    made from ``seed`` takes TRACE_STEPS + 10 steps untraced (warm), then
+    as many under ``utils/profiling.trace``, stepped as the loop steps it.
+    The trace must hold TRACE_STEPS steps and the kernels' activity.
+    Returns its size, events, seconds with and without it, and the host
+    memory that the traced run added."""
+    import gzip
+
+    from kgc_gcn_torch.config import dataset_preset
+    from kgc_gcn_torch.models import build_model
+    from kgc_gcn_torch.train.loop import Trainer
+    from kgc_gcn_torch.utils.profiling import TRACE_STEPS, trace
+    cfg = dataset_preset("WN18RR", seed=seed)
+    model = build_model(cfg, graph.n_ent, graph.n_rel, graph.n_edge,
+                        e_pad=graph.e_pad,
+                        generator=torch.Generator().manual_seed(seed)
+                        ).to(graph.device)
+    trainer = Trainer(cfg, model, graph, banks)
+    rng = np.random.default_rng(seed)
+    n = TRACE_STEPS + 10
+    trainer.train_epoch(1, rng, max_steps=3)           # one-time set-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train_epoch(2, rng, max_steps=n)           # host-syncs
+    plain_s = time.perf_counter() - t0
+    rss0 = _rss_bytes()
+    t0 = time.perf_counter()
+    with trace(work) as prof:
+        trainer.train_epoch(2, rng, max_steps=n, on_step=prof.step)
+    traced_s = time.perf_counter() - t0
+    rss = _rss_bytes() - rss0
+    (name,) = os.listdir(work)
+    size = os.path.getsize(os.path.join(work, name))
+    with gzip.open(os.path.join(work, name), "rt") as f:
+        events = json.load(f)["traceEvents"]
+    n = min(n, trainer.steps_per_epoch)
+    # the host's step marks (the card's copies are "gpu_user_annotation")
+    marks = sum(e.get("name", "").startswith("ProfilerStep#")
+                and e.get("cat") == "user_annotation" for e in events)
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    # a context that ends inside the bound also marks the step it ends in
+    if marks != (TRACE_STEPS if n > TRACE_STEPS else n + 1) or not kernels:
+        raise AssertionError(f"bounded trace: {marks} of {n} steps marked "
+                             f"(bound {TRACE_STEPS}), {kernels} kernel "
+                             "events")
+    rec = {"trace_steps": marks, "steps_run": n, "trace_bytes": size,
+           "trace_events": len(events), "kernel_events": kernels,
+           "seconds_traced": traced_s, "seconds_untraced": plain_s,
+           "host_rss_added_bytes": rss}
+    log(f"[profile] WN18RR preset ({cfg.model} + {cfg.decoder}), {n} steps "
+        f"with trace(), {marks} recorded: {size} B gzip, "
+        f"{len(events)} events ({kernels} kernel events), "
+        f"{traced_s:.3f} s against {plain_s:.3f} s untraced, host RSS "
+        f"+{rss / 2**20:.1f} MiB")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def toy_profile_run(work: str, seed: int, launches: Launches) -> dict:
+    """The CLI on data/Toy at full width with ``--max_epoch 2 --profile_dir
+    --ckpt_every 1``: the trace of epoch 2 exists, is not empty and names
+    K1's passes; ``periodic.ckpt`` loads and equals the run's final
+    parameters; epoch 2 has no ``steps_per_s`` in metrics.jsonl; every K1
+    launch of the run is counted.  Returns the trace's size and the run's
+    launches."""
+    import gzip
+
+    from kgc_gcn_torch import cli
+    from kgc_gcn_torch.config import Config
+    from kgc_gcn_torch.train.checkpoint import PERIODIC_NAME, load_checkpoint
+    from kgc_gcn_torch.utils.profiling import TRACE_STEPS
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    prof, exp = os.path.join(work, "profile"), os.path.join(work, "exp")
+    final = {}
+    train = cli.train_and_evaluate
+
+    def keep(trainer, *a, **k):                # the run's final parameters
+        best = train(trainer, *a, **k)
+        final.update({n: v.detach().cpu().clone()
+                      for n, v in trainer.model.state_dict().items()})
+        final["steps"] = trainer.steps_per_epoch
+        return best
+
+    cli.train_and_evaluate = keep
+    torch.cuda.synchronize()
+    launches.zero()                                    # the path starts
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["--dataset", "Toy", "--data_dir", data,
+                       "--experiments_dir", exp, "--do_train", "--max_epoch",
+                       "2", "--seed", str(seed), "--profile_dir", prof,
+                       "--ckpt_every", "1"])
+    finally:
+        cli.train_and_evaluate = train
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = launches.read()                              # the path ends
+    steps = final.pop("steps")
+    if rc != 0 or got != (8 * steps + 4, 0, 0, 0, 0, 0, 0, 0, 0):
+        raise AssertionError(f"toy profile run: rc {rc}, launches {got}")
+    (name,) = os.listdir(prof)
+    size = os.path.getsize(os.path.join(prof, name))
+    with gzip.open(os.path.join(prof, name), "rt") as f:
+        events = json.load(f)["traceEvents"]
+    k1 = sum("chunk_sums" in e.get("name", "") for e in events)
+    if not (name.endswith(".pt.trace.json.gz") and size and k1):
+        raise AssertionError(f"toy trace {name}: {size} B, {len(events)} "
+                             f"events, {k1} of K1's pass A")
+    run = os.path.join(exp, "Toy")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f][1:]
+    if [r["epoch"] for r in recs] != [1, 2] or any(
+            "steps_per_s" in r for r in recs):
+        raise AssertionError(f"toy metrics.jsonl: {recs}")
+    cfg = Config.from_json(os.path.join(run, "params.json"))
+    sd, _ = load_checkpoint(os.path.join(run, PERIODIC_NAME), cfg)
+    for n, v in final.items():
+        if not torch.equal(sd[n], v):
+            raise AssertionError(f"periodic.ckpt {n} is not the final value")
+    traced = min(steps, TRACE_STEPS)
+    rec = {"trace_bytes": size, "trace_events": len(events),
+           "trace_bytes_per_step": size / traced, "steps_per_epoch": steps,
+           "steps_traced": traced, "seconds": seconds, "launches": got}
+    log(f"[profile] cli Toy --max_epoch 2 --profile_dir --ckpt_every 1: "
+        f"{seconds:.2f} s; trace of epoch 2 {name}: {size} B gzip, "
+        f"{len(events)} events ({size / traced:.0f} B a step, {traced} of "
+        f"{steps} steps traced), "
+        f"{k1} events of K1's pass A; periodic.ckpt equals the final "
+        f"parameters; epoch 2 left out of steps_per_s; launches "
+        f"{Launches.show(got)}")
+    return rec
+
+
 def cli_epoch(argv, run_dir: str, launches: Launches, want, what: str):
     """One training epoch through the CLI entry point, which writes
     ``run_dir``; the launches from its start to its end (the training path's)
@@ -1425,6 +1680,9 @@ def main() -> int:
     from kgc_gcn_torch.train.negative import NegativeSamplingTrainer
     from kgc_gcn_torch.utils.cuda_build import load_kernels
     from kgc_gcn_torch.utils.device import resolve_device
+    from kgc_gcn_torch.utils.torch_import import (
+        apply_reference_state_dict, load_reference_checkpoint,
+        save_reference_checkpoint)
 
     device = resolve_device("cuda")
     smi = subprocess.run(
@@ -2018,6 +2276,7 @@ def main() -> int:
         assert_topk_match(got.values, got.indices, want.values, want.indices,
                           tol=1e-4)
     enc_err = float((pred.all_ent - ref_ent).abs().max())
+    phase6_ent, phase6_metrics = pred.all_ent.clone(), metrics
     log(f"[serve] kernel encode vs plain encode: all_ent max_abs_err "
         f"{enc_err:.3g} (tol {TOL}); top-10 of 128 queries agree")
 
@@ -2355,7 +2614,6 @@ def main() -> int:
                   args.seed + 7, launches, per_d, name)
         del trainer_d, model_d
         torch.cuda.empty_cache()
-    del graph3, banks3
 
     # 12c. BASELINE config 4: MGCN + ConvE at the WN18RR preset on sampled
     # edges, K = E/8 per half (bench.py's sampled mode): the steps launch no
@@ -2393,6 +2651,153 @@ def main() -> int:
                   "mgcn sampled")
     phase12_s = time.perf_counter() - t12
     log(f"[surface] phase 12 (model surface) {phase12_s:.1f} s")
+
+    # 13. the last single-device modules ------------------------------------------
+    t13 = time.perf_counter()
+    from kgc_gcn_torch.ops import basis, scatter, sorted_ops
+    opt_steps = min(20, TIMED_STEPS)
+
+    # 13a. bench.py's fb15k_cb: MGCN + ConvE at the FB15k-237 preset's widths
+    # with use_pallas, float32 (matmuls, messages, moments) but for the
+    # backward's contrib stream, cast to bf16 before its permutation, on the
+    # corpus of phase 7; per half K1 forward and K1 backward (d_x)
+    cfg_cb = dataset_preset("FB15k-237", seed=args.seed,
+                            compute_dtype="float32", moment_dtype="float32")
+    per_cb = (4, 0, 0, 0, 0, 0, 0, 0, 0)
+    with knob(scatter, "MGCN_CONTRIB", "bf16"):
+        train["fb15k_cb"], paths["fb15k_cb_steps"] = opt_in_steps(
+            cfg_cb, graph3, banks3, launches, per_cb, "fb15k_cb (mgcn, "
+            "KGC_MGCN_CONTRIB=bf16)", args.seed, opt_steps, gen,
+            degenerate=DEGENERATE)
+
+    # 13b. bench.py's rgcn_best: config 3 with the backward's readback of
+    # d_msg in bf16 (K1 sums the bf16 products in float32)
+    per3 = (2, 0, 0, 2, 2, 0, 0, 0, 0)
+    with knob(basis, "BASIS_READBACK", "bf16"):
+        train["rgcn_best"], paths["rgcn_best_steps"] = opt_in_steps(
+            cfg3, graph3, banks3, launches, per3,
+            "rgcn_best (config 3, KGC_BASIS_READBACK=bf16)", args.seed,
+            opt_steps, gen)
+
+    # 13c. bench.py's rgcn_block: config 3 with 10 block-diagonal relation
+    # weights (10 x 10 x 20 blocks); per half K1 forward (dst order) and K1
+    # backward (d_x in src order); then a CLI epoch, its checkpoint served
+    cfg_blk = cfg3.replace(num_bases=0, num_blocks=10)
+    per_blk = (4, 0, 0, 0, 0, 0, 0, 0, 0)
+    train["rgcn_block"], paths["rgcn_block_steps"] = opt_in_steps(
+        cfg_blk, graph3, banks3, launches, per_blk,
+        "rgcn_block (config 3, 10 blocks)", args.seed, opt_steps, gen)
+    est_blk_s = (-(-2 * ds3.num_edge // cfg_blk.batch_size)
+                 / train["rgcn_block"]["steps_per_s"])
+    blk_root, ds_blk = fb_root, ds3
+    if est_blk_s > BLOCK_EPOCH_LIMIT_S:
+        # both the steps and each step's edge work scale with the triples
+        n_cut = int(FB15K237[2] * math.sqrt(BLOCK_EPOCH_LIMIT_S / est_blk_s))
+        blk_root = os.path.join(work.name, "fb_block")
+        write_corpus(os.path.join(blk_root, "SYN3"), args.seed,
+                     (*FB15K237[:2], n_cut, *FB15K237[3:]))
+        ds_blk = load_dataset("SYN3", blk_root)
+        log(f"[block] rgcn_block CLI epoch cut: {est_blk_s:.1f} s estimated "
+            f"at full size > {BLOCK_EPOCH_LIMIT_S} s; {n_cut} train triples")
+    exp_blk = os.path.join(work.name, "experiments_block")
+    run_blk = os.path.join(exp_blk, "SYN3")
+    flags_blk = ["--model", "rgcn", "--decoder", "distmult", "--num_bases",
+                 "0", "--num_blocks", "10", "--train_mode",
+                 "negative_sampling", "--compute_dtype", "float32",
+                 "--moment_dtype", "float32", "--learning_rate",
+                 str(cfg3.learning_rate), "--gcn_drop", str(cfg3.gcn_drop)]
+    blk_steps = -(-2 * ds_blk.num_edge // cfg_blk.batch_size)
+    paths["rgcn_block_train"], ep = cli_epoch(
+        ["--dataset", "SYN3", "--data_dir", blk_root, "--experiments_dir",
+         exp_blk, "--do_train", "--max_epoch", "1", "--eval_every", "1",
+         "--seed", str(args.seed)] + flags_blk,
+        run_blk, launches, (4 * blk_steps + 2, 0, 0, 0, 0, 0, 0, 0, 0),
+        f"cli --num_blocks 10 --max_epoch 1 ({blk_steps} steps, "
+        f"{ds_blk.num_edge} train triples)")
+    train["rgcn_block"]["cli_epoch_s"] = ep["sec"]
+    id2ent = {i: e for e, i in ds_blk.entity2id.items()}
+    id2rel = {i: r for r, i in ds_blk.relation2id.items()}
+    test_blk = ds_blk.test_triples[:512]
+    qfile_blk = os.path.join(work.name, "queries_block.txt")
+    with open(qfile_blk, "w") as f:
+        f.write("".join(f"{id2ent[a]}\t{id2rel[b]}\n" for a, b, _ in test_blk))
+    paths["rgcn_block_serve"], metrics_blk = cli_serve(
+        ["--dataset", "SYN3", "--data_dir", blk_root, "--restore_dir",
+         run_blk, "--experiments_dir", os.path.join(work.name, "serve_block")],
+        qfile_blk, len(test_blk), ds_blk.entity2id, launches,
+        (4, 0, 0, 0, 0, 0, 0, 0, 0), "rgcn_block")
+    graph_blk, banks_blk = graph3, banks3
+    if blk_root != fb_root:
+        graph_blk = build_graph(ds_blk.train_triples, ds_blk.num_entity,
+                                ds_blk.num_relation).to(device)
+        banks_blk = make_banks(ds_blk, device)
+    served_encode(run_blk, ds_blk, graph_blk, banks_blk, test_blk[:128],
+                  metrics_blk, "rgcn_block")
+    del graph_blk, banks_blk, graph3, banks3
+    torch.cuda.empty_cache()
+
+    # 13d. bench.py's rgat_pallas with edge_compose's d_h stream in bf16
+    per_a = (10, 0, 0, 0, 0, 2, 0, 0, 0)
+    with knob(sorted_ops, "EDGE_CONTRIB", "bf16"):
+        train["rgat_edge_bf16"], paths["rgat_edge_bf16_steps"] = opt_in_steps(
+            cfg_a, graph, banks, launches, per_a,
+            "rgat_pallas (KGC_EDGE_CONTRIB=bf16)", args.seed, opt_steps, gen,
+            cancelling=RGAT_DEGENERATE)
+
+    # 13e. MGCN halves at the WN18RR preset (use_pallas) with bwd_perm
+    # operands and fwdw, which compute contrib's gradients; one step's
+    # gradients of each against contrib's
+    per_h = (4, 0, 0, 0, 0, 0, 0, 0, 0)
+    for perm in ("operands", "fwdw"):
+        cfg_p = dataset_preset("WN18RR", seed=args.seed, bwd_perm=perm)
+        train[f"mgcn_{perm}"], paths[f"mgcn_{perm}_steps"] = opt_in_steps(
+            cfg_p, graph, banks, launches, per_h, f"mgcn bwd_perm={perm}",
+            args.seed, opt_steps, gen, degenerate=DEGENERATE)
+    perm_errs = bwd_perm_grads(ds, graph, banks, args.seed, gen)
+
+    # 13f. one CLI run on data/Toy: 2 epochs, epoch 2 traced, a periodic
+    # checkpoint every epoch
+    toy = toy_profile_run(os.path.join(work.name, "toy"), args.seed, launches)
+    paths["toy_profile_train"] = toy.pop("launches")
+    # and the trace's bound at the WN18RR preset's widths
+    toy["wn18rr_trace"] = bounded_trace(
+        graph, banks, os.path.join(work.name, "wn18rr_trace"), args.seed)
+
+    # 13g. --restore_torch: phase 5's weights in the reference's format,
+    # read back by the CLI (--do_test, --do_predict) and in process
+    cfg5 = Config.from_json(os.path.join(run_dir, "params.json"))
+    model = build_model(cfg5, ds.num_entity, ds.num_relation, ds.num_edge,
+                        e_pad=graph.e_pad)
+    state_dict, best5 = load_checkpoint(run_dir, cfg5)
+    model.load_state_dict(state_dict)
+    ref_ckpt = os.path.join(work.name, "reference_last.ckpt")
+    save_reference_checkpoint(ref_ckpt, model.to(device), graph, best5)
+    paths["restore_torch_serve"], metrics_rt = cli_serve(
+        ["--dataset", "SYN", "--data_dir", corpus_root, "--restore_torch",
+         ref_ckpt, "--experiments_dir", os.path.join(work.name, "serve_rt")],
+        qfile, len(test), ds.entity2id, launches,
+        (4, 0, 0, 0, 0, 0, 0, 0, 0), "mgcn --restore_torch")
+    imported = build_model(cfg5, ds.num_entity, ds.num_relation, ds.num_edge,
+                           e_pad=graph.e_pad)
+    apply_reference_state_dict(imported, load_reference_checkpoint(
+        ref_ckpt, graph)[0])
+    imported = imported.to(device).eval()
+    with torch.no_grad():
+        rt_ent = imported.encode(graph)[0]
+    if not torch.equal(rt_ent, phase6_ent):
+        raise AssertionError(
+            "--restore_torch encode differs from phase 6's: max abs err "
+            f"{float((rt_ent - phase6_ent).abs().max()):.3g}")
+    check_cli_metrics(metrics_rt, phase6_metrics, ds.num_entity,
+                      "--restore_torch")
+    log(f"[restore_torch] phase 5's weights through save_reference_checkpoint"
+        f" ({os.path.getsize(ref_ckpt)} B) and --restore_torch: encode equal "
+        f"to phase 6's to the bit; test metrics {metrics_rt}")
+    del model, imported, rt_ent
+    torch.cuda.empty_cache()
+    phase13_s = time.perf_counter() - t13
+    log(f"[phase13] the last single-device modules {phase13_s:.1f} s; "
+        f"bwd_perm gradients vs contrib {perm_errs}; toy profile run {toy}")
     work.cleanup()
 
     paths.update({"mgcn_train": train_launches, "mgcn_serve": serve_launches,
@@ -2426,7 +2831,8 @@ def main() -> int:
             "cases": {"max_abs_err": ew_errs[key]},
         })
     log(f"[smoke] {torch.cuda.get_device_name(0)}; {smi}; whole script "
-        f"{time.perf_counter() - t_start:.1f} s, phase 12 {phase12_s:.1f} s")
+        f"{time.perf_counter() - t_start:.1f} s, phase 12 {phase12_s:.1f} s, "
+        f"phase 13 {phase13_s:.1f} s")
     log(json.dumps({"training": train, "serve_rgat": serve_rgat,
                     "serve_mgcn_stacked": serve_stacked, "few_sum": {
                         k: v for k, v in timings.items()

@@ -23,16 +23,25 @@ negative_sampling``), and writes ``params.json``, ``train.log``,
 checkpoint, optimizer state included, and ``--init_embeddings`` warm-starts
 the embedding tables from an ``.npz`` first.  ``--do_test`` and
 ``--do_predict`` serve a checkpoint that either package wrote
-(``--restore_dir``, whose ``params.json`` supplies the model-shape flags);
-``--do_test --per_relation`` also writes ``per_relation.json``.
+(``--restore_dir``, whose ``params.json`` supplies the model-shape flags),
+or the reference implementation's own PyTorch ``last.ckpt``
+(``--restore_torch``; MGCN + ConvE with one layer, which training continues
+from with fresh optimizer moments); ``--do_test --per_relation`` also
+writes ``per_relation.json``.  ``--profile_dir D`` writes a
+``torch.profiler`` trace of training epoch 2 into D; ``--ckpt_every K``
+writes ``periodic.ckpt`` every K epochs in the background.
 ``--device`` (default ``cuda``) picks the card or, when asked for, the CPU.
 ``--spmm_mode`` picks MGCN's aggregation schedule (``ew_impl``, as in the
 JAX CLI, has no flag: it is a ``Config`` field).  The flags that steer only
 the JAX package's TPU schedules (``--prng_impl``, ``--compile_cache_dir``,
-``--bwd_perm``, ``--rel_compose``, ``--remat``, ``--no_scan_epoch``,
+``--rel_compose``, ``--remat``, ``--no_scan_epoch``,
 ``--use_pallas``, ``--no_use_pallas``) are accepted and have no effect,
 except that ``sub``/``corr`` are refused with an explicit ``--use_pallas``
-or with ``--edge_sample_size``, as in the JAX CLI.
+or with ``--edge_sample_size``, as in the JAX CLI, and that with
+``use_pallas`` the opt-in bf16 cotangent streams (``KGC_MGCN_CONTRIB``,
+``KGC_EDGE_CONTRIB``, ``KGC_BASIS_READBACK``) apply, as in the JAX package
+(``--bwd_perm`` computes ``contrib``'s gradients whatever its value;
+``config.py`` says where it differs).
 """
 
 from __future__ import annotations
@@ -60,6 +69,9 @@ from kgc_gcn_torch.train.loop import (
 from kgc_gcn_torch.train.negative import NegativeSamplingTrainer
 from kgc_gcn_torch.utils.device import resolve_device
 from kgc_gcn_torch.utils.logging import set_logger
+from kgc_gcn_torch.utils.torch_import import (
+    apply_reference_state_dict, params_from_reference_state_dict,
+    read_reference_checkpoint)
 
 _NO_EFFECT = "accepted for compatibility with kgc_gcn_tpu; no effect here"
 
@@ -140,7 +152,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prng_impl", default="rbg",
                    choices=["threefry", "rbg", "unsafe_rbg"], help=_NO_EFFECT)
     p.add_argument("--bwd_perm", default="contrib",
-                   choices=["contrib", "operands", "fwdw"], help=_NO_EFFECT)
+                   choices=["contrib", "operands", "fwdw"],
+                   help="MGCN backward's permutation schedule; the port "
+                        "computes contrib's gradients for all three")
     p.add_argument("--rel_compose", default="gather",
                    choices=["gather", "onehot"], help=_NO_EFFECT)
     p.add_argument("--compute_dtype", default=None,
@@ -148,9 +162,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="matmul operands and aggregation messages; sums "
                         "stay float32")
     p.add_argument("--use_pallas", dest="use_pallas", action="store_const",
-                   const=True, default=None, help=_NO_EFFECT)
+                   const=True, default=None,
+                   help="the JAX package's kernel path: the bf16 streams "
+                        "apply")
     p.add_argument("--no_use_pallas", dest="use_pallas",
-                   action="store_const", const=False, help=_NO_EFFECT)
+                   action="store_const", const=False)
     p.add_argument("--spmm_mode", default="halves",
                    choices=["halves", "stacked", "stacked_xla"],
                    help="MGCN's aggregation schedule: per direction half "
@@ -227,14 +243,11 @@ def config_from_args(args: argparse.Namespace) -> Config:
     return cfg
 
 
-def _check_ported(cfg: Config, args: argparse.Namespace) -> None:
+def _check_ported(cfg: Config) -> None:
     """Raise on what the port cannot run yet (ROADMAP.md §1)."""
     unported = [
-        ("--restore_torch", cfg.restore_torch is not None, 5),
         ("--partition", cfg.partition != "contiguous", 8),
         ("--data_axis/--graph_axis", cfg.data_axis * cfg.graph_axis > 1, 8),
-        ("--ckpt_every (orbax async checkpoints)", cfg.ckpt_every > 0, 9),
-        ("--profile_dir", args.profile_dir is not None, 9),
     ]
     for flag, bad, item in unported:
         if bad:
@@ -274,12 +287,23 @@ def main(argv=None) -> int:
     cfg = config_from_args(args)
     if cfg.do_train and cfg.do_test:
         raise ValueError("Can not perform training and testing at one time")
-    _check_ported(cfg, args)
-    if (cfg.do_test or args.do_predict) and cfg.restore_dir is None:
+    _check_ported(cfg)
+    if ((cfg.do_test or args.do_predict) and cfg.restore_dir is None
+            and cfg.restore_torch is None):
         raise ValueError("Must specify restore dir for testing or prediction")
     if args.do_predict and not args.predict_file:
         raise ValueError("--do_predict needs --predict_file")
     device = resolve_device(args.device)
+    ref_sd = None
+    if cfg.restore_torch is not None:
+        if (cfg.model, cfg.decoder, cfg.num_layers) != ("mgcn", "conve", 1):
+            raise ValueError("--restore_torch imports the reference "
+                             "architecture only (model=mgcn decoder=conve "
+                             "num_layers=1)")
+        ref_sd, ref_measure = read_reference_checkpoint(cfg.restore_torch)
+        # the imported tree brings ConvE's conv bias or not, whatever the
+        # flag says (kgc_gcn_tpu/utils/torch_import.py:88-90)
+        cfg = cfg.replace(bias="conv2.conv_e.bias" in ref_sd)
 
     model_dir = os.path.join(cfg.experiments_dir, cfg.dataset)
     os.makedirs(model_dir, exist_ok=True)
@@ -301,9 +325,20 @@ def main(argv=None) -> int:
         logging.info("Initialized embedding tables from %s",
                      args.init_embeddings)
     best, opt_state = 0.0, None
+    if ref_sd is not None:
+        # after any warm start; a fresh optimizer state; its measure is the
+        # best so far; --restore_dir still wins (kgc_gcn_tpu/cli.py:381-399)
+        apply_reference_state_dict(
+            model, params_from_reference_state_dict(ref_sd, graph))
+        best = ref_measure
+        logging.info("Imported reference checkpoint %s (measure: %s)",
+                     cfg.restore_torch, best)
     if cfg.restore_dir is not None:
         state_dict, best, *opt = load_checkpoint(
             cfg.restore_dir, cfg, with_opt_state=cfg.do_train)
+        if cfg.model == "mgcn":
+            # the file's conv bias or none, whatever the model held
+            model.conv.set_bias(state_dict.get("conv.bias"))
         model.load_state_dict(state_dict)
         opt_state = opt[0] if opt else None
         logging.info("Restored model from %s with best measure: %s",
@@ -322,7 +357,8 @@ def main(argv=None) -> int:
         logging.info("Training %s+%s, %s, loss_impl=%s, on %s", cfg.model,
                      cfg.decoder, cfg.train_mode, trainer.loss_impl, device)
         best = train_and_evaluate(trainer, model_dir, best,
-                                  seed=cfg.seed % 2**32)
+                                  seed=cfg.seed % 2**32,
+                                  profile_dir=args.profile_dir)
     if cfg.do_test and args.per_relation:
         write_per_relation(cfg, model, graph, banks, ds.relation2id,
                            ds.num_relation, model_dir)

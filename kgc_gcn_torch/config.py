@@ -10,9 +10,16 @@ written by either package loads in the other.
 with ``use_pallas``; the port always runs its kernels on the card, so it
 reads them whatever ``use_pallas`` says.
 
+``use_pallas`` marks the JAX package's kernel path: with it the opt-in bf16
+cotangent streams (``KGC_MGCN_CONTRIB``, ``KGC_EDGE_CONTRIB``,
+``KGC_BASIS_READBACK``) apply where they apply in the JAX package, and
+MGCN's ``bwd_perm`` ``operands`` and ``fwdw`` take the backward's products
+off K4b, as the JAX package takes them off its kernel; the port computes
+``contrib``'s gradients for all three.
+
 Fields that only steer the JAX package's TPU schedules are accepted and have
 no effect here: ``prng_impl``, ``compile_cache_dir``, ``conv_impl``,
-``rel_compose``, ``bwd_perm``, ``remat``, ``scan_epoch`` and ``use_pallas``.
+``rel_compose``, ``remat`` and ``scan_epoch``.
 """
 
 from __future__ import annotations
@@ -85,11 +92,11 @@ class Config:
                                      # aggregation messages; sums stay float32
     moment_dtype: str = "float32"    # Adam moment storage (training)
     conv_impl: str = "im2col"        # no effect on the port
-    use_pallas: bool = False         # no effect on the port
+    use_pallas: bool = False         # bwd_perm and the bf16 streams apply
     spmm_mode: str = "halves"        # halves | stacked | stacked_xla (MGCN)
     agg_schedule: str = "fused"      # fused | reference (bench-only schedule)
     ew_impl: str = "xla"             # xla | pallas (MGCN halves: K4a/K4b)
-    bwd_perm: str = "contrib"        # no effect on the port
+    bwd_perm: str = "contrib"        # contrib | operands | fwdw: one schedule
     rel_compose: str = "gather"      # no effect on the port
     loss_impl: str = "auto"          # auto | dense | sparse | fused (training)
     prng_impl: str = "rbg"           # no effect on the port

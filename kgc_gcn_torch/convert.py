@@ -5,7 +5,9 @@ The port keeps the JAX parameter layout and names, so a JAX ``MGCNParams`` /
 ``models.rgcn.RGCN`` and an ``RGATParams`` onto ``models.rgat.RGAT``, with
 any decoder, by name alone, with no transposes.  Leaves travel
 as numpy arrays keyed by their dotted JAX paths (``entity_embedding``,
-``conv.in_weight``, ``decoder.bn0.scale``, ``layers.0.basis``,
+``conv.in_weight``, ``conv.bias`` where a checkpoint brought MGCN's
+optional conv bias, ``decoder.bn0.scale``, ``layers.0.basis``,
+``layers.0.blocks`` in R-GCN's block mode,
 ``extra_convs.0.in_weight``, ``extra_edge_embeddings.0``; ``conv_bn.mean``,
 ``decoder.bn1.var``, ``extra_bn.0.var`` for the state).  The optimizer state
 follows the parameters' order (``opt_state_leaves``).
@@ -45,14 +47,19 @@ def _decoder_leaf_names(cfg: Config) -> Tuple[List[str], List[str]]:
     return params, state
 
 
-def jax_leaf_names(cfg: Config) -> Tuple[List[str], List[str]]:
+def jax_leaf_names(cfg: Config, conv_bias: bool = False
+                   ) -> Tuple[List[str], List[str]]:
     """Dotted paths of the JAX model's parameters and of its state, each in
     the order ``jax.tree.flatten`` lists them (dataclass field order; the
-    ``None`` leaves, such as RGCN's ``blocks`` in basis mode or MGCN's conv
-    ``bias``, drop out), for every family and decoder."""
+    ``None`` leaves, such as RGCN's ``blocks`` in basis mode, its ``basis``
+    and ``coeff`` in block mode, or MGCN's conv ``bias``, drop out), for
+    every family and decoder.  ``conv_bias`` lists MGCN's first conv bias,
+    which only an imported reference checkpoint brings."""
     dec_params, dec_state = _decoder_leaf_names(cfg)
     depth = max(1, cfg.num_layers)
-    layer_leaves = {"rgcn": ("basis", "coeff", "self_weight"),
+    rgcn = (("blocks", "self_weight") if cfg.num_blocks > 0
+            else ("basis", "coeff", "self_weight"))
+    layer_leaves = {"rgcn": rgcn,
                     "rgat": ("weight", "rel_mult", "att_src", "att_dst",
                              "rel_bias", "self_weight")}.get(cfg.model)
     if layer_leaves:
@@ -63,7 +70,8 @@ def jax_leaf_names(cfg: Config) -> Tuple[List[str], List[str]]:
     conv = lambda p: [f"{p}.{w}" for w in _CONV] + _bn(f"{p}.bn")
     extra = range(depth - 1)
     params = (["entity_embedding", "relation_embedding", "edge_embeddings"]
-              + conv("conv") + dec_params
+              + conv("conv") + (["conv.bias"] if conv_bias else [])
+              + dec_params
               + [n for i in extra for n in conv(f"extra_convs.{i}")]
               + [f"extra_edge_embeddings.{i}" for i in extra])
     state = (_bn("conv_bn", _STATS) + dec_state
@@ -83,9 +91,21 @@ def _module_key(state_name: str) -> str:
     return state_name
 
 
+def has_conv_bias(model) -> bool:
+    """Whether an MGCN model holds the optional first conv bias."""
+    conv = getattr(model, "conv", None)
+    return getattr(conv, "bias", None) is not None
+
+
+def model_leaf_names(model, cfg: Config) -> Tuple[List[str], List[str]]:
+    """``jax_leaf_names`` of this model (with its conv bias, if any)."""
+    return jax_leaf_names(cfg, has_conv_bias(model))
+
+
 def model_params(model, cfg: Config) -> List[torch.Tensor]:
     """The model's parameters in JAX leaf order (the optimizer's order)."""
-    return [model.get_parameter(name) for name in jax_leaf_names(cfg)[0]]
+    return [model.get_parameter(name)
+            for name in model_leaf_names(model, cfg)[0]]
 
 
 def params_to_numpy(model, cfg: Config
@@ -93,7 +113,7 @@ def params_to_numpy(model, cfg: Config
     """Inverse of ``params_from_numpy``: the model's parameters and BN
     statistics as ``{JAX path: float32 array}`` pairs, in JAX leaf order."""
     sd = model.state_dict()
-    p_names, s_names = jax_leaf_names(cfg)
+    p_names, s_names = model_leaf_names(model, cfg)
     arr = lambda t: t.detach().to("cpu", torch.float32).numpy()
     return ({n: arr(sd[n]) for n in p_names},
             {n: arr(sd[_module_key(n)]) for n in s_names})

@@ -14,8 +14,6 @@ def _unported(cfg: Config):
     """(flag, ROADMAP.md §1 item, refused) for each setting the port cannot
     run yet."""
     return [
-        (f"num_blocks={cfg.num_blocks} (rgcn block mode)", 7,
-         cfg.model == "rgcn" and cfg.num_blocks > 0),
         (f"entity_sharded={cfg.entity_sharded!r}", 8,
          cfg.entity_sharded != "none"),
     ]

@@ -55,6 +55,7 @@ from kgc_gcn_torch.data.graph import Graph, padded_edge_count
 from kgc_gcn_torch.models.common import BatchNorm, dropout, mm, xavier_uniform
 from kgc_gcn_torch.models.decoders import build_decoder
 from kgc_gcn_torch.models.family_base import DecoderFamilyMixin
+from kgc_gcn_torch.ops import scatter
 from kgc_gcn_torch.ops.fused_compose import aggregate_stacked
 from kgc_gcn_torch.ops.kernels import KERNELS, Kernels
 from kgc_gcn_torch.ops.sampler import aggregate_sampled_half, sample_half
@@ -75,9 +76,16 @@ class MGCNConv(nn.Module):
         self.rels_weight = p(d_in, d_out)
         self.loop_rel = p(1, d_in)
         self.loop_edge = p(1, d_in)
-        # no conv bias: the JAX package's MGCN.init never creates one, even
-        # with cfg.bias (which adds ConvE's conv_b only)
         self.bn = BatchNorm(d_out)
+        # the optional (d_out,) conv bias (mgcn.py:54): init never makes it,
+        # even with cfg.bias (which adds ConvE's conv_b only); only an
+        # imported reference checkpoint brings it (``set_bias``)
+        self.register_parameter("bias", None)
+
+    def set_bias(self, bias: Optional[torch.Tensor]) -> None:
+        """Give the layer a conv bias with these values, or none."""
+        self.bias = None if bias is None else nn.Parameter(
+            bias.detach().to(self.bn.scale.device, torch.float32).clone())
 
 
 def _edge_table(n_edge: int, e_pad: int, d: int,
@@ -111,6 +119,18 @@ def check_config(cfg: Config) -> None:
             f"composition={cfg.composition!r} cannot run on K3 "
             "(spmm_mode='stacked') or K4a/K4b (ew_impl='pallas'): they "
             "compose by multiplication")
+
+
+def _contrib_dtype(cfg: Config, bwd_perm: str, k4b: bool) -> str:
+    """The type of the backward's d_x stream (``ops/scatter.py``): bf16
+    where the JAX package casts it under ``MGCN_CONTRIB=bf16``
+    (``spmm_pallas.py:664-668``: the ``use_pallas`` path, float32 messages,
+    the ``contrib`` schedule's plain products, not K4b), else the message
+    type."""
+    bf16 = (cfg.use_pallas and scatter.MGCN_CONTRIB == "bf16"
+            and cfg.compute_dtype == "float32" and bwd_perm == "contrib"
+            and not k4b)
+    return "bfloat16" if bf16 else cfg.compute_dtype
 
 
 class MGCN(DecoderFamilyMixin, nn.Module):
@@ -196,7 +216,8 @@ class MGCN(DecoderFamilyMixin, nn.Module):
                 # (mgcn.py:272-285)
                 in_agg, out_agg = aggregate_stacked_xla(
                     x, rel_all, etab2, graph.stacked, self.n_ent, dt,
-                    kernels.seg_sum, composition=cfg.composition)
+                    kernels.seg_sum, composition=cfg.composition,
+                    contrib_dtype=_contrib_dtype(cfg, "contrib", k4b=False))
             in_res, out_res = (mm(in_agg, c.in_weight, dt),
                                mm(out_agg, c.out_weight, dt))
         elif cfg.agg_schedule == "reference":
@@ -234,14 +255,21 @@ class MGCN(DecoderFamilyMixin, nn.Module):
                     et_full: torch.Tensor, graph: Graph, kernels: Kernels
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Both direction halves of a (2, E_pad, d) edge table through K1
-        (``mgcn.py:_agg_halves``), with K4a/K4b under ``ew_impl=pallas``."""
+        (``mgcn.py:_agg_halves``), with K4a/K4b under ``ew_impl=pallas``.
+        With ``use_pallas`` the JAX package's ``bwd_perm`` ``operands`` and
+        ``fwdw`` compose the backward's products in XLA, not K4b
+        (``spmm_pallas.py:651-662``); the port takes its plain products
+        there, and the ``contrib`` schedule's gradients for all three."""
         cfg = self.cfg
-        ew = ((kernels.compose_msg, kernels.bwd_products)
+        perm = cfg.bwd_perm if cfg.use_pallas else "contrib"
+        k4b = cfg.ew_impl == "pallas" and perm == "contrib"
+        ew = ((kernels.compose_msg, kernels.bwd_products if k4b else None)
               if cfg.ew_impl == "pallas" else None)
         return tuple(
             aggregate_half(x, rel_all, et_full[i], half, self.n_ent,
                            cfg.compute_dtype, kernels.seg_sum, ew=ew,
-                           composition=cfg.composition)
+                           composition=cfg.composition,
+                           contrib_dtype=_contrib_dtype(cfg, perm, k4b))
             for i, half in enumerate((graph.inb, graph.outb)))
 
     def _combine(self, c: MGCNConv, x: torch.Tensor, rel_all: torch.Tensor,
@@ -259,6 +287,8 @@ class MGCN(DecoderFamilyMixin, nn.Module):
                + dropout(out_res, cfg.conv_drop, rngs.get(f"conv_out{site}"),
                          train)
                + loop_res) / 3.0
+        if c.bias is not None:
+            out = out + c.bias
         return (torch.tanh(c.bn(out, train)),
                 mm(rel_all, c.rels_weight, dt)[:-1])
 

@@ -36,6 +36,7 @@ from kgc_gcn_torch.data.graph import Graph, GraphHalf
 from kgc_gcn_torch.models.common import dropout, xavier_uniform
 from kgc_gcn_torch.models.decoders import build_decoder
 from kgc_gcn_torch.models.family_base import DecoderFamilyMixin
+from kgc_gcn_torch.ops import sorted_ops
 from kgc_gcn_torch.ops.kernels import KERNELS, Kernels
 from kgc_gcn_torch.ops.sorted_ops import (
     edge_compose, gather_rows_few, gather_rows_sorted, segment_sum_sorted)
@@ -85,12 +86,15 @@ class RGATLayer(nn.Module):
         self.self_weight = p(d_in, d_out)
 
     def attend(self, h: torch.Tensor, half: GraphHalf, n_ent: int,
-               kernels: Kernels) -> torch.Tensor:
+               kernels: Kernels,
+               contrib_dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """One direction's attention aggregation -> (N, d_out)
-        (``rgat.py:_attend_half`` with ``use_pallas``)."""
+        (``rgat.py:_attend_half`` with ``use_pallas``); ``contrib_dtype`` is
+        the type of ``edge_compose``'s d_h stream."""
         nh, dh = self.att_src.shape
         seg_sum = kernels.seg_sum
-        z = edge_compose(h, self.rel_mult, half, seg_sum)       # (E, d_out)
+        z = edge_compose(h, self.rel_mult, half, seg_sum,
+                         contrib_dtype)                         # (E, d_out)
         score_dst = h @ block_matrix(self.att_dst)              # (N, H)
         sd_e = gather_rows_sorted(score_dst, half.dst, half.indptr, n_ent,
                                   seg_sum)
@@ -146,10 +150,14 @@ class RGAT(DecoderFamilyMixin, nn.Module):
         versions."""
         rngs = rngs or {}
         x = self.entity_embedding
+        # KGC_EDGE_CONTRIB applies on the JAX package's use_pallas path
+        # (spmm_pallas.py:1588-1596)
+        stream = (torch.bfloat16 if self.cfg.use_pallas
+                  and sorted_ops.EDGE_CONTRIB == "bf16" else torch.float32)
         for i, layer in enumerate(self.layers):
             h = x @ layer.weight
-            agg = (layer.attend(h, graph.inb, self.n_ent, kernels)
-                   + layer.attend(h, graph.outb, self.n_ent, kernels)
+            agg = (layer.attend(h, graph.inb, self.n_ent, kernels, stream)
+                   + layer.attend(h, graph.outb, self.n_ent, kernels, stream)
                    + x @ layer.self_weight)
             x = dropout(torch.relu(agg), self.cfg.gcn_drop,
                         rngs.get(f"layer{i}"), train)

@@ -19,6 +19,15 @@ coefficients ``a = coeff[rel]``, over edges sorted by destination:
     K1 over ``s_indptr``, and ``d_coeff`` with ``segment_sum_few`` over the
     relation rows.
 
+``BASIS_READBACK`` (``KGC_BASIS_READBACK``, ``spmm_pallas.py:86,1515-1525``)
+picks how ``d_msg`` is read back into src order for d_x: ``wide`` and
+``narrow`` (the default and a TPU layout of the same numbers) permute the
+float32 ``d_msg · norm``; ``bf16`` casts ``d_msg`` and the src-order norm to
+bf16 first and multiplies them in bf16, and K1 sums the product in float32.
+It applies where the JAX package's band backward runs: ``use_pallas``, at
+most 128 bases; ``models/rgcn.py`` passes ``basis_aggregate`` the
+readback's type.
+
 Both wrappers run their plain version on a CPU tensor and launch their
 kernel (``csrc/basis_rgcn.cu``) on a CUDA tensor or raise.  Where a whole
 row does not fit in one K8 block's shared memory, K8 takes d in column
@@ -29,6 +38,7 @@ kernel calls only.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Tuple
 
 import torch
@@ -36,6 +46,12 @@ import torch
 from kgc_gcn_torch.data.graph import GraphHalf
 from kgc_gcn_torch.ops.scatter import segment_sum_few
 from kgc_gcn_torch.utils.cuda_build import check_launch, load_kernels
+
+# The backward's src-order readback of d_msg (wide | narrow | bf16).
+BASIS_READBACK = os.environ.get("KGC_BASIS_READBACK", "wide")
+# The JAX package's band backward (and so its readback knob) takes at most
+# this many bases (rgcn.py:prepare_kernels).
+BASIS_READBACK_MAX_BASES = 128
 
 # Shared memory K8 may ask for (one block's opt-in maximum on the H100,
 # kMaxSmem in csrc/basis_rgcn.cu).
@@ -245,11 +261,13 @@ class _BasisAggregate(torch.autograd.Function):
     ``coeff`` (``spmm_pallas.py:_basis_agg_fwd``, ``_basis_agg_bwd``)."""
 
     @staticmethod
-    def forward(ctx, x, coeff, half: GraphHalf, n_ent: int, kernels):
+    def forward(ctx, x, coeff, half: GraphHalf, n_ent: int, kernels,
+                readback_dtype: torch.dtype):
         msg = x[half.src.long()] * half.norm[:, None]
         a = coeff[half.rel.long()]
         ctx.save_for_backward(msg, a)
         ctx.half, ctx.kernels, ctx.n_coeff = half, kernels, coeff.shape[0]
+        ctx.readback_dtype = readback_dtype
         return kernels.basis_sum(msg, a, half.dst, half.indptr, n_ent)
 
     @staticmethod
@@ -258,7 +276,14 @@ class _BasisAggregate(torch.autograd.Function):
         half, kernels = ctx.half, ctx.kernels
         d_msg, d_a = kernels.basis_bwd(g.contiguous(), msg, a, half.dst,
                                        half.indptr)
-        contrib = (d_msg * half.norm[:, None])[half.sperm.long()]
+        sperm = half.sperm.long()
+        if ctx.readback_dtype == torch.bfloat16:
+            # bf16 before the permutation, the product rounded to bf16
+            # (spmm_pallas.py:1517-1524)
+            contrib = (d_msg.to(torch.bfloat16)[sperm]
+                       * half.s_norm.to(torch.bfloat16)[:, None])
+        else:
+            contrib = (d_msg * half.norm[:, None])[sperm]
         d_x = kernels.seg_sum(contrib, half.s_src, half.s_indptr,
                               half.s_indptr.shape[0] - 1)
         # the rel-sorted view's pointers cover every relation row of the
@@ -267,13 +292,17 @@ class _BasisAggregate(torch.autograd.Function):
         d_coeff = segment_sum_few(d_a, half.rel, n_seg,
                                   (half.rperm, half.r_indptr, half.r_rel),
                                   kernels.seg_sum)[:ctx.n_coeff]
-        return d_x, d_coeff, None, None, None
+        return d_x, d_coeff, None, None, None, None
 
 
 def basis_aggregate(x: torch.Tensor, coeff: torch.Tensor, half: GraphHalf,
-                    n_ent: int, kernels) -> torch.Tensor:
+                    n_ent: int, kernels,
+                    readback_dtype: torch.dtype = torch.float32
+                    ) -> torch.Tensor:
     """(N, d) entities and (2R, B) coefficients -> (N, B·d) float32 per-basis
     aggregates of one direction half; ``kernels`` is an
     ``ops.kernels.Kernels`` bundle (``basis_sum``, ``basis_bwd``,
-    ``seg_sum``)."""
-    return _BasisAggregate.apply(x, coeff, half, n_ent, kernels)
+    ``seg_sum``); ``readback_dtype`` bf16 takes ``BASIS_READBACK=bf16``'s
+    readback, float32 the default's."""
+    return _BasisAggregate.apply(x, coeff, half, n_ent, kernels,
+                                 readback_dtype)

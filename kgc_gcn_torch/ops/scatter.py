@@ -31,14 +31,22 @@ The MGCN schedules of ``spmm_mode`` and ``ew_impl`` (``models/mgcn.py``):
     over the stacked src order for d_x.
   * ``stacked``: ``ops/fused_compose.py:aggregate_stacked`` (K3).
 
-The JAX package's other backward schedules (``bwd_perm`` ``operands`` and
-``fwdw``) and its one-hot relation rows (``rel_compose=onehot``) compute the
-same gradients in another order of operations on the TPU; the port runs
-``contrib`` and the gather.
+``contrib_dtype`` is the type of the d_x cotangent stream that the backward
+permutes into src order and K1 sums in float32: the message type, or bf16
+where the model takes the JAX package's opt-in ``MGCN_CONTRIB`` stream
+(``KGC_MGCN_CONTRIB``, ``spmm_pallas.py:81,664-668``; ``models/mgcn.py``
+decides where it applies).  The JAX package's other backward schedules
+(``bwd_perm`` ``operands`` and ``fwdw``, ``spmm_pallas.py:590-605,680-706``)
+place the same permutation elsewhere and compute the same gradients
+(``operands`` to the bit); the port runs ``contrib`` for all three.
+
+The one-hot relation rows (``rel_compose=onehot``) are a TPU layout of the
+same gather; the port runs the gather.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -47,6 +55,9 @@ from kgc_gcn_torch.data.graph import GraphHalf
 from kgc_gcn_torch.ops.segment_sum import segment_sum
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# The opt-in bf16 contrib stream of the float32 backward (f32 | bf16).
+MGCN_CONTRIB = os.environ.get("KGC_MGCN_CONTRIB", "f32")
 
 # Largest (segments x edges) count for which the few-segment sum is one dense
 # product (``spmm_pallas.py:ONEHOT_LIMIT``); above it the sum goes through K1
@@ -125,12 +136,14 @@ class _Aggregate(torch.autograd.Function):
     over 2N rows), with the gradients with respect to ``x``, ``rel_all`` and
     ``etab``.  ``ew`` is None (compose in plain tensor ops) or the pair
     ``(compose_msg, bwd_products)`` (K4a and K4b, ``ew_impl=pallas``, which
-    compose by multiplication only)."""
+    compose by multiplication only; ``bwd_products`` None composes the
+    backward's products in plain tensor ops)."""
 
     @staticmethod
     def forward(ctx, x, rel_all, etab, half: GraphHalf, n_rows: int,
                 msg_dtype: torch.dtype, seg_sum: Callable, few_limit: int,
-                ew: Optional[Tuple[Callable, Callable]], composition: str):
+                ew: Optional[Tuple[Callable, Optional[Callable]]],
+                composition: str, contrib_dtype: torch.dtype):
         if ew is None:
             msg = compose_messages(x, rel_all, etab, half,
                                    composition).to(msg_dtype)
@@ -142,7 +155,7 @@ class _Aggregate(torch.autograd.Function):
         ctx.save_for_backward(x, rel_all, etab)
         ctx.half, ctx.msg_dtype, ctx.ew = half, msg_dtype, ew
         ctx.seg_sum, ctx.few_limit = seg_sum, few_limit
-        ctx.composition = composition
+        ctx.composition, ctx.contrib_dtype = composition, contrib_dtype
         return seg_sum(msg, half.dst, half.indptr, n_rows)
 
     @staticmethod
@@ -152,7 +165,7 @@ class _Aggregate(torch.autograd.Function):
         xg = x[half.src.long()]
         rg = rel_all[half.rel.long()]
         gd = g[half.dst.long()] * half.norm[:, None]    # (E, D) per-edge cotangent
-        if ctx.ew is not None:
+        if ctx.ew is not None and ctx.ew[1] is not None:
             # the three products in one pass (spmm_pallas.py:651-658);
             # contrib and d_rel_in come out in the message type
             contrib, d_rel_in, d_etab = ctx.ew[1](gd, xg, rg, etab,
@@ -169,18 +182,17 @@ class _Aggregate(torch.autograd.Function):
                 phi, contrib, d_rel_in = _phi_cotangents(xg, rg, gd * etab,
                                                          ctx.composition)
                 d_etab = gd * phi
-            if ctx.msg_dtype != torch.float32:
-                # bf16 message mode: cast before the permutation gather,
-                # which halves the bytes it moves (BF16_CAST='pre',
-                # spmm_pallas.py:669-677)
-                contrib = contrib.to(ctx.msg_dtype)
-                d_rel_in = d_rel_in.to(ctx.msg_dtype)
+            # bf16 messages, or the bf16 contrib stream: cast before the
+            # permutation gather, which halves the bytes it moves
+            # (BF16_CAST='pre', spmm_pallas.py:664-677)
+            d_rel_in = d_rel_in.to(ctx.msg_dtype)
+            contrib = contrib.to(ctx.contrib_dtype)
         dx = seg_sum(contrib[half.sperm.long()], half.s_src, half.s_indptr,
                      x.shape[0])
         d_rel = segment_sum_few(d_rel_in, half.rel, rel_all.shape[0],
                                 (half.rperm, half.r_indptr, half.r_rel),
                                 seg_sum, ctx.few_limit)
-        return dx, d_rel, d_etab, None, None, None, None, None, None, None
+        return (dx, d_rel, d_etab) + (None,) * 8
 
 
 def aggregate_half(
@@ -192,8 +204,9 @@ def aggregate_half(
     msg_dtype: str = "float32",
     seg_sum: Callable = segment_sum,
     few_limit: Optional[int] = None,
-    ew: Optional[Tuple[Callable, Callable]] = None,
+    ew: Optional[Tuple[Callable, Optional[Callable]]] = None,
     composition: str = "mult",
+    contrib_dtype: Optional[str] = None,
 ) -> torch.Tensor:
     """Compose + segment-sum one direction half -> ``(N, d_in)`` float32,
     differentiable in ``x``, ``rel_all`` and ``etab``.
@@ -205,11 +218,14 @@ def aggregate_half(
     through the plain segment-sum on any device; ``few_limit`` overrides
     ``ONEHOT_LIMIT`` for the relation gradient's sum.  ``ew`` is the pair
     ``(compose_msg, bwd_products)`` of ``ew_impl=pallas`` (K4a and K4b, or
-    their plain versions), or None; ``composition`` is phi (``mult`` only
-    with ``ew``)."""
+    their plain versions; ``bwd_products`` may be None), or None;
+    ``composition`` is phi (``mult`` only with ``ew``).  ``contrib_dtype``
+    (default ``msg_dtype``) is the d_x stream's type where the backward
+    composes its products in plain tensor ops."""
     return _Aggregate.apply(
         x, rel_all, etab, half, n_ent, _DTYPES[msg_dtype], seg_sum,
-        ONEHOT_LIMIT if few_limit is None else few_limit, ew, composition)
+        ONEHOT_LIMIT if few_limit is None else few_limit, ew, composition,
+        _DTYPES[contrib_dtype or msg_dtype])
 
 
 def aggregate_stacked_xla(
@@ -222,15 +238,18 @@ def aggregate_stacked_xla(
     seg_sum: Callable = segment_sum,
     few_limit: Optional[int] = None,
     composition: str = "mult",
+    contrib_dtype: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both halves through one K1 launch (``spmm_pallas.py:
     aggregate_stacked_xla``): the per-half aggregation over the stacked view
     with ``n_rows = 2N``, whose dst ids span [0, 2N); the backward's d_x sums
-    both halves' cotangents over the stacked src order in one K1 launch.
+    both halves' cotangents over the stacked src order in one K1 launch, as
+    a ``contrib_dtype`` stream (default ``msg_dtype``).
     Returns ``(in_agg, out_agg)``, each ``(N, d)`` float32."""
     out = _Aggregate.apply(
         x, rel_all, etab2, stacked, 2 * n_ent, _DTYPES[msg_dtype], seg_sum,
-        ONEHOT_LIMIT if few_limit is None else few_limit, None, composition)
+        ONEHOT_LIMIT if few_limit is None else few_limit, None, composition,
+        _DTYPES[contrib_dtype or msg_dtype])
     return out[:n_ent], out[n_ent:]
 
 

@@ -18,12 +18,17 @@
 
 Each takes the segment-sum to run (``seg_sum``, K1 by default): a kernel
 bundle's ``seg_sum`` moves forward and backward onto the plain version too.
-The JAX package's opt-in bf16 cotangent stream (``KGC_EDGE_CONTRIB``) is not
-ported.
+
+``EDGE_CONTRIB`` (``KGC_EDGE_CONTRIB``, ``spmm_pallas.py:77,1588-1596``):
+``bf16`` casts ``edge_compose``'s d_h stream to bf16 before its permutation,
+and K1 sums it in float32.  It applies where the JAX package runs
+``edge_compose``, on its ``use_pallas`` path: ``models/rgat.py`` passes
+``edge_compose`` the stream's type.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Tuple
 
 import torch
@@ -32,27 +37,32 @@ from kgc_gcn_torch.data.graph import GraphHalf
 from kgc_gcn_torch.ops.scatter import segment_sum_few
 from kgc_gcn_torch.ops.segment_sum import segment_sum
 
+# The opt-in bf16 d_h stream of the edge message's backward (f32 | bf16).
+EDGE_CONTRIB = os.environ.get("KGC_EDGE_CONTRIB", "f32")
+
 
 class _EdgeCompose(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, h, rel_mult, half: GraphHalf, seg_sum: Callable):
+    def forward(ctx, h, rel_mult, half: GraphHalf, seg_sum: Callable,
+                contrib_dtype: torch.dtype):
         ctx.save_for_backward(h, rel_mult)
         ctx.half, ctx.seg_sum = half, seg_sum
+        ctx.contrib_dtype = contrib_dtype
         return h[half.src.long()] * rel_mult[half.rel.long()]
 
     @staticmethod
     def backward(ctx, g):
         h, rel_mult = ctx.saved_tensors
         half, seg_sum = ctx.half, ctx.seg_sum
-        contrib = g * rel_mult[half.rel.long()]
+        contrib = (g * rel_mult[half.rel.long()]).to(ctx.contrib_dtype)
         d_h = seg_sum(contrib[half.sperm.long()], half.s_src, half.s_indptr,
                       h.shape[0])
         n_seg = half.r_indptr.shape[0] - 1
         d_rel = segment_sum_few(g * h[half.src.long()], half.rel, n_seg,
                                 (half.rperm, half.r_indptr, half.r_rel),
                                 seg_sum)[:rel_mult.shape[0]]
-        return d_h, d_rel, None, None
+        return d_h, d_rel, None, None, None
 
 
 class _SegmentSumSorted(torch.autograd.Function):
@@ -100,10 +110,12 @@ class _GatherRowsFew(torch.autograd.Function):
 
 
 def edge_compose(h: torch.Tensor, rel_mult: torch.Tensor, half: GraphHalf,
-                 seg_sum: Callable = segment_sum) -> torch.Tensor:
+                 seg_sum: Callable = segment_sum,
+                 contrib_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(N, d) entities and (2R, d) relation rows -> (E, d) edge messages
-    ``h[src] * rel_mult[rel]`` of one half, in its dst-sorted edge order."""
-    return _EdgeCompose.apply(h, rel_mult, half, seg_sum)
+    ``h[src] * rel_mult[rel]`` of one half, in its dst-sorted edge order;
+    the backward permutes its d_h stream as ``contrib_dtype``."""
+    return _EdgeCompose.apply(h, rel_mult, half, seg_sum, contrib_dtype)
 
 
 def segment_sum_sorted(vals: torch.Tensor, dst: torch.Tensor,

@@ -14,7 +14,10 @@
     (reference main.py:138-174): eval every ``eval_every`` epochs, best
     validation MRR saved to ``last.ckpt``, the patience quirk (an improvement
     smaller than ``patience`` still counts as stale), early stop, and one
-    ``metrics.jsonl`` record per epoch.
+    ``metrics.jsonl`` record per epoch.  With ``profile_dir`` it traces one
+    epoch (``utils/profiling.py``) and leaves that epoch out of the timing;
+    with ``cfg.ckpt_every`` it writes periodic checkpoints in the
+    background (``train/checkpoint.py:AsyncCheckpointer``).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import json
 import logging
 import os
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -40,7 +43,8 @@ from kgc_gcn_torch.ops.ranking import (
     combine_head_tail, combine_head_tail_by_rel, filtered_ranks,
     rank_metric_sums_by_rel, rank_metrics)
 from kgc_gcn_torch.train import optim
-from kgc_gcn_torch.train.checkpoint import save_checkpoint
+from kgc_gcn_torch.train.checkpoint import AsyncCheckpointer, save_checkpoint
+from kgc_gcn_torch.utils.profiling import StepTimer, trace
 
 
 class Trainer:
@@ -135,9 +139,11 @@ class Trainer:
         return loss.detach()
 
     def train_epoch(self, epoch: int, host_rng: np.random.Generator,
-                    max_steps: Optional[int] = None) -> float:
+                    max_steps: Optional[int] = None,
+                    on_step: Optional[Callable[[], None]] = None) -> float:
         """One epoch over the shuffled batch plan; returns the mean loss.
-        ``max_steps`` stops after that many steps."""
+        ``max_steps`` stops after that many steps; ``on_step`` is called
+        after each step (a profiler's ``step``)."""
         cfg = self.cfg
         lr = optim.epoch_lr(cfg, epoch)
         idx, mask = epoch_batches(self.n_train, cfg.batch_size, host_rng)
@@ -145,9 +151,12 @@ class Trainer:
         mask = torch.from_numpy(mask).to(self.device)
         steps = idx.shape[0] if max_steps is None else min(max_steps,
                                                            idx.shape[0])
-        losses = torch.stack([self.train_step(lr, *self.batch(idx[s], mask[s]))
-                              for s in range(steps)])
-        return float(losses.mean())   # the epoch's one host sync
+        losses = []
+        for s in range(steps):
+            losses.append(self.train_step(lr, *self.batch(idx[s], mask[s])))
+            if on_step is not None:
+                on_step()
+        return float(torch.stack(losses).mean())   # the epoch's one host sync
 
     def evaluate(self, split: str = "valid", mark: str = "Val"
                  ) -> Dict[str, float]:
@@ -223,10 +232,35 @@ def log_metrics(mark: str, results: Dict[str, float]) -> None:
 # ------------------------------------------------------------------ epoch loop
 
 def train_and_evaluate(trainer: Trainer, model_dir: Optional[str] = None,
-                       saved_best: float = 0.0, seed: int = 0) -> float:
+                       saved_best: float = 0.0, seed: int = 0,
+                       profile_dir: Optional[str] = None,
+                       profile_epoch: int = 2) -> float:
     """Epoch loop with eval-every, best tracking and early stop (reference
     main.py:138-174); returns the best validation MRR.  ``seed`` seeds the
-    batch order and the dropout generator."""
+    batch order and the dropout generator.
+
+    With ``profile_dir`` the training of epoch ``profile_epoch`` runs under
+    ``torch.profiler`` (one compressed trace of its first
+    ``utils/profiling.py:TRACE_STEPS`` steps in ``profile_dir``) and is
+    left out of the steps/s, as epoch 1 is (``loop.py:309-383``).  With
+    ``cfg.ckpt_every > 0`` and a ``model_dir``, every ``ckpt_every``-th
+    epoch writes ``periodic.ckpt`` in the background, before validation,
+    with the best measure so far; the loop joins the last write when it
+    ends, also on an exception."""
+    cfg = trainer.cfg
+    periodic = (AsyncCheckpointer()
+                if cfg.ckpt_every > 0 and model_dir is not None else None)
+    try:
+        return _epochs(trainer, model_dir, saved_best, seed, profile_dir,
+                       profile_epoch, periodic)
+    finally:
+        if periodic is not None:
+            periodic.wait_for_async_checkpoints()
+
+
+def _epochs(trainer: Trainer, model_dir: Optional[str], saved_best: float,
+            seed: int, profile_dir: Optional[str], profile_epoch: int,
+            periodic: Optional[AsyncCheckpointer]) -> float:
     cfg = trainer.cfg
     best_measure = saved_best
     patience_counter = 0
@@ -246,25 +280,37 @@ def train_and_evaluate(trainer: Trainer, model_dir: Optional[str] = None,
             "max_epoch": cfg.max_epoch, "seed": seed,
             "restored_best": saved_best})
     steps = trainer.steps_per_epoch
-    edges_per_step = trainer.graph.num_messages
-    timed_steps, timed_s = 0, 0.0
+    timer = StepTimer(trainer.graph.num_messages)
 
     logging.info("Starting training for %d epoch(s)", cfg.max_epoch)
     for epoch in range(1, cfg.max_epoch + 1):
+        profiled = bool(profile_dir) and epoch == profile_epoch
         t0 = time.perf_counter()
-        loss = trainer.train_epoch(epoch, host_rng)
+        if profiled:
+            with trace(profile_dir) as prof:
+                loss = trainer.train_epoch(epoch, host_rng, on_step=prof.step)
+            logging.info("Captured device trace of epoch %d -> %s", epoch,
+                         profile_dir)
+        else:
+            loss = trainer.train_epoch(epoch, host_rng)
         dt = time.perf_counter() - t0    # train only (train_epoch host-syncs)
         rec = {"epoch": epoch, "loss": round(loss, 6),
                "lr": optim.epoch_lr(cfg, epoch), "sec": round(dt, 3)}
-        rate = ""
-        if epoch > 1:                    # epoch 1 carries one-time set-up
-            timed_steps, timed_s = timed_steps + steps, timed_s + dt
-            sps = timed_steps / timed_s
+        # epoch 1 carries one-time set-up; a traced epoch, the profiler's
+        if epoch > 1 and not profiled:
+            timer.add(dt, steps)
             rec["steps_per_s"] = round(steps / dt, 2)
-            rate = (f", {sps:.2f} steps/s, {sps * edges_per_step:.3e} "
-                    "edges/s")
+        rate = (f", {timer.steps_per_s:.2f} steps/s, "
+                f"{timer.edges_per_s_per_chip:.3e} edges/s"
+                if timer.steps else "")
         logging.info("Epoch %d/%d  loss=%07.5f  (%.2fs%s)",
                      epoch, cfg.max_epoch, loss, dt, rate)
+
+        if periodic is not None and epoch % cfg.ckpt_every == 0:
+            # crash insurance on a fixed cadence, beside the best last.ckpt
+            periodic.save_checkpoint_async(model_dir, trainer.model,
+                                           trainer.opt_state, cfg,
+                                           best_measure)
 
         if epoch % cfg.eval_every == 0:
             val = trainer.evaluate("valid", mark="Val")

@@ -803,13 +803,32 @@ def disagreement(name, agree, gk, gp, uk, up, plain_grads) -> str:
             f"{max(float(g.abs().max()) for g in plain_grads):.3g}")
 
 
+def warm_pair(trainer_cls, cfg, model, graph, banks, steps: int = 3):
+    """A trainer through the kernels after ``steps`` steps of its first
+    epoch, and a trainer through the plain versions with a copy of its
+    model and of its warm Adam state (as chip_smoke.py's ``same_step``
+    takes them).  On Adam's first step an element whose gradient lies near
+    eps (1e-8) moves by lr x its sign, so float noise in such a gradient
+    flips a whole update; warm moments scale each update by the gradient's
+    history instead."""
+    import copy
+
+    from kgc_gcn_torch.train import optim
+    kernel = trainer_cls(cfg, model, graph, banks)
+    kernel.train_epoch(1, np.random.default_rng(0), max_steps=steps)
+    plain = trainer_cls(cfg, copy.deepcopy(model), graph, banks, plain=True)
+    plain.opt_state = optim.AdamState(
+        kernel.opt_state.count, [m.clone() for m in kernel.opt_state.mu],
+        [v.clone() for v in kernel.opt_state.nu])
+    return kernel, plain
+
+
 @pytest.mark.cuda
 def test_rgat_kernel_step_matches_plain_step(cuda):
     """One 2-layer, 4-head RGAT + DistMult 1-vs-all step with dropout
-    through K5/K1, and the same step (same weights and dropout masks)
-    through the plain versions: loss, gradients and updates."""
-    import copy
-
+    through K5/K1, from a warm Adam state (``warm_pair``), and the same step
+    (same weights, moments and dropout masks) through the plain versions:
+    loss, gradients and updates."""
     from kgc_gcn_torch.config import dataset_preset
     from kgc_gcn_torch.convert import jax_leaf_names
     from kgc_gcn_torch.data.batching import make_banks
@@ -832,8 +851,7 @@ def test_rgat_kernel_step_matches_plain_step(cuda):
     with torch.no_grad():        # the attention bias starts at zero
         for layer in model.layers:
             layer.rel_bias.normal_(0.0, 0.5)
-    kernel = Trainer(cfg, model, graph, banks)
-    plain = Trainer(cfg, copy.deepcopy(model), graph, banks, plain=True)
+    kernel, plain = warm_pair(Trainer, cfg, model, graph, banks)
     bank = banks["train"]
     idx = torch.arange(16, device=cuda)
     batch = (bank.queries[idx], bank.label_idx[idx], torch.ones(16, device=cuda))
@@ -1086,13 +1104,8 @@ def test_model_surface_kernel_step_matches_plain_step(cuda, case, fields,
     """One training step with dropout of a configuration of the model
     surface (a 2-layer corr MGCN; MGCN + ComplEx on the fused loss; R-GCN +
     RotatE on sampled negatives) through the kernels and through the plain
-    versions (same weights, negatives and dropout masks): launches, loss
-    and gradients, and finite updates.  The updates are not compared
-    element by element: Adam's first step divides each gradient by its
-    magnitude plus eps (1e-8), so an element whose gradient lies near eps
-    moves by float noise (the RGAT step's record, ROADMAP.md §3)."""
-    import copy
-
+    versions (same weights, warm Adam moments, negatives and dropout masks;
+    ``warm_pair``): launches, loss, gradients and updates."""
     from kgc_gcn_torch.config import dataset_preset
     from kgc_gcn_torch.convert import jax_leaf_names
     from kgc_gcn_torch.data.batching import make_banks
@@ -1118,10 +1131,10 @@ def test_model_surface_kernel_step_matches_plain_step(cuda, case, fields,
                         e_pad=graph.e_pad).to(cuda)
     trainer_cls = (NegativeSamplingTrainer
                    if cfg.train_mode == "negative_sampling" else Trainer)
-    kernel = trainer_cls(cfg, model, graph, banks)
-    plain = trainer_cls(cfg, copy.deepcopy(model), graph, banks, plain=True)
+    kernel, plain = warm_pair(trainer_cls, cfg, model, graph, banks)
     batch = kernel.batch(torch.arange(16, device=cuda),
                          torch.ones(16, device=cuda))
+    before = [p.detach().clone() for p in kernel.params]
     out = {}
     for name, t in (("kernel", kernel), ("plain", plain)):
         t.generator.manual_seed(9)
@@ -1144,3 +1157,168 @@ def test_model_surface_kernel_step_matches_plain_step(cuda, case, fields,
         torch.testing.assert_close(gk, gp, rtol=1e-3,
                                    atol=1e-4 * float(gp.abs().max()), msg=name)
         assert torch.isfinite(kernel.params[i]).all(), name
+        uk = kernel.params[i].detach() - before[i]
+        up = plain.params[i].detach() - before[i]
+        agree = torch.isclose(uk, up, rtol=1e-3, atol=1e-7)
+        assert float(agree.float().mean()) > 0.999, disagreement(
+            name, agree, gk, gp, uk, up, out["plain"][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,fields,knob,per_step", [
+    ("mgcn_contrib_bf16", dict(use_pallas=True), ("scatter", "MGCN_CONTRIB"),
+     dict(K1=4)),
+    ("rgcn_readback_bf16", dict(model="rgcn", decoder="distmult",
+                                num_bases=4, num_negatives=8, use_pallas=True,
+                                train_mode="negative_sampling"),
+     ("basis", "BASIS_READBACK"), dict(K1=2, K7=2, K8=2)),
+    ("rgat_edge_contrib_bf16", dict(model="rgat", decoder="distmult",
+                                    num_heads=4, use_pallas=True),
+     ("sorted_ops", "EDGE_CONTRIB"), dict(K1=10, K5=2)),
+    ("mgcn_operands", dict(use_pallas=True, bwd_perm="operands"), None,
+     dict(K1=4)),
+    ("mgcn_fwdw", dict(use_pallas=True, bwd_perm="fwdw"), None, dict(K1=4)),
+    ("mgcn_fwdw_ew_pallas", dict(use_pallas=True, bwd_perm="fwdw",
+                                 ew_impl="pallas"), None,
+     dict(K1=4, K4a=2)),
+    ("rgcn_block", dict(model="rgcn", decoder="distmult", num_bases=0,
+                        num_blocks=4, num_negatives=8,
+                        train_mode="negative_sampling"), None, dict(K1=4))])
+def test_opt_in_path_kernel_step_matches_plain_step(cuda, monkeypatch, case,
+                                                    fields, knob, per_step):
+    """One training step of an opt-in path (a bf16 cotangent stream set to
+    bf16, a ``bwd_perm`` schedule, R-GCN block mode) through the kernels and
+    through the plain versions under the same knob (same weights, warm Adam
+    moments, negatives and dropout masks; ``warm_pair``): launches, loss,
+    gradients and updates.  The bf16 streams round the same float32
+    cotangents to bf16 on both sides and sum them in float32."""
+    import importlib
+
+    from kgc_gcn_torch.config import dataset_preset
+    from kgc_gcn_torch.convert import jax_leaf_names
+    from kgc_gcn_torch.data.batching import make_banks
+    from kgc_gcn_torch.data.dataset import build_dataset
+    from kgc_gcn_torch.data.graph import build_graph
+    from kgc_gcn_torch.data.toy import toy_triples
+    from kgc_gcn_torch.models import build_model
+    from kgc_gcn_torch.ops.elementwise import bwd_products, compose_msg
+    from kgc_gcn_torch.train import optim
+    from kgc_gcn_torch.train.loop import Trainer
+    from kgc_gcn_torch.train.negative import NegativeSamplingTrainer
+
+    if knob is not None:
+        module = importlib.import_module(f"kgc_gcn_torch.ops.{knob[0]}")
+        monkeypatch.setattr(module, knob[1], "bf16")
+    counters = {"K1": segment_sum, "K7": basis_segment_sum,
+                "K8": basis_backward, "K5": segment_max, "K4a": compose_msg,
+                "K4b": bwd_products}
+    ds = build_dataset("toy", *toy_triples(n_ent=40, n_rel=5, n_train=300))
+    graph = build_graph(ds.train_triples, ds.num_entity,
+                        ds.num_relation).to(cuda)
+    banks = make_banks(ds, cuda)
+    cfg = dataset_preset("Toy", gcn_in_dim=16, gcn_out_dim=32, k_w=4, k_h=8,
+                         num_filter=4, kernel_size=3, batch_size=16,
+                         gcn_drop=0.2, feat_drop=0.2, hidden_drop=0.3, seed=5,
+                         **fields)
+    model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
+                        e_pad=graph.e_pad).to(cuda)
+    if cfg.model == "rgat":
+        with torch.no_grad():        # the attention bias starts at zero
+            for layer in model.layers:
+                layer.rel_bias.normal_(0.0, 0.5)
+    trainer_cls = (NegativeSamplingTrainer
+                   if cfg.train_mode == "negative_sampling" else Trainer)
+    kernel, plain = warm_pair(trainer_cls, cfg, model, graph, banks)
+    batch = kernel.batch(torch.arange(16, device=cuda),
+                         torch.ones(16, device=cuda))
+    before = [p.detach().clone() for p in kernel.params]
+    out = {}
+    for name, t in (("kernel", kernel), ("plain", plain)):
+        t.generator.manual_seed(9)
+        start = {k: f.launches for k, f in counters.items()}
+        loss = t.loss(*batch)
+        grads = torch.autograd.grad(loss, t.params)
+        optim.step(t.params, list(grads), t.opt_state, cfg, 1e-3)
+        out[name] = (loss.detach(), grads, {
+            k: f.launches - start[k] for k, f in counters.items()})
+    assert out["kernel"][2] == {k: per_step.get(k, 0) for k in counters}
+    assert not any(out["plain"][2].values())
+    torch.testing.assert_close(out["kernel"][0], out["plain"][0], rtol=1e-5,
+                               atol=0.0)
+    for i, name in enumerate(jax_leaf_names(cfg)[0]):
+        if name in ("decoder.bn0.scale", "decoder.bn0.bias"):
+            continue   # BN1 cancels them: float noise on both sides
+        gk, gp = out["kernel"][1][i], out["plain"][1][i]
+        assert torch.isfinite(gk).all(), name
+        torch.testing.assert_close(gk, gp, rtol=1e-3,
+                                   atol=1e-4 * float(gp.abs().max()), msg=name)
+        uk = kernel.params[i].detach() - before[i]
+        up = plain.params[i].detach() - before[i]
+        agree = torch.isclose(uk, up, rtol=1e-3, atol=1e-7)
+        assert float(agree.float().mean()) > 0.999, disagreement(
+            name, agree, gk, gp, uk, up, out["plain"][1])
+
+
+@pytest.mark.cuda
+def test_trace_checkpoints_and_reference_import_on_the_card(cuda, tmp_path):
+    """On the card: a traced training step names K1's passes; a periodic
+    checkpoint of the card's parameters holds their values at the save,
+    though they change in place right after it; the reference checkpoint of
+    a card model, imported back, gives the same encode to the bit."""
+    import gzip
+    import json
+    import os
+
+    from kgc_gcn_torch.config import dataset_preset
+    from kgc_gcn_torch.data.batching import make_banks
+    from kgc_gcn_torch.data.dataset import build_dataset
+    from kgc_gcn_torch.data.graph import build_graph
+    from kgc_gcn_torch.data.toy import toy_triples
+    from kgc_gcn_torch.models import build_model
+    from kgc_gcn_torch.train.checkpoint import (
+        AsyncCheckpointer, load_checkpoint)
+    from kgc_gcn_torch.train.loop import Trainer
+    from kgc_gcn_torch.utils.profiling import trace
+    from kgc_gcn_torch.utils.torch_import import (
+        apply_reference_state_dict, load_reference_checkpoint,
+        save_reference_checkpoint)
+
+    ds = build_dataset("toy", *toy_triples(n_ent=40, n_rel=5, n_train=300))
+    graph = build_graph(ds.train_triples, ds.num_entity,
+                        ds.num_relation).to(cuda)
+    banks = make_banks(ds, cuda)
+    cfg = dataset_preset("Toy", gcn_in_dim=16, gcn_out_dim=32, k_w=4, k_h=8,
+                         num_filter=4, kernel_size=3, batch_size=16, seed=5)
+    model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
+                        e_pad=graph.e_pad).to(cuda)
+    trainer = Trainer(cfg, model, graph, banks)
+    prof = tmp_path / "prof"
+    with trace(str(prof)):
+        trainer.train_epoch(1, np.random.default_rng(0), max_steps=2)
+    (name,) = os.listdir(prof)
+    with gzip.open(prof / name, "rt") as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert any("chunk_sums" in n for n in names), sorted(names)[:20]
+
+    want = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    writer = AsyncCheckpointer()
+    path = writer.save_checkpoint_async(str(tmp_path), model,
+                                        trainer.opt_state, cfg, 0.5)
+    trainer.train_epoch(1, np.random.default_rng(1), max_steps=2)
+    writer.wait_for_async_checkpoints()
+    sd, measure = load_checkpoint(path, cfg)
+    assert measure == 0.5
+    for k, v in want.items():
+        torch.testing.assert_close(sd[k], v, rtol=0, atol=0, msg=k)
+
+    model.eval()
+    ref = str(tmp_path / "ref.ckpt")
+    save_reference_checkpoint(ref, model, graph)
+    other = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
+                        e_pad=graph.e_pad)
+    apply_reference_state_dict(other, load_reference_checkpoint(ref,
+                                                                graph)[0])
+    other = other.to(cuda).eval()
+    with torch.no_grad():
+        a, b = model.encode(graph)[0], other.encode(graph)[0]
+    assert torch.equal(a, b)

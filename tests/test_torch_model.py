@@ -107,9 +107,9 @@ def test_init_shapes_and_bounds(toy_cfg):
 
 
 @pytest.mark.parametrize("override", [
-    dict(model="rgcn", num_blocks=2), dict(model="rgcn", num_blocks=4),
-    dict(entity_sharded="ring"), dict(entity_sharded="boundary"),
-    dict(entity_sharded="gather")])
+    dict(model="rgcn", entity_sharded="gather"),
+    dict(model="rgat", entity_sharded="ring"), dict(entity_sharded="ring"),
+    dict(entity_sharded="boundary"), dict(entity_sharded="gather")])
 def test_unported_configurations_raise(toy_cfg, override):
     cfg = dataclasses.replace(port_cfg(toy_cfg), **override)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -259,7 +259,8 @@ def test_port_reads_the_jax_rgcn_checkpoint(toy, toy_cfg, tmp_path,
 
 
 @pytest.mark.parametrize("override", [
-    dict(num_blocks=2), dict(num_blocks=4), dict(entity_sharded="ring")])
+    dict(entity_sharded="gather"), dict(entity_sharded="boundary"),
+    dict(entity_sharded="ring")])
 def test_unported_rgcn_configurations_raise(toy_cfg, override):
     cfg = port_cfg(rgcn_cfg(toy_cfg, **override))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -208,10 +208,8 @@ def test_cli_predict_and_test_on_cpu(tmp_path, toy_cfg, capsys, caplog):
 
 def test_cli_refuses_what_it_cannot_run(tmp_path):
     base = ["--dataset", "Toy", "--experiments_dir", str(tmp_path)]
-    for flags in (["--restore_torch", str(tmp_path / "last.ckpt")],
-                  ["--model", "rgcn", "--num_blocks", "2"],
-                  ["--partition", "locality"], ["--ckpt_every", "1"],
-                  ["--profile_dir", str(tmp_path)]):
+    for flags in (["--partition", "locality"], ["--data_axis", "2"],
+                  ["--graph_axis", "2"], ["--entity_sharded", "ring"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             cli.main(base + ["--do_train", "--device", "cpu"] + flags)
     with pytest.raises(ValueError, match="restore dir"):
