@@ -110,21 +110,41 @@ Phases, in order; any failure raises and the script exits non-zero:
      (TRACE_STEPS steps recorded of 10 more: size, events, seconds with and
      without it, host memory); (g) phase 5's weights written by
      save_reference_checkpoint and served through --restore_torch, whose
-     encode equals phase 6's to the bit.
+     encode equals phase 6's to the bit;
+ 14. the host data engine and the edge-partitioned multi-GPU path, its
+     ranks subprocesses of this script (``--rank``) on the one card, which
+     share it over gloo (NCCL refuses two ranks on one device), each world
+     under a timeout: (a) the engine at FB15k-237's counts on the card's
+     host: load and build_graph with numpy and with C++ (equal field for
+     field), the C++ locality order, host seconds; (b) MGCN + ConvE at the
+     WN18RR preset (use_pallas, dropout off) and (d) RGAT + DistMult, 4
+     heads, at graph_axis 2 on the corpus of phase 5; (c) MGCN at
+     data_axis 2 (sparse and fused loss) and at data_axis 2 x graph_axis 2
+     on the plan's short last batch: each rank's step launches (K1 4; RGAT
+     K1 10, K5 2; fused K2a 1, K2b 1 more), rank 0 holds the loss, every
+     gradient (the per-edge table gathered) and every update against the
+     one-process kernel step after 3 warm steps (same weights, Adam state,
+     batch and ReLU sides), and each rank profiles 3 steps (K1's and K5's
+     device µs, busy, host ms); the collectives on CUDA tensors checked
+     first; (e) the CLI on two ranks (--graph_axis 2 --partition locality,
+     2 epochs on data/Toy), --do_test of its checkpoint on two ranks and in
+     one process (equal metrics); (f) a world of one rank on NCCL, one
+     step against the one-process step.
 K1, K3, K7 and K8 checks use dyadic inputs, whose float32 sums are exact in
 any order, so kernel and plain version must agree to the bit; K5
 (segment-max, phase 3: the RGAT path's shape and edge cases), K4a and K4b
 (products in the plain version's order) are exact on any input.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Before them a line gives the card, its
-power limit and the wall seconds of the whole script and of phases 12
-and 13.
+power limit and the wall seconds of the whole script and of phases 12,
+13 and 14.
 Nothing of JAX is imported.
 
 --kernels-only runs phases 1-3 and the time rows of K1, K2a, K7 and K3 (each
 with its two passes' device times), K2b, K8 and K5, then prints their entries and
 the last line: a quick check of the kernels that drives no path (their
-launch counts are 0).
+launch counts are 0).  --mesh-only runs phases 1-2 and 14, then the last
+line.
 """
 
 from __future__ import annotations
@@ -505,6 +525,7 @@ def synthetic_graphs(seed: int, corpus_root: str):
 def k1_cases(ds, graph, fb_graph, power_counts, d: int, gen) -> dict:
     """K1's operands on the card, dyadic messages of width ``d`` unless
     stated, at the shapes the paths give it."""
+    from kgc_gcn_torch.parallel.edge_parallel import local_half
     n_wn, n_fb = ds.num_entity, FB15K237[0]
     f32, bf16 = torch.float32, torch.bfloat16
     return {
@@ -534,6 +555,11 @@ def k1_cases(ds, graph, fb_graph, power_counts, d: int, gen) -> dict:
         "fb15k237_powerlaw_bf16": csr_case(power_counts, d, bf16, gen),
         "fb15k237_rel_f32": half_case(fb_graph.outb, n_fb, d, f32, gen,
                                       "rel"),
+        # graph_axis 2 (phase 14): each rank's slice of the in-half over
+        # all N rows, in its local dst order
+        **{f"wn18rr_shard{r}of2_f32": half_case(local_half(graph.inb, 2, r),
+                                                n_wn, d, f32, gen)
+           for r in range(2)},
     }
 
 
@@ -1643,13 +1669,556 @@ def check_per_relation(path: str, run_dir: str, ds, graph, banks,
 
 # ------------------------------------------------------------------- phases
 
+# ------------------------------------------------------------------ phase 14
+
+# a rank that has not ended by then fails the phase (the ranks of one call
+# share the card, so a step takes tens to hundreds of ms)
+RANK_TIMEOUT_S = 300
+# steps of the one-process kernel trainer before the compared step (warm
+# Adam state, as same_step's)
+WARM_STEPS = 3
+# K1's two kernels, and K5's (csrc/segment_sum.cu, csrc/segment_max.cu)
+K1_PASSES = ("chunk_sums", "row_fixup")
+K5_KERNEL = "segment_max_kernel"
+# phase 14 runs dropout off, and without hidden dropout BN2 cancels ConvE's
+# fc bias too: its gradient is float noise on both sides
+MESH_DEGENERATE = DEGENERATE + ("decoder.fc_b",)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(spec: dict, world: int, work: str, what: str,
+                 local_world: int = 0) -> list:
+    """Run ``world`` ranks of this script (``--rank``) on ``spec``, all on
+    the one card, each with its own timeout; returns each rank's result.
+    A rank that fails or outlives RANK_TIMEOUT_S fails the phase; every
+    process started here has ended when it returns."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec_path = os.path.join(work, f"spec_{what}.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    port, procs, logs = _free_port(), [], []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(world):
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), WORLD_SIZE=str(world),
+                       RANK=str(rank), LOCAL_RANK=str(rank),
+                       LOCAL_WORLD_SIZE=str(local_world or world),
+                       OMP_NUM_THREADS="2")
+            out = open(os.path.join(work, f"{what}_rank{rank}.out"), "w+")
+            err = open(os.path.join(work, f"{what}_rank{rank}.err"), "w+")
+            logs.append((out, err))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank",
+                 spec_path], env=env, cwd=here, stdout=out, stderr=err))
+        for rank, p in enumerate(procs):
+            left = RANK_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                p.wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{what}: rank {rank} did not end within "
+                                     f"{RANK_TIMEOUT_S} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for rank, (p, (out, err)) in enumerate(zip(procs, logs)):
+        out.seek(0)
+        err.seek(0)
+        lines, tail = out.read().splitlines(), err.read()[-4000:]
+        out.close()
+        err.close()
+        for line in lines:
+            if not line.startswith("RANK_RESULT "):
+                log(f"  [{what} rank {rank}] {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"{what}: rank {rank} exited "
+                                 f"{p.returncode}:\n{tail}")
+        res = [x for x in lines if x.startswith("RANK_RESULT ")]
+        if not res:
+            raise AssertionError(f"{what}: rank {rank} gave no result")
+        results.append(json.loads(res[-1][len("RANK_RESULT "):]))
+    log(f"[mesh] {what}: {world} rank(s) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return results
+
+
+def check_collectives(device) -> list:
+    """Each collective the paths use, on tensors on ``device`` in the
+    default group, against its known result; returns their names."""
+    import torch.distributed as dist
+    w, r = dist.get_world_size(), dist.get_rank()
+    checks = []
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"collective {what} gave a wrong result")
+        checks.append(what)
+
+    for dtype in (torch.float32, torch.float64):
+        t = torch.full((5,), float(r + 1), dtype=dtype, device=device)
+        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        check(bool((t == w * (w + 1) / 2).all()), f"all_reduce SUM {dtype}")
+    t = torch.full((5,), float(r + 1), device=device)
+    t[0] = -math.inf
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    check(float(t[1]) == w and float(t[0]) == -math.inf,
+          "all_reduce MAX (-inf kept)")
+    b = torch.full((3,), 7.0 if r == 0 else float(r), device=device)
+    dist.broadcast(b, src=0)
+    check(bool((b == 7.0).all()), "broadcast")
+    parts = [torch.empty(2, device=device) for _ in range(w)]
+    dist.all_gather(parts, torch.full((2,), float(r), device=device))
+    check([float(p[0]) for p in parts] == [float(k) for k in range(w)],
+          "all_gather")
+    return checks
+
+
+class SlicedReplay(KinkReplay):
+    """``KinkReplay`` of the one-process step's ReLU sides in a rank: a
+    recorded mask whose leading axis is D (G) times the rank's is cut to
+    the rank's data (graph) slice: the decoder's rows of the batch, RGAT's
+    edges of a half."""
+
+    def __init__(self, masks, mesh):
+        super().__init__()
+        self.masks, self.mesh = list(masks), mesh
+
+    def _side(self, x: torch.Tensor) -> torch.Tensor:
+        m = self.masks[self.replay].to(x.device)
+        n, mesh = x.shape[0], self.mesh
+        for parts, part in ((mesh.data, mesh.data_rank),
+                            (mesh.graph, mesh.graph_rank)):
+            if m.shape[0] != n and parts > 1 and m.shape[0] == parts * n:
+                m = m[part * n:(part + 1) * n]
+                break
+        self.masks[self.replay] = m
+        return super()._side(x)
+
+
+def mesh_reference(trainer, seed: int, launches: Launches, per_step,
+                   path: str, last: bool, what: str) -> None:
+    """The one-process kernel step that the ranks are held against:
+    ``trainer`` takes WARM_STEPS steps, then one step on a batch of a
+    seeded plan (its first, or with ``last`` its short last one) with its
+    ReLU sides recorded; weights, Adam state, batch, sides, loss,
+    gradients and updates go to ``path``."""
+    import dataclasses as dc
+
+    from kgc_gcn_torch.convert import jax_leaf_names
+    from kgc_gcn_torch.data.batching import epoch_batches
+    from kgc_gcn_torch.train import optim
+    cfg, device = trainer.cfg, trainer.device
+    trainer.train_epoch(1, np.random.default_rng(seed),
+                        max_steps=WARM_STEPS)
+    idx, mask = epoch_batches(trainer.n_train, cfg.batch_size,
+                              np.random.default_rng(seed + 1))
+    idx, mask = idx[-1 if last else 0], mask[-1 if last else 0]
+    cpu = lambda ts: [t.detach().cpu().clone() for t in ts]
+    ref = {"cfg": dc.asdict(cfg), "state": {
+        k: v.detach().cpu().clone() for k, v in trainer.model.state_dict()
+        .items()}, "count": trainer.opt_state.count,
+        "mu": cpu(trainer.opt_state.mu), "nu": cpu(trainer.opt_state.nu),
+        "idx": torch.from_numpy(idx.astype(np.int64)),
+        "mask": torch.from_numpy(mask), "lr": optim.epoch_lr(cfg, 1),
+        "names": jax_leaf_names(cfg)[0], "per_step": list(per_step)}
+    batch = trainer.batch(ref["idx"].to(device), ref["mask"].to(device))
+    kinks = KinkReplay()
+    before = cpu(trainer.params)
+    torch.cuda.synchronize()
+    launches.zero()
+    with kinks.patched(replay=False):
+        loss, grads = trainer.gradients(*batch)
+    optim.step(trainer.params, grads, trainer.opt_state, cfg, ref["lr"])
+    torch.cuda.synchronize()
+    got = launches.read()
+    if got != tuple(per_step):
+        raise AssertionError(f"{what} reference step: launches "
+                             f"{Launches.show(got)}")
+    ref.update(loss=float(loss), grads=cpu(grads),
+               updates=[p.detach().cpu() - b
+                        for p, b in zip(trainer.params, before)],
+               masks=cpu(kinks.masks))
+    torch.save(ref, path)
+    log(f"[mesh] {what}: one-process kernel step after {WARM_STEPS} warm "
+        f"steps, batch of {int(mask.sum())} rows ({'last' if last else 'first'}"
+        f" of the plan): loss {float(loss):.8f}; {Launches.show(got)}")
+
+
+def rank_step(case: dict, mesh, ds, graph, banks, launches: Launches) -> dict:
+    """One rank's share of the compared step (the reference's weights, Adam
+    state, batch and ReLU sides), then a profile of three more steps;
+    rank 0 holds the loss, every gradient and every update (the per-edge
+    tables gathered) against the one-process step as ``same_step`` does."""
+    from kgc_gcn_torch.config import Config
+    from kgc_gcn_torch.models import build_model
+    from kgc_gcn_torch.parallel.distributed import (
+        all_gather_cat, flat_all_reduce)
+    from kgc_gcn_torch.parallel.mesh import (
+        edge_table_names, shard_batches, shard_like)
+    from kgc_gcn_torch.train import optim
+    from kgc_gcn_torch.train.loop import Trainer
+    ref = torch.load(case["ref"])
+    cfg, device = Config(**ref["cfg"]), mesh.device
+    model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
+                        e_pad=graph.e_pad, mesh=mesh)
+    model.load_state_dict(ref["state"])
+    trainer = Trainer(cfg, model.to(device), graph, banks, mesh=mesh)
+    trainer.opt_state.count = ref["count"]
+    for dst, src in zip(trainer.opt_state.mu + trainer.opt_state.nu,
+                        ref["mu"] + ref["nu"]):
+        dst.copy_(shard_like(src.to(device), dst, mesh))
+    idx, mask = ref["idx"].numpy()[None], ref["mask"].numpy()[None]
+    rows = max(float(mask.sum()), 1.0)
+    idx, mask = shard_batches(mesh, idx, mask)
+    scale = max(float(mask.sum()), 1.0) / rows
+    batch = trainer.batch(torch.from_numpy(idx[0]).to(device),
+                          torch.from_numpy(mask[0]).to(device))
+    before = [p.detach().clone() for p in trainer.params]
+    replay = SlicedReplay(ref["masks"], mesh)
+    torch.cuda.synchronize()
+    launches.zero()
+    with replay.patched(replay=True):
+        loss, grads = trainer.gradients(*batch, scale=scale)
+    optim.step(trainer.params, grads, trainer.opt_state, cfg, ref["lr"],
+               trainer.sharded, mesh.graph_group)
+    torch.cuda.synchronize()
+    counts = launches.read()
+    if counts != tuple(ref["per_step"]):
+        raise AssertionError(f"{case['name']}: launches "
+                             f"{Launches.show(counts)}, want "
+                             f"{Launches.show(ref['per_step'])}")
+    loss = float(flat_all_reduce([loss], mesh.data_group)[0])
+    tables = set(edge_table_names(model))
+    whole = lambda t, name: (all_gather_cat(t.detach(), mesh.graph_group, 1)
+                             if name in tables else t.detach())
+    names = ref["names"]
+    got_g = [whole(g, n).cpu() for g, n in zip(grads, names)]
+    got_u = [whole(p.detach() - b, n).cpu()
+             for p, b, n in zip(trainer.params, before, names)]
+    out = {"launches": list(counts), "scale": scale, "ties": replay.ties,
+           "edges_a_half": int(trainer.graph.inb.src.shape[0])}
+    if mesh.rank == 0:
+        out["errs"] = compare_step(case, ref, loss, got_g, got_u, names)
+    lr = ref["lr"]
+    step = lambda: trainer.train_step(lr, *batch, scale=scale)
+    wall, busy, top, _ = profile_kernels(step, steps=3)
+    out.update(wall_us=wall, busy_us=busy, k1_us=kinds_us(top, K1_PASSES),
+               k5_us=kinds_us(top, (K5_KERNEL,))[0],
+               step_ms=host_ms(step, 5))
+    return out
+
+
+def compare_step(case: dict, ref: dict, loss: float, got_g, got_u,
+                 names) -> dict:
+    """``same_step``'s check of one step against another: the loss within
+    STEP_LOSS_RTOL, every gradient and update within STEP_RTOL and
+    STEP_ATOL x its largest (``cancelling`` leaves: x the step's largest
+    gradient, update finite only; ``degenerate`` leaves finite only)."""
+    what = case["name"]
+    torch.testing.assert_close(torch.tensor(loss), torch.tensor(ref["loss"]),
+                               rtol=STEP_LOSS_RTOL, atol=0.0,
+                               msg=f"{what}: loss")
+    g_max = max(float(g.abs().max()) for g in ref["grads"])
+    errs = {"loss": abs(loss - ref["loss"]), "grad": 0.0, "update": 0.0}
+    for name, gk, gp, uk, up in zip(names, got_g, ref["grads"], got_u,
+                                    ref["updates"]):
+        if not (torch.isfinite(gk).all() and torch.isfinite(uk).all()):
+            raise AssertionError(f"{what}: non-finite {name}")
+        if name in case.get("degenerate", ()):
+            continue
+        if name.rsplit(".", 1)[-1] in case.get("cancelling", ()):
+            torch.testing.assert_close(gk, gp, rtol=STEP_RTOL,
+                                       atol=STEP_ATOL * g_max,
+                                       msg=f"{what}: grad {name}")
+            continue
+        errs["grad"] = max(errs["grad"], close_rel(
+            gk, gp, STEP_RTOL, STEP_ATOL, f"{what}: grad {name}"))
+        errs["update"] = max(errs["update"], close_rel(
+            uk, up, STEP_RTOL, STEP_ATOL, f"{what}: update {name}"))
+    return errs
+
+
+def rank_cli(argv, launches: Launches) -> dict:
+    """The CLI in this rank's process: its launches and the test metrics
+    it logged (rank 0; --do_test)."""
+    from kgc_gcn_torch import cli
+    captured = _Capture()
+    logging.getLogger().addHandler(captured)
+    try:
+        launches.zero()
+        t0 = time.perf_counter()
+        if cli.main(argv) != 0:
+            raise AssertionError(f"cli {argv} failed")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        logging.getLogger().removeHandler(captured)
+    test = [m for m in captured.lines if "Test metrics" in m]
+    return {"launches": list(launches.read()), "seconds": seconds,
+            "test": test[-1].split("metrics: ")[1].strip() if test else None}
+
+
+def run_rank(spec_path: str) -> int:
+    """One rank of phase 14 (``--rank``): join the process group the parent
+    configured, check the collectives, then run the spec's steps or CLI."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    from kgc_gcn_torch.data.batching import make_banks
+    from kgc_gcn_torch.data.dataset import load_dataset
+    from kgc_gcn_torch.data.graph import build_graph
+    from kgc_gcn_torch.ops.basis import basis_backward, basis_segment_sum
+    from kgc_gcn_torch.ops.elementwise import bwd_products, compose_msg
+    from kgc_gcn_torch.ops.fused_compose import fused_compose
+    from kgc_gcn_torch.ops.fused_loss import dense_grads, dense_loss
+    from kgc_gcn_torch.ops.segment_max import segment_max
+    from kgc_gcn_torch.ops.segment_sum import segment_sum
+    from kgc_gcn_torch.parallel import distributed
+    from kgc_gcn_torch.parallel.mesh import make_mesh
+    from kgc_gcn_torch.utils.cuda_build import load_kernels
+    info = distributed.maybe_initialize("cuda")
+    load_kernels()
+    launches = Launches((segment_sum, dense_loss, dense_grads,
+                         basis_segment_sum, basis_backward, segment_max,
+                         fused_compose, compose_msg, bwd_products))
+    out = {"rank": info.rank, "backend": info.backend,
+           "device": str(info.device),
+           "collectives": check_collectives(info.device)}
+    try:
+        if spec["kind"] == "cli":
+            out["cli"] = rank_cli(spec["argv"], launches)
+            return 0
+        mesh = make_mesh(*spec["mesh"], info.device)
+        ds = load_dataset(spec["dataset"], spec["data_dir"])
+        graph = build_graph(ds.train_triples, ds.num_entity, ds.num_relation)
+        banks = make_banks(ds, info.device)
+        for case in spec["cases"]:
+            out[case["name"]] = rank_step(case, mesh, ds, graph, banks,
+                                          launches)
+        return 0
+    finally:
+        print("RANK_RESULT " + json.dumps(out), flush=True)
+        distributed.shutdown()
+
+
+def _same_dataset(a, b, what: str) -> None:
+    differ = [f for f in ("entity2id", "relation2id", "num_entity",
+                          "num_relation", "num_edge", "train_labels")
+              if getattr(a, f) != getattr(b, f)]
+    differ += [f for f in ("train_triples", "valid_triples", "test_triples",
+                           "train_queries")
+               if not np.array_equal(getattr(a, f), getattr(b, f))]
+    differ += [k for k, eq in b.eval_queries.items()
+               if not (np.array_equal(a.eval_queries[k].triples, eq.triples)
+                       and a.eval_queries[k].labels == eq.labels)]
+    if differ:
+        raise AssertionError(f"{what}: {differ} differ")
+
+
+def engine_times(root: str, name: str) -> dict:
+    """14a: the host data engine on the corpus at ``root``: load and
+    ``build_graph`` with the numpy engine and with the C++ one (equal field
+    for field), and the C++ locality order; host seconds."""
+    import dataclasses as dc
+
+    from kgc_gcn_torch.data.dataset import load_dataset
+    from kgc_gcn_torch.data.graph import GraphHalf, build_graph
+    from kgc_gcn_torch.data.partition import locality_order
+    out, dss, graphs = {}, {}, {}
+    for engine, native in (("numpy", False), ("native", True)):
+        t0 = time.perf_counter()
+        dss[engine] = load_dataset(name, root, use_native=native)
+        out[f"load_{engine}_s"] = time.perf_counter() - t0
+        d = dss[engine]
+        t0 = time.perf_counter()
+        graphs[engine] = build_graph(d.train_triples, d.num_entity,
+                                     d.num_relation, use_native=native)
+        out[f"graph_{engine}_s"] = time.perf_counter() - t0
+    _same_dataset(dss["native"], dss["numpy"], "14a engines")
+    for half in ("inb", "outb"):
+        for f in dc.fields(GraphHalf):
+            a, b = (getattr(getattr(graphs[e], half), f.name)
+                    for e in ("native", "numpy"))
+            if not ((a == b) if f.name == "e_real" else torch.equal(a, b)):
+                raise AssertionError(f"14a build_graph {half}.{f.name}")
+    d = dss["native"]
+    t0 = time.perf_counter()
+    order = locality_order(d.train_triples, d.num_entity)
+    out["locality_order_native_s"] = time.perf_counter() - t0
+    if not np.array_equal(np.sort(order), np.arange(d.num_entity)):
+        raise AssertionError("14a: the locality order is no permutation")
+    import platform
+    cpu = platform.processor() or "model not named"
+    with contextlib.suppress(OSError):
+        with open("/proc/cpuinfo") as f:
+            cpu = next((line.split(":", 1)[1].strip() for line in f
+                        if line.startswith("model name")), cpu)
+    out["host"] = (f"{platform.machine()} {cpu}, {os.cpu_count()} logical "
+                   "CPUs")
+    log(f"[engine] {d.num_entity} entities, {d.num_edge} train / "
+        f"{len(d.valid_triples)} valid / {len(d.test_triples)} test triples "
+        f"on the card's host ({out['host']}): load numpy "
+        f"{out['load_numpy_s']:.3f} s, C++ {out['load_native_s']:.3f} s; "
+        f"build_graph numpy {out['graph_numpy_s']:.3f} s, C++ "
+        f"{out['graph_native_s']:.3f} s; locality order C++ "
+        f"{out['locality_order_native_s']:.3f} s; the engines equal field "
+        "for field")
+    return out
+
+
+def log_ranks(what: str, results: list, backend: str) -> None:
+    """The backend, the collectives and each rank's numbers of each case."""
+    for r in results:
+        if r["backend"] != backend:
+            raise AssertionError(f"{what}: rank {r['rank']} took backend "
+                                 f"{r['backend']}, want {backend}")
+    log(f"[mesh] {what}: backend {backend} on {results[0]['device']}; "
+        f"collectives on CUDA tensors: {', '.join(results[0]['collectives'])}")
+    for r in results:
+        for name, c in r.items():
+            if not isinstance(c, dict) or "launches" not in c:
+                continue
+            k1 = c["k1_us"]
+            log(f"[mesh] {what} {name} rank {r['rank']}: a step launches "
+                f"{Launches.show(c['launches'])}; profiled step: K1 "
+                f"{us(k1[0])} + {us(k1[1])} µs (passes A + B), K5 "
+                f"{us(c['k5_us'])} µs, device busy {c['busy_us']:.1f} of "
+                f"{c['wall_us']:.1f} µs wall; host {c['step_ms']:.1f} ms a "
+                f"step; {c['ties']} ReLU inputs tied; loss scale "
+                f"{c['scale']:.6f}; {c['edges_a_half']} edges a half"
+                + (f"; against the one-process step: {c['errs']}"
+                   if "errs" in c else ""))
+
+
+def phase14(seed: int, work: str, corpus_root: str, fb_root: str, ds,
+            graph, banks, launches: Launches) -> tuple:
+    """14: the host data engine and the edge-partitioned multi-GPU path on
+    the one card (ranks share it over gloo); returns (summary, the launches
+    of each rank's path)."""
+    from kgc_gcn_torch.config import Config, dataset_preset
+    from kgc_gcn_torch.models import build_model
+    from kgc_gcn_torch.train.checkpoint import load_checkpoint
+    from kgc_gcn_torch.train.loop import Trainer
+    t14 = time.perf_counter()
+    out, paths = {"engine": engine_times(fb_root, "SYN3")}, {}
+    no_drop = dict(gcn_drop=0.0, conv_drop=0.0, hidden_drop=0.0,
+                   feat_drop=0.0)
+    refs = {}
+    per_mgcn = (4, 0, 0, 0, 0, 0, 0, 0, 0)
+    per_rgat = (10, 0, 0, 0, 0, 2, 0, 0, 0)
+    for key, cfg, per, last in (
+            ("mgcn", dataset_preset("WN18RR", seed=seed, **no_drop),
+             per_mgcn, False),
+            ("mgcn_last", dataset_preset("WN18RR", seed=seed, **no_drop),
+             per_mgcn, True),
+            # K2a / K2b on each data rank's rows: each a mean over its own
+            # rows, which the loss scale puts over the global batch's
+            ("mgcn_fused", dataset_preset("WN18RR", seed=seed,
+                                          loss_impl="fused", **no_drop),
+             (4, 1, 1, 0, 0, 0, 0, 0, 0), True),
+            ("rgat", dataset_preset("WN18RR", model="rgat",
+                                    decoder="distmult", num_heads=4,
+                                    seed=seed, **no_drop), per_rgat, False)):
+        model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
+                            e_pad=graph.e_pad, generator=torch.Generator()
+                            .manual_seed(seed)).to(graph.device)
+        refs[key] = os.path.join(work, f"ref_{key}.pt")
+        mesh_reference(Trainer(cfg, model, graph, banks), seed, launches,
+                       per, refs[key], last, key)
+        del model
+        torch.cuda.empty_cache()
+    mgcn = {"name": "mgcn", "ref": refs["mgcn"],
+            "degenerate": MESH_DEGENERATE}
+    steps = lambda mesh, cases: {"kind": "steps", "mesh": mesh,
+                                 "dataset": "SYN", "data_dir": corpus_root,
+                                 "cases": cases}
+    # 14b, 14d: MGCN + ConvE (use_pallas) and RGAT at graph_axis 2
+    rgat = {"name": "rgat", "ref": refs["rgat"],
+            "cancelling": RGAT_DEGENERATE}
+    worlds = {"g2": ([1, 2], [mgcn, rgat]),
+              "d2": ([2, 1], [dict(mgcn, ref=refs["mgcn_last"]),
+                              dict(mgcn, name="mgcn_fused",
+                                   ref=refs["mgcn_fused"])]),
+              "d2g2": ([2, 2], [dict(mgcn, ref=refs["mgcn_last"])])}
+    for what, (mesh, cases) in worlds.items():
+        res = launch_ranks(steps(mesh, cases), mesh[0] * mesh[1], work, what)
+        log_ranks(what, res, "gloo")
+        out[what] = res
+        for r in res:
+            for c in cases:
+                paths[f"mesh_{what}_{c['name']}_rank{r['rank']}"] = tuple(
+                    r[c["name"]]["launches"])
+    # 14e: the CLI on two ranks (--graph_axis 2 --partition locality), then
+    # --do_test of its checkpoint on the two ranks and in this process
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    run = os.path.join(work, "mesh_cli", "Toy")
+    base = ["--dataset", "Toy", "--data_dir", data, "--device", "cuda",
+            "--seed", str(seed)]
+    train_res = launch_ranks({"kind": "cli", "argv": base + [
+        "--experiments_dir", os.path.join(work, "mesh_cli"), "--do_train",
+        "--max_epoch", "2", "--graph_axis", "2", "--partition",
+        "locality"]}, 2, work, "cli_train")
+    test_res = launch_ranks({"kind": "cli", "argv": base + [
+        "--experiments_dir", os.path.join(work, "mesh_cli_test"),
+        "--do_test", "--restore_dir", run, "--graph_axis", "2"]}, 2, work,
+        "cli_test")
+    one = rank_cli(base + ["--experiments_dir",
+                           os.path.join(work, "one_cli_test"), "--do_test",
+                           "--restore_dir", run], launches)
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    best = max(r["val"]["mrr"] for r in recs if "val" in r)
+    cfg_t = Config.from_json(os.path.join(run, "params.json"))
+    measure = load_checkpoint(run, cfg_t)[1]
+    mesh_test = test_res[0]["cli"]["test"]
+    if (mesh_test != one["test"] or abs(measure - best) > 1e-6
+            or cfg_t.partition != "locality" or len(recs) != 3):
+        raise AssertionError(f"14e: two-rank test {mesh_test}, one-process "
+                             f"{one['test']}; checkpoint measure {measure} "
+                             f"against best val MRR {best}; {recs}")
+    for what, res in (("cli_train", train_res), ("cli_test", test_res)):
+        for r in res:
+            paths[f"mesh_{what}_rank{r['rank']}"] = tuple(
+                r["cli"]["launches"])
+            if not r["cli"]["launches"][0]:
+                raise AssertionError(f"14e {what}: rank {r['rank']} "
+                                     "launched no K1")
+    paths["mesh_cli_test_one_process"] = tuple(one["launches"])
+    log(f"[mesh] cli: two ranks, --graph_axis 2 --partition locality, 2 "
+        f"epochs on data/Toy: {train_res[0]['cli']['seconds']:.1f} s, best "
+        f"val MRR {best} (= the checkpoint's measure); --do_test on two "
+        f"ranks: {mesh_test}; in one process: {one['test']}")
+    # 14f: a world of one rank takes NCCL
+    res = launch_ranks(steps([1, 1], [dict(mgcn, name="nccl")]), 1, work,
+                       "nccl", local_world=1)
+    log_ranks("nccl", res, "nccl")
+    paths["mesh_nccl_rank0"] = tuple(res[0]["nccl"]["launches"])
+    out["seconds"] = time.perf_counter() - t14
+    log(f"[phase14] the host data engine and the edge-partitioned path "
+        f"{out['seconds']:.1f} s")
+    return out, paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
                     help="phases 1-3 and the K1, K2, K7, K8, K5 and K3 time "
                     "rows only")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="phases 1-2 and 14 only (the multi-GPU path)")
+    ap.add_argument("--rank", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.rank:   # one rank of phase 14, started by this script
+        return run_rank(args.rank)
     t_start = time.perf_counter()
 
     # 1. device ---------------------------------------------------------------
@@ -1715,6 +2284,16 @@ def main() -> int:
         f"{ds.num_edge} train edges (E_pad {graph.e_pad}), "
         f"{ds.num_train_queries} train queries; FB15k-237-shaped graph E_pad "
         f"{fb_graph.e_pad}; {time.perf_counter() - t0:.1f} s")
+    if args.mesh_only:
+        fb_root = os.path.join(work.name, "fb")
+        write_corpus(os.path.join(fb_root, "SYN3"), args.seed, FB15K237)
+        phase14(args.seed, work.name, corpus_root, fb_root, ds,
+                graph.to(device), make_banks(ds, device), launches)
+        work.cleanup()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     d_in = dataset_preset("WN18RR").gcn_in_dim
     hub = torch.randint(0, 4, (1001,), generator=gen)
@@ -2798,6 +3377,11 @@ def main() -> int:
     phase13_s = time.perf_counter() - t13
     log(f"[phase13] the last single-device modules {phase13_s:.1f} s; "
         f"bwd_perm gradients vs contrib {perm_errs}; toy profile run {toy}")
+
+    # 14. the host data engine and the edge-partitioned multi-GPU path ----------
+    mesh_summary, mesh_paths = phase14(args.seed, work.name, corpus_root,
+                                       fb_root, ds, graph, banks, launches)
+    paths.update(mesh_paths)
     work.cleanup()
 
     paths.update({"mgcn_train": train_launches, "mgcn_serve": serve_launches,
@@ -2832,7 +3416,8 @@ def main() -> int:
         })
     log(f"[smoke] {torch.cuda.get_device_name(0)}; {smi}; whole script "
         f"{time.perf_counter() - t_start:.1f} s, phase 12 {phase12_s:.1f} s, "
-        f"phase 13 {phase13_s:.1f} s")
+        f"phase 13 {phase13_s:.1f} s, phase 14 {mesh_summary['seconds']:.1f}"
+        " s")
     log(json.dumps({"training": train, "serve_rgat": serve_rgat,
                     "serve_mgcn_stacked": serve_stacked, "few_sum": {
                         k: v for k, v in timings.items()

@@ -31,6 +31,15 @@ writes ``per_relation.json``.  ``--profile_dir D`` writes a
 ``torch.profiler`` trace of training epoch 2 into D; ``--ckpt_every K``
 writes ``periodic.ckpt`` every K epochs in the background.
 ``--device`` (default ``cuda``) picks the card or, when asked for, the CPU.
+``--partition locality`` renumbers the entities by graph communities
+(``data/partition.py``; recorded in ``params.json`` and adopted on
+restore).  ``--data_axis D --graph_axis G`` run on D x G ranks of a launcher
+(``torchrun --nproc_per_node D*G -m kgc_gcn_torch.cli ...``; its
+``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``):
+each step's batch is split over D, each half's edges and the per-edge table
+over G (``parallel/``); NCCL where each rank has a card of its own, gloo
+where ranks share one.  ``--entity_sharded`` is not ported yet (ROADMAP.md
+§1 item 8); ``--do_predict`` serves on one process.
 ``--spmm_mode`` picks MGCN's aggregation schedule (``ew_impl``, as in the
 JAX CLI, has no flag: it is a ``Config`` field).  The flags that steer only
 the JAX package's TPU schedules (``--prng_impl``, ``--compile_cache_dir``,
@@ -59,9 +68,13 @@ from kgc_gcn_torch.config import Config, dataset_preset
 from kgc_gcn_torch.data.batching import make_banks
 from kgc_gcn_torch.data.dataset import load_dataset
 from kgc_gcn_torch.data.graph import build_graph
+from kgc_gcn_torch.data.partition import partition_dataset
 from kgc_gcn_torch.models import build_model
 from kgc_gcn_torch.models.common import init_embeddings_from_npz
 from kgc_gcn_torch.ops.ranking import corpus_from_per_rel
+from kgc_gcn_torch.parallel.distributed import (
+    launcher_env, maybe_initialize, shutdown)
+from kgc_gcn_torch.parallel.mesh import check_mesh_shape, make_mesh, shard_like
 from kgc_gcn_torch.serve import Predictor, serve_file, serve_stream
 from kgc_gcn_torch.train.checkpoint import load_checkpoint
 from kgc_gcn_torch.train.loop import (
@@ -232,46 +245,37 @@ def config_from_args(args: argparse.Namespace) -> Config:
     cfg = cfg.replace(**overrides)
 
     # a PRESET-sourced use_pallas yields to the flags that the JAX package's
-    # kernels cannot serve, as in its CLI (cli.py:245-258; the others there
-    # are refused here anyway); an explicit --use_pallas still conflicts
-    # (models/mgcn.py:check_config raises)
+    # kernels cannot serve, as in its CLI (cli.py:245-258: also a non-halves
+    # spmm_mode under a graph axis; the others there are refused here
+    # anyway); an explicit --use_pallas still conflicts (models/mgcn.py:
+    # check_config raises)
     if cfg.use_pallas and "use_pallas" not in overrides and (
-            cfg.composition != "mult" or cfg.edge_sample_size > 0):
+            cfg.composition != "mult" or cfg.edge_sample_size > 0
+            or (cfg.spmm_mode != "halves" and cfg.graph_axis > 1)):
         logging.info("preset use_pallas yields to a kernel-incompatible "
                      "flag")
         cfg = cfg.replace(use_pallas=False)
     return cfg
 
 
-def _check_ported(cfg: Config) -> None:
-    """Raise on what the port cannot run yet (ROADMAP.md §1)."""
-    unported = [
-        ("--partition", cfg.partition != "contiguous", 8),
-        ("--data_axis/--graph_axis", cfg.data_axis * cfg.graph_axis > 1, 8),
-    ]
-    for flag, bad, item in unported:
-        if bad:
-            raise NotImplementedError(
-                f"{flag} is not ported to kgc_gcn_torch yet "
-                f"(ROADMAP.md §1 item {item})")
-
-
 def write_per_relation(cfg: Config, model, graph, banks, relation2id,
-                       num_relation: int, model_dir: str) -> None:
+                       num_relation: int, model_dir: str,
+                       mesh=None) -> None:
     """``--do_test --per_relation`` (``kgc_gcn_tpu/cli.py:424-452``): ONE
     ranking pass gives the per-relation table, written to
-    ``<model_dir>/per_relation.json``, and the corpus metrics, logged as
-    the test metrics (their count-weighted mean is exact); the five worst
-    and best relations by MRR are logged."""
-    per = evaluate_per_relation(cfg, model, graph, banks, "test")
+    ``<model_dir>/per_relation.json`` (by rank 0 under a ``mesh``), and the
+    corpus metrics, logged as the test metrics (their count-weighted mean
+    is exact); the five worst and best relations by MRR are logged."""
+    per = evaluate_per_relation(cfg, model, graph, banks, "test", mesh=mesh)
     log_metrics("Test", corpus_from_per_rel(per))
     id2rel = {i: r for r, i in relation2id.items() if i < num_relation}
     rows = [{"relation": id2rel[i], "count": int(per["count"][i]),
              **{k: (None if np.isnan(v[i]) else round(float(v[i]), 5))
                 for k, v in per.items() if k != "count"}}
             for i in range(num_relation)]
-    with open(os.path.join(model_dir, "per_relation.json"), "w") as f:
-        json.dump(rows, f, indent=2)
+    if mesh is None or mesh.rank == 0:
+        with open(os.path.join(model_dir, "per_relation.json"), "w") as f:
+            json.dump(rows, f, indent=2)
     ranked = sorted((r for r in rows if r["count"]), key=lambda r: r["mrr"])
     worst = ranked[:5]
     best = [r for r in ranked[-5:] if r not in worst]
@@ -287,13 +291,39 @@ def main(argv=None) -> int:
     cfg = config_from_args(args)
     if cfg.do_train and cfg.do_test:
         raise ValueError("Can not perform training and testing at one time")
-    _check_ported(cfg)
     if ((cfg.do_test or args.do_predict) and cfg.restore_dir is None
             and cfg.restore_torch is None):
         raise ValueError("Must specify restore dir for testing or prediction")
     if args.do_predict and not args.predict_file:
         raise ValueError("--do_predict needs --predict_file")
-    device = resolve_device(args.device)
+    if args.do_predict and launcher_env():
+        raise ValueError("--do_predict serves on one process: run it "
+                         "without a launcher (a checkpoint written under "
+                         "--data_axis/--graph_axis has the one-device layout)")
+    # one process per rank: rank 0 writes the run record and the log file
+    lead = os.environ.get("RANK", "0") == "0"
+    model_dir = os.path.join(cfg.experiments_dir, cfg.dataset)
+    os.makedirs(model_dir, exist_ok=True)
+    if lead:
+        set_logger(os.path.join(model_dir, "train.log"))
+    try:
+        return _run(args, cfg, model_dir, lead)
+    finally:
+        shutdown()
+
+
+def _run(args: argparse.Namespace, cfg: Config, model_dir: str,
+         lead: bool) -> int:
+    # join the launcher's process group before any device work
+    # (kgc_gcn_tpu/cli.py:295-357,401-408); a no-op without a launcher
+    dist_info = maybe_initialize(args.device)
+    device = resolve_device(str(dist_info.device) if dist_info is not None
+                            else args.device)
+    mesh = None
+    if dist_info is not None or cfg.data_axis * cfg.graph_axis > 1:
+        mesh = make_mesh(cfg.data_axis, cfg.graph_axis, device)
+    logging.info("device: %s (%s)", device, torch.cuda.get_device_name(device)
+                 if device.type == "cuda" else "host CPU")
     ref_sd = None
     if cfg.restore_torch is not None:
         if (cfg.model, cfg.decoder, cfg.num_layers) != ("mgcn", "conve", 1):
@@ -304,21 +334,29 @@ def main(argv=None) -> int:
         # the imported tree brings ConvE's conv bias or not, whatever the
         # flag says (kgc_gcn_tpu/utils/torch_import.py:88-90)
         cfg = cfg.replace(bias="conv2.conv_e.bias" in ref_sd)
-
-    model_dir = os.path.join(cfg.experiments_dir, cfg.dataset)
-    os.makedirs(model_dir, exist_ok=True)
-    cfg.to_json(os.path.join(model_dir, "params.json"))
-    set_logger(os.path.join(model_dir, "train.log"))
-    logging.info("device: %s (%s)", device, torch.cuda.get_device_name(device)
-                 if device.type == "cuda" else "host CPU")
+    if lead:
+        cfg.to_json(os.path.join(model_dir, "params.json"))
 
     logging.info("Loading the dataset...")
     ds = load_dataset(cfg.dataset, cfg.data_dir)
-    graph = build_graph(ds.train_triples, ds.num_entity,
-                        ds.num_relation).to(device)
+    if cfg.partition != "contiguous":
+        # an isomorphic renumbering; a restore adopts it from params.json
+        ds = partition_dataset(ds, cfg.partition)
+        logging.info("Applied %s entity partition", cfg.partition)
+        if args.init_embeddings:
+            logging.warning(
+                "--init_embeddings rows are keyed by entity id and "
+                "--partition %s RENUMBERS entities: the table must already "
+                "be in the partitioned numbering", cfg.partition)
+    graph = build_graph(ds.train_triples, ds.num_entity, ds.num_relation)
     banks = make_banks(ds, device)
+    if mesh is not None:
+        check_mesh_shape(mesh.data, mesh.graph, cfg.batch_size,
+                         cfg.eval_batch_size, graph.e_pad)
+    else:
+        graph = graph.to(device)
     model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
-                        e_pad=graph.e_pad)
+                        e_pad=graph.e_pad, mesh=mesh)
     if args.init_embeddings:
         # after init and before any restore, as in the JAX CLI
         init_embeddings_from_npz(model, args.init_embeddings)
@@ -334,6 +372,7 @@ def main(argv=None) -> int:
         logging.info("Imported reference checkpoint %s (measure: %s)",
                      cfg.restore_torch, best)
     if cfg.restore_dir is not None:
+        # every rank reads the whole file; the mesh takes its slices
         state_dict, best, *opt = load_checkpoint(
             cfg.restore_dir, cfg, with_opt_state=cfg.do_train)
         if cfg.model == "mgcn":
@@ -345,15 +384,19 @@ def main(argv=None) -> int:
                      cfg.restore_dir, best)
     model = model.to(device)
 
-    if cfg.do_train:
+    trainer = None
+    if cfg.do_train or mesh is not None:
         trainer_cls = (NegativeSamplingTrainer
                        if cfg.train_mode == "negative_sampling" else Trainer)
-        trainer = trainer_cls(cfg, model, graph, banks)
+        # under a mesh the trainer shards the graph and the per-edge tables
+        trainer = trainer_cls(cfg, model, graph, banks, mesh=mesh)
+        graph = trainer.graph
         if opt_state is not None:   # resume: the optimizer continues too
             trainer.opt_state.count = opt_state.count
             for dst, src in zip(trainer.opt_state.mu + trainer.opt_state.nu,
                                 opt_state.mu + opt_state.nu):
-                dst.copy_(src)
+                dst.copy_(src if mesh is None else shard_like(src, dst, mesh))
+    if cfg.do_train:
         logging.info("Training %s+%s, %s, loss_impl=%s, on %s", cfg.model,
                      cfg.decoder, cfg.train_mode, trainer.loss_impl, device)
         best = train_and_evaluate(trainer, model_dir, best,
@@ -361,9 +404,10 @@ def main(argv=None) -> int:
                                   profile_dir=args.profile_dir)
     if cfg.do_test and args.per_relation:
         write_per_relation(cfg, model, graph, banks, ds.relation2id,
-                           ds.num_relation, model_dir)
+                           ds.num_relation, model_dir, mesh)
     elif cfg.do_test:
-        evaluate(cfg, model, graph, banks, "test", mark="Test")
+        evaluate(cfg, model, graph, banks, "test", mark="Test",
+                 mesh=mesh)
     if args.do_predict:
         predictor = Predictor(cfg, model, graph, ds.entity2id, ds.relation2id)
         if args.predict_file == "-":
@@ -373,7 +417,6 @@ def main(argv=None) -> int:
             for line in serve_file(predictor, args.predict_file, k=args.top_k):
                 print(line)
     return 0
-
 
 if __name__ == "__main__":
     raise SystemExit(main())

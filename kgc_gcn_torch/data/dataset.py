@@ -1,7 +1,9 @@
 """Knowledge-graph corpus: vocab, triples and query materialization.
 
-The port's copy of ``kgc_gcn_tpu/data/dataset.py`` with its numpy engine
-(the C++ grouper of ``native/graphcore.cpp`` is not ported yet).  Pure numpy.
+The port's copy of ``kgc_gcn_tpu/data/dataset.py`` with both of its
+engines: the C++ parser and sr2o grouper of ``native/graphcore.cpp``
+(``utils/native.py``; ``use_native=True``, the default) and the numpy ones
+(``use_native=False``), which give the same fields.
 
 Reference behavior replicated (reference data_loader.py:54-120):
   * entity/relation vocab over ALL splits in first-seen order, lowercased
@@ -106,11 +108,24 @@ def _read_triples(path: str) -> List[Tuple[str, str, str]]:
     return out
 
 
-def load_dataset(name: str, data_dir: str = "data") -> KGDataset:
-    """Load ``<data_dir>/<name>/{train,valid,test}.txt`` TSV triple files."""
+def load_dataset(name: str, data_dir: str = "data",
+                 use_native: bool = True) -> KGDataset:
+    """Load ``<data_dir>/<name>/{train,valid,test}.txt`` TSV triple files,
+    parsed by the C++ engine (``use_native``) or in Python; both give the
+    same vocabularies (first-seen, lowercased) and triples."""
     root = os.path.join(data_dir, name)
-    raw = {s: _read_triples(os.path.join(root, s + ".txt")) for s in SPLITS}
-    return build_dataset(name, raw["train"], raw["valid"], raw["test"])
+    paths = {s: os.path.join(root, s + ".txt") for s in SPLITS}
+    if use_native:
+        from kgc_gcn_torch.utils.native import load_corpus_native
+        entity2id, rel_fwd, ids = load_corpus_native(
+            paths["train"], paths["valid"], paths["test"])
+        relation2id = dict(rel_fwd)
+        relation2id.update({r + "_reverse": i + len(rel_fwd)
+                            for r, i in rel_fwd.items()})
+        return build_dataset_from_ids(name, entity2id, relation2id, ids)
+    raw = {s: _read_triples(paths[s]) for s in SPLITS}
+    return build_dataset(name, raw["train"], raw["valid"], raw["test"],
+                         use_native=False)
 
 
 def build_dataset(
@@ -118,6 +133,7 @@ def build_dataset(
     train: Sequence[Tuple[str, str, str]],
     valid: Sequence[Tuple[str, str, str]],
     test: Sequence[Tuple[str, str, str]],
+    use_native: bool = True,
 ) -> KGDataset:
     raw = {"train": list(train), "valid": list(valid), "test": list(test)}
 
@@ -142,7 +158,8 @@ def build_dataset(
         for i, (s, r, o) in enumerate(raw[split]):
             tri[i] = (entity2id[s], relation2id[r], entity2id[o])
         ids[split] = tri
-    return build_dataset_from_ids(name, entity2id, relation2id, ids)
+    return build_dataset_from_ids(name, entity2id, relation2id, ids,
+                                  use_native=use_native)
 
 
 def _group_first_seen(key: np.ndarray, vals: np.ndarray, n_vals: int):
@@ -214,20 +231,37 @@ def build_dataset_from_ids(
     entity2id: Dict[str, int],
     relation2id: Dict[str, int],     # incl. '<rel>_reverse' ids R..2R-1
     ids: Dict[str, np.ndarray],      # {split: (n, 3) int64 id triples}
+    use_native: bool = True,         # False: the numpy/dict engines only
 ) -> KGDataset:
     num_entity = len(entity2id)
     num_relation = len(relation2id) // 2
 
-    # the composite-id group-by needs n_ent²·2R to fit int64; beyond that the
+    # the C++ grouper (one hash pass) takes any vocabulary; the numpy
+    # composite-id group-by needs n_ent²·2R to fit int64, and beyond that the
     # reference-literal dict path below runs instead
     fits = (num_entity and num_relation
             and float(num_entity) * num_entity * 2 * num_relation < 2.0**62)
-    if fits:
-        two_r = 2 * num_relation
+    grouped = None
+    if use_native and num_relation:
+        from kgc_gcn_torch.utils.native import group_sr2o_splits_native
+        (keys_t, vals_t, off_t), (keys_a, vals_a, off_a) = \
+            group_sr2o_splits_native(
+                np.concatenate([np.asarray(ids[s], np.int64).reshape(-1, 3)
+                                for s in SPLITS]),
+                len(ids["train"]), num_relation)
+        order_a = np.argsort(keys_a)
+        # keys_a[order_a] is sorted; its first-seen rank IS order_a
+        grouped = (keys_t, vals_t, off_t, vals_a, off_a,
+                   (keys_a[order_a], order_a))
+    elif fits:
         tk, tv = _sr_stream(ids, ("train",), num_relation)
         ak, av = _sr_stream(ids, SPLITS, num_relation)
         keys_t, vals_t, off_t, _ = _group_first_seen(tk, tv, num_entity)
         _, vals_a, off_a, lookup = _group_first_seen(ak, av, num_entity)
+        grouped = (keys_t, vals_t, off_t, vals_a, off_a, lookup)
+    if grouped is not None:
+        two_r = 2 * num_relation
+        keys_t, vals_t, off_t, vals_a, off_a, lookup = grouped
         # train-only snapshot → train queries/labels (data_loader.py:100-102)
         tq = np.stack([keys_t // two_r, keys_t % two_r],
                       axis=1).astype(np.int32).reshape(-1, 2)

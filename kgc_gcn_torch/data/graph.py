@@ -1,6 +1,10 @@
 """The training graph as torch tensors (the port's ``kgc_gcn_tpu/data/graph.py``).
 
-Built once on the host with numpy, then moved to a device with ``.to``:
+Built once on the host, then moved to a device with ``.to``; each half's
+stable dst sort comes from the C++ half builder of ``native/graphcore.cpp``
+(``use_native``, the default) or from numpy, and the degree norm from numpy's
+degree count in both (the C++ ``1/sqrt`` differs from ``deg**-0.5`` in the
+last bit), so the two engines' graphs are equal bit for bit:
 
   * the bidirectional edge list is split into its two halves up front — the
     "in" half is the original orientation ``(src → dst, rel)``, the "out" half
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -100,11 +105,14 @@ class GraphStacked:
 class Graph:
     inb: GraphHalf       # original orientation (src, rel, dst)
     outb: GraphHalf      # reversed orientation (dst, rel + R, src)
-    stacked: GraphStacked  # both halves as one dst-sorted edge list
+    stacked: Optional[GraphStacked]  # both halves as one dst-sorted edge list
     n_ent: int = 0
     n_rel: int = 0       # R; relation tables hold 2R (+1 loop)
     n_edge: int = 0      # E = true (unpadded) edges per half
     e_pad: int = 0       # padded edge count per half
+    # G > 1: the halves hold one rank's slice of E_pad/G edges with its local
+    # CSR, and ``stacked`` is None (parallel/mesh.py:shard_graph)
+    graph_shards: int = 1
 
     @property
     def num_messages(self) -> int:
@@ -116,9 +124,9 @@ class Graph:
         return self.inb.src.device
 
     def to(self, device) -> "Graph":
-        return dataclasses.replace(self, inb=self.inb.to(device),
-                                   outb=self.outb.to(device),
-                                   stacked=self.stacked.to(device))
+        return dataclasses.replace(
+            self, inb=self.inb.to(device), outb=self.outb.to(device),
+            stacked=None if self.stacked is None else self.stacked.to(device))
 
 
 def padded_edge_count(n_edge: int, pad_to: int = EDGE_PAD) -> int:
@@ -129,8 +137,7 @@ def padded_edge_count(n_edge: int, pad_to: int = EDGE_PAD) -> int:
 def _reference_norm(row: np.ndarray, col: np.ndarray, n_ent: int) -> np.ndarray:
     """deg^-1/2[row] * deg^-1/2[col], degree over row occurrences only
     (reference model.py:72-80)."""
-    deg = np.zeros(n_ent, dtype=np.float32)
-    np.add.at(deg, row, 1.0)
+    deg = np.bincount(row, minlength=n_ent).astype(np.float32)
     with np.errstate(divide="ignore"):
         dinv = deg ** -0.5
     dinv[np.isinf(dinv)] = 0.0
@@ -144,10 +151,16 @@ def _csr_pointers(idx: np.ndarray, n_rows: int) -> np.ndarray:
 
 
 def _build_half(src, dst, rel, eid, n_ent: int, n_edge_total: int,
-                n_rel_rows: int, pad_to: int) -> GraphHalf:
+                n_rel_rows: int, pad_to: int,
+                use_native: bool = True) -> GraphHalf:
     e = len(src)
     norm = _reference_norm(src, dst, n_ent)
-    order = np.argsort(dst, kind="stable")
+    if use_native:
+        # the C++ stable counting sort by dst, in one pass
+        from kgc_gcn_torch.utils.native import build_half_native
+        order = build_half_native(src, dst, n_ent)[0]
+    else:
+        order = np.argsort(dst, kind="stable")
     src, dst, rel, eid, norm = (a[order] for a in (src, dst, rel, eid, norm))
 
     pad = padded_edge_count(e, pad_to) - e
@@ -207,9 +220,11 @@ def build_graph(
     n_ent: int,
     n_rel: int,
     pad_to: int = EDGE_PAD,
+    use_native: bool = True,
 ) -> Graph:
     """Build the bidirectional training graph on the CPU (reference
     data_loader.py:132-157); move it with ``Graph.to(device)``.
+    ``use_native`` picks the C++ half builder, else numpy.
 
     Edge ids: forward edge i gets id ``i``, its reverse ``E + i`` — the
     reference's ``arange(2E)`` over the concatenated list (data_loader.py:148).
@@ -219,9 +234,10 @@ def build_graph(
     e = len(src)
     eid = np.arange(e, dtype=np.int32)
     n_rel_rows = 2 * n_rel + 1   # rel_all rows incl. the appended loop rel
-    inb = _build_half(src, dst, rel, eid, n_ent, 2 * e, n_rel_rows, pad_to)
+    inb = _build_half(src, dst, rel, eid, n_ent, 2 * e, n_rel_rows, pad_to,
+                      use_native)
     outb = _build_half(dst, src, rel + n_rel, eid + e, n_ent, 2 * e,
-                       n_rel_rows, pad_to)
+                       n_rel_rows, pad_to, use_native)
     return Graph(inb=inb, outb=outb, stacked=_build_stacked(inb, outb, n_ent,
                                                             n_rel_rows),
                  n_ent=n_ent, n_rel=n_rel, n_edge=e,

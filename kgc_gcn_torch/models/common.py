@@ -6,7 +6,9 @@ dropout (the port's ``kgc_gcn_tpu/models/common.py``).
     utils.py:113-118).
   * BatchNorm: eps 1e-5, momentum 0.1; training normalizes with the BIASED
     batch variance and updates the running variance with the UNBIASED one;
-    eval uses the running statistics (reference model.py:56,137-139).
+    eval uses the running statistics (reference model.py:56,137-139).  Under
+    a data axis the decoder's BatchNorms take their moments over the global
+    batch (``group``), as the JAX package's GSPMD does.
   * dropout: inverted dropout ``where(keep, x / (1 - p), 0)``.
   * ``init_embeddings_from_npz``: warm-start tables (``--init_embeddings``).
 
@@ -21,6 +23,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from kgc_gcn_torch.parallel.distributed import all_reduce_sum, group_size
 
 
 # ---------------------------------------------------------------- initializers
@@ -61,17 +65,28 @@ def batch_norm(
     channel_axis: int = -1,
     momentum: float = 0.1,
     eps: float = 1e-5,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Functional BatchNorm over all axes except ``channel_axis``; returns
-    (y, new running mean, new running var)."""
+    (y, new running mean, new running var).  With a process ``group`` (the
+    data group: each rank holds an equal slice of the batch) the moments are
+    the global batch's, in two passes as in ``kgc_gcn_tpu/models/
+    common.py:75-104``: the sum, then the sum of squared deviations from the
+    global mean, each summed over the group (gradients summed back)."""
     axis = channel_axis % x.dim()
     axes = tuple(i for i in range(x.dim()) if i != axis)
     shape = [1] * x.dim()
     shape[axis] = x.shape[axis]
     if train:
-        m = x.mean(dim=axes)
-        v = (x - m.reshape(shape)).square().mean(dim=axes)
         n = float(math.prod(x.shape[i] for i in axes))
+        if group is None:
+            m = x.mean(dim=axes)
+            v = (x - m.reshape(shape)).square().mean(dim=axes)
+        else:
+            n *= group_size(group)
+            m = all_reduce_sum(x.sum(dim=axes), group) / n
+            v = all_reduce_sum((x - m.reshape(shape)).square().sum(dim=axes),
+                               group) / n
         new_mean = (1 - momentum) * mean + momentum * m
         new_var = (1 - momentum) * var + momentum * v * (n / max(n - 1.0, 1.0))
     else:
@@ -91,6 +106,7 @@ class BatchNorm(nn.Module):
     def __init__(self, c: int, channel_axis: int = -1):
         super().__init__()
         self.channel_axis = channel_axis
+        self.group = None   # the data group, where the batch is sharded
         self.scale = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("mean", torch.zeros(c))
@@ -99,7 +115,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         y, new_mean, new_var = batch_norm(
             x, self.scale, self.bias, self.mean, self.var, train=train,
-            channel_axis=self.channel_axis)
+            channel_axis=self.channel_axis, group=self.group)
         if train:
             with torch.no_grad():
                 self.mean.copy_(new_mean)

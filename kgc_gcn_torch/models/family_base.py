@@ -6,7 +6,8 @@ A family mixing this in has ``self.cfg``, a ``self.decoder`` module
 and ``query`` where ``has_trunk``), and an
 ``encode(graph, train, rngs, kernels) -> (all_ent, all_rel)``.  Decoder state
 (ConvE's BatchNorm statistics) lives in the decoder's buffers, so nothing is
-threaded back out.
+threaded back out.  ``self.mesh`` is the family's ``parallel.mesh.Mesh``, or
+None on one device.
 """
 
 from __future__ import annotations
@@ -60,3 +61,18 @@ class DecoderFamilyMixin:
         names = tuple(f"layer{i}" for i in range(max(1, self.cfg.num_layers))
                       ) + ("feat", "hidden")
         return dict.fromkeys(names, generator)
+
+    def prepare_edge_sharding(self, mesh) -> None:
+        """Learn the mesh (called by ``parallel.mesh.shard_params``)."""
+        self.mesh = mesh
+
+    def _graph_group(self, graph):
+        """The graph group when the encoder runs per shard, else None;
+        ``graph`` must then be this rank's edge slice."""
+        if self.mesh is None or self.mesh.graph == 1:
+            return None
+        if graph.graph_shards != self.mesh.graph:
+            raise RuntimeError(
+                "under graph_axis > 1 the encoder takes this rank's edge "
+                "slice (parallel.mesh.shard_graph; the Trainer makes it)")
+        return self.mesh.graph_group

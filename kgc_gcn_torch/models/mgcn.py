@@ -26,6 +26,15 @@
   * ``agg_schedule=reference`` (bench only): every edge message projected
     and summed unsorted (``ops/scatter.py:
     aggregate_half_reference_schedule``).
+  * Under a graph axis (``mesh.graph`` G > 1, ``mgcn.py:405-470``): every
+    layer's halves run per shard, each rank's slice of the edges through K1
+    over its local CSR into the full (N, d) rows, then one SUM over the
+    graph group (``parallel/edge_parallel.py:
+    make_pallas_sharded_aggregate``); the per-edge tables hold the rank's
+    ``(2, E_pad/G, d)`` slice (``parallel/mesh.py:shard_params``).
+    ``spmm_mode`` then runs ``halves`` (with ``use_pallas``, another mode is
+    refused, as in the JAX package), and ``ew_impl``, ``bwd_perm`` and
+    ``rel_compose`` take their defaults, with a warning.
   * ``encode`` runs once per graph (per step in training); ``decode``,
     ``query_and_bias`` and ``score_candidates`` come from
     ``models/family_base.py``.
@@ -62,6 +71,7 @@ from kgc_gcn_torch.ops.sampler import aggregate_sampled_half, sample_half
 from kgc_gcn_torch.ops.scatter import (
     aggregate_half, aggregate_half_reference_schedule, aggregate_stacked_xla,
     loop_messages)
+from kgc_gcn_torch.parallel.edge_parallel import make_pallas_sharded_aggregate
 
 
 class MGCNConv(nn.Module):
@@ -99,9 +109,10 @@ def _edge_table(n_edge: int, e_pad: int, d: int,
         -b, b, generator=generator))
 
 
-def check_config(cfg: Config) -> None:
-    """The JAX package's refusals (``mgcn.py:110-120``), and the port's
-    schedules that compose by multiplication only (K3, K4a/K4b)."""
+def check_config(cfg: Config, graph_axis: int = 1) -> None:
+    """The JAX package's refusals (``mgcn.py:110-120,158-165``), the port's
+    schedules that compose by multiplication only (K3, K4a/K4b), and what
+    the port does not run under a graph axis yet."""
     if cfg.num_layers > 1 and cfg.edge_sample_size > 0:
         raise ValueError(
             "edge_sample_size is only supported with num_layers=1")
@@ -119,6 +130,17 @@ def check_config(cfg: Config) -> None:
             f"composition={cfg.composition!r} cannot run on K3 "
             "(spmm_mode='stacked') or K4a/K4b (ew_impl='pallas'): they "
             "compose by multiplication")
+    if graph_axis > 1 and cfg.use_pallas and cfg.spmm_mode != "halves":
+        raise ValueError(
+            f"spmm_mode={cfg.spmm_mode!r} cannot ride an edge partition: "
+            "its one call covers both halves' whole edge lists; use "
+            "spmm_mode='halves' (per-shard K1) with graph_axis > 1")
+    if graph_axis > 1 and (cfg.edge_sample_size > 0
+                           or cfg.agg_schedule == "reference"):
+        raise NotImplementedError(
+            "edge_sample_size and agg_schedule='reference' under "
+            "graph_axis > 1 are not ported to kgc_gcn_torch yet "
+            "(ROADMAP.md §1 item 8)")
 
 
 def _contrib_dtype(cfg: Config, bwd_perm: str, k4b: bool) -> str:
@@ -138,9 +160,10 @@ class MGCN(DecoderFamilyMixin, nn.Module):
 
     def __init__(self, cfg: Config, n_ent: int, n_rel: int, n_edge: int,
                  e_pad: Optional[int] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
-        check_config(cfg)
+        check_config(cfg, mesh.graph if mesh is not None else 1)
+        self.mesh = mesh
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.seed % 2**32)
         self.cfg = cfg
@@ -190,6 +213,7 @@ class MGCN(DecoderFamilyMixin, nn.Module):
         dt = cfg.compute_dtype
         x = self.entity_embedding
         rel_all = torch.cat([self.relation_embedding, c.loop_rel], dim=0)
+        sharded = self._graph_group(graph) is not None
         if train and cfg.edge_sample_size > 0 and "sample_in" in rngs:
             # K edges per half drawn on the device, rescaled by E/K
             # (mgcn.py:259-271): an unsorted sum, projected in float32
@@ -201,7 +225,7 @@ class MGCN(DecoderFamilyMixin, nn.Module):
                 for i, (half, name, w) in enumerate((
                     (graph.inb, "sample_in", c.in_weight),
                     (graph.outb, "sample_out", c.out_weight))))
-        elif cfg.spmm_mode in ("stacked", "stacked_xla"):
+        elif cfg.spmm_mode in ("stacked", "stacked_xla") and not sharded:
             # the whole positional table as (2*E_pad, d_in), a view:
             # stacked position k is its row k
             etab2 = self.edge_embeddings.reshape(2 * self.e_pad, -1)
@@ -261,6 +285,14 @@ class MGCN(DecoderFamilyMixin, nn.Module):
         (``spmm_pallas.py:651-662``); the port takes its plain products
         there, and the ``contrib`` schedule's gradients for all three."""
         cfg = self.cfg
+        group = self._graph_group(graph)
+        if group is not None:
+            # per shard over the local CSR, then one SUM (mgcn.py:455-470)
+            agg = make_pallas_sharded_aggregate(
+                group, self.n_ent, cfg.compute_dtype, kernels.seg_sum,
+                cfg.composition)
+            return tuple(agg(x, rel_all, (et_full[0], et_full[1]),
+                             (graph.inb, graph.outb)))
         perm = cfg.bwd_perm if cfg.use_pallas else "contrib"
         k4b = cfg.ew_impl == "pallas" and perm == "contrib"
         ew = ((kernels.compose_msg, kernels.bwd_products if k4b else None)
@@ -271,6 +303,23 @@ class MGCN(DecoderFamilyMixin, nn.Module):
                            composition=cfg.composition,
                            contrib_dtype=_contrib_dtype(cfg, perm, k4b))
             for i, half in enumerate((graph.inb, graph.outb)))
+
+    def prepare_edge_sharding(self, mesh) -> None:
+        """The JAX package's warning (``mgcn.py:416-427``): under a graph
+        axis the per-shard schedule runs the default ``contrib``, ``gather``
+        and plain elementwise paths.  Called by ``parallel.mesh.
+        shard_params``, which slices the per-edge tables."""
+        super().prepare_edge_sharding(mesh)
+        cfg = self.cfg
+        ignored = [k for k, v, dflt in (
+            ("bwd_perm", cfg.bwd_perm, "contrib"),
+            ("rel_compose", cfg.rel_compose, "gather"),
+            ("ew_impl", cfg.ew_impl, "xla")) if v != dflt]
+        if mesh.graph > 1 and ignored:
+            logging.warning(
+                "the per-shard edge-partition schedule uses the default "
+                "contrib/gather/xla paths; non-default %s are IGNORED under "
+                "graph_axis > 1 (A/B those flags on one device)", ignored)
 
     def _combine(self, c: MGCNConv, x: torch.Tensor, rel_all: torch.Tensor,
                  in_res: torch.Tensor, out_res: torch.Tensor, train: bool,

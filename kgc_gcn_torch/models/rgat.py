@@ -14,7 +14,15 @@ Per layer and direction half, with H heads of ``dh = d_out / H``:
   * the aggregate ``Σ alpha · z`` through K1 (``segment_sum_sorted``).
 
 ``encode`` is ``relu(attend(inb) + attend(outb) + x @ self_weight)`` then
-dropout ``layer{i}``, for every layer.  The per-head contractions are the
+dropout ``layer{i}``, for every layer.
+
+Under a graph axis (``mesh.graph`` G > 1; ``rgat.py:221-312,500-535``) each
+rank attends over its own edge slice (``attend_sharded``): K5 over the local
+slice on the detached logits, a MAX over the graph group, K1 for the
+denominator and a SUM whose backward sums the cotangents too (each rank
+divides its own edges by it), K1 for the aggregate and a SUM that feeds the
+replicated rest.  The replicated operands (``h`` and the attention
+parameters) sum their per-shard gradients over the group once.  The per-head contractions are the
 flat block-diagonal products of the JAX package's default layout
 (``(E, d_out) @ (d_out, H)``); the alpha weighting broadcasts over the
 ``(E, H, dh)`` view of ``z``.  The JAX tests show both layouts compute one
@@ -40,6 +48,8 @@ from kgc_gcn_torch.ops import sorted_ops
 from kgc_gcn_torch.ops.kernels import KERNELS, Kernels
 from kgc_gcn_torch.ops.sorted_ops import (
     edge_compose, gather_rows_few, gather_rows_sorted, segment_sum_sorted)
+from kgc_gcn_torch.parallel.distributed import (
+    all_reduce_max, all_reduce_sum, copy_to_group, reduce_from_group)
 
 NEG_SLOPE = 0.2
 
@@ -111,12 +121,61 @@ class RGATLayer(nn.Module):
         return segment_sum_sorted(msg, half.dst, half.indptr, n_ent, seg_sum)
 
 
+    def attend_sharded(self, h: torch.Tensor, halves, n_ent: int,
+                       kernels: Kernels, group,
+                       contrib_dtype: torch.dtype = torch.float32) -> list:
+        """``attend`` of both halves over this rank's edge slices, combined
+        over the graph group: [(N, d_out) per half]."""
+        nh, dh = self.att_src.shape
+        seg_sum = kernels.seg_sum
+        h, rel_mult, att_src, att_dst, rel_bias = copy_to_group(
+            group, h, self.rel_mult, self.att_src, self.att_dst,
+            self.rel_bias)
+        score_dst = h @ block_matrix(att_dst)                   # (N, H)
+        zs, ss = [], []
+        for half in halves:
+            z = edge_compose(h, rel_mult, half, seg_sum, contrib_dtype)
+            sd_e = gather_rows_sorted(score_dst, half.dst, half.indptr,
+                                      n_ent, seg_sum)
+            rb_e = gather_rows_few(rel_bias, half.rel,
+                                   half.r_indptr.shape[0] - 1,
+                                   (half.rperm, half.r_indptr, half.r_rel),
+                                   seg_sum)
+            s = torch.nn.functional.leaky_relu(
+                z @ block_matrix(att_src) + sd_e + rb_e, NEG_SLOPE)
+            zs.append(z)
+            ss.append(torch.where(half.norm[:, None] > 0, s, float("-inf")))
+        # a destination's edges may straddle shards: the max and the
+        # denominator are combined over the group before any rank uses them
+        smax = all_reduce_max(torch.cat([
+            kernels.seg_max(s.detach().contiguous(), half.dst, half.indptr,
+                            n_ent) for s, half in zip(ss, halves)]), group)
+        expds = []
+        for s, half, m in zip(ss, halves, smax.split(n_ent)):
+            m_e = torch.where(torch.isfinite(m), m, 0.0)[half.dst.long()]
+            expds.append(torch.where(torch.isfinite(s), torch.exp(s - m_e),
+                                     0.0))
+        denom = all_reduce_sum(torch.cat([
+            segment_sum_sorted(e, half.dst, half.indptr, n_ent, seg_sum)
+            for e, half in zip(expds, halves)]), group)
+        outs = []
+        for z, e, half, dn in zip(zs, expds, halves, denom.split(n_ent)):
+            alpha = e / gather_rows_sorted(torch.clamp_min(dn, 1e-9),
+                                           half.dst, half.indptr, n_ent,
+                                           seg_sum)
+            msg = (z.view(-1, nh, dh) * alpha[:, :, None]).view(-1, nh * dh)
+            outs.append(segment_sum_sorted(msg, half.dst, half.indptr, n_ent,
+                                           seg_sum))
+        return list(reduce_from_group(torch.cat(outs), group).split(n_ent))
+
+
 class RGAT(DecoderFamilyMixin, nn.Module):
     """Model family 'rgat' with any decoder (``cfg.decoder``)."""
 
     def __init__(self, cfg: Config, n_ent: int, n_rel: int, n_edge: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
+        self.mesh = mesh
         if cfg.num_heads < 1:
             raise ValueError(f"num_heads={cfg.num_heads} must be >= 1")
         self.nh = cfg.num_heads
@@ -154,11 +213,18 @@ class RGAT(DecoderFamilyMixin, nn.Module):
         # (spmm_pallas.py:1588-1596)
         stream = (torch.bfloat16 if self.cfg.use_pallas
                   and sorted_ops.EDGE_CONTRIB == "bf16" else torch.float32)
+        group = self._graph_group(graph)
         for i, layer in enumerate(self.layers):
             h = x @ layer.weight
-            agg = (layer.attend(h, graph.inb, self.n_ent, kernels, stream)
-                   + layer.attend(h, graph.outb, self.n_ent, kernels, stream)
-                   + x @ layer.self_weight)
+            if group is not None:
+                agg_in, agg_out = layer.attend_sharded(
+                    h, (graph.inb, graph.outb), self.n_ent, kernels, group,
+                    stream)
+            else:
+                agg_in, agg_out = (
+                    layer.attend(h, half, self.n_ent, kernels, stream)
+                    for half in (graph.inb, graph.outb))
+            agg = agg_in + agg_out + x @ layer.self_weight
             x = dropout(torch.relu(agg), self.cfg.gcn_drop,
                         rngs.get(f"layer{i}"), train)
         return x, self.relation_embedding

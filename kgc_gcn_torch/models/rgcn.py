@@ -14,6 +14,12 @@ decoder (the port's ``kgc_gcn_tpu/models/rgcn.py``).
   * ``h = agg_in + agg_out + x @ self_weight``, ReLU, then dropout
     ``layer{i}`` (every layer, the last included).
   * ``relation_embedding`` (2R, d_out) goes straight to the decoder.
+  * Under a graph axis (``mesh.graph`` G > 1) the JAX package turns the
+    kernel path off (``rgcn.py:205-220,313-314``): each rank composes its
+    edge slice's messages in plain tensor ops (``basis_compose``: the
+    (E, B·d_in) expansion; ``block_compose``: the per-edge block products),
+    sums them with ``index_add_``, and one SUM over the graph group follows
+    (``parallel/edge_parallel.py:make_sharded_aggregate``).
 
 Parameters keep the JAX layout and names (``layers.{i}.basis`` is
 ``(B, d_in, d_out)``), so ``convert.py`` maps a JAX ``RGCNParams`` onto this
@@ -36,6 +42,27 @@ from kgc_gcn_torch.ops import basis
 from kgc_gcn_torch.ops.basis import basis_aggregate
 from kgc_gcn_torch.ops.block import block_aggregate
 from kgc_gcn_torch.ops.kernels import KERNELS, Kernels
+from kgc_gcn_torch.parallel.edge_parallel import make_sharded_aggregate
+
+
+def basis_compose(x_rows, coeff, rel_ids, et_rows, norm):
+    """The (E, B·d_in) basis expansion ``a[e, b] · norm_e · x[src_e, :]``
+    with ``a = coeff[rel]``, laid out as K7's output (``rgcn.py:
+    basis_compose``); R-GCN has no per-edge table (``et_rows`` None)."""
+    del et_rows
+    a = coeff[rel_ids]
+    msg = x_rows * norm[:, None]
+    return (msg[:, None, :] * a[:, :, None]).reshape(msg.shape[0], -1)
+
+
+def block_compose(x_rows, blocks, rel_ids, et_rows, norm):
+    """Each edge's block products ``xs[e, b] @ blocks[rel_e, b]`` with
+    ``xs = x[src] · norm`` viewed as (B, d_in/B) -> (E, d_out)
+    (``ops/block.py``'s message, unchunked)."""
+    del et_rows
+    _, nb, bin_, bout = blocks.shape
+    xs = (x_rows * norm[:, None]).view(-1, nb, 1, bin_)
+    return torch.matmul(xs, blocks[rel_ids]).view(-1, nb * bout)
 
 
 class RGCNLayer(nn.Module):
@@ -63,8 +90,9 @@ class RGCN(DecoderFamilyMixin, nn.Module):
     (``cfg.num_bases``, 0 for min(2R, 30))."""
 
     def __init__(self, cfg: Config, n_ent: int, n_rel: int, n_edge: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
+        self.mesh = mesh
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.seed % 2**32)
         self.cfg = cfg
@@ -103,16 +131,30 @@ class RGCN(DecoderFamilyMixin, nn.Module):
                     and basis.BASIS_READBACK == "bf16"
                     and self.nb <= basis.BASIS_READBACK_MAX_BASES
                     else torch.float32)
+        group = self._graph_group(graph)
+        halves = (graph.inb, graph.outb)
         for i, layer in enumerate(self.layers):
             if self.mode == "block":
-                agg = lambda half: block_aggregate(
-                    x, layer.blocks, half, self.n_ent, kernels.seg_sum)
+                if group is not None:
+                    agg_in, agg_out = make_sharded_aggregate(
+                        group, self.n_ent, block_compose)(
+                            x, layer.blocks, (None, None), halves)
+                else:
+                    agg_in, agg_out = (block_aggregate(
+                        x, layer.blocks, half, self.n_ent, kernels.seg_sum)
+                        for half in halves)
             else:
                 w = layer.basis.reshape(-1, layer.basis.shape[2])  # (B·d_in, d_out)
-                agg = lambda half: torch.matmul(basis_aggregate(
-                    x, layer.coeff, half, self.n_ent, kernels,
-                    readback), w)
-            h = agg(graph.inb) + agg(graph.outb) + x @ layer.self_weight
+                if group is not None:
+                    msgs = make_sharded_aggregate(
+                        group, self.n_ent, basis_compose)(
+                            x, layer.coeff, (None, None), halves)
+                else:
+                    msgs = (basis_aggregate(x, layer.coeff, half, self.n_ent,
+                                            kernels, readback)
+                            for half in halves)
+                agg_in, agg_out = (torch.matmul(m, w) for m in msgs)
+            h = agg_in + agg_out + x @ layer.self_weight
             x = dropout(torch.relu(h), self.cfg.gcn_drop, rngs.get(f"layer{i}"),
                         train)
         return x, self.relation_embedding

@@ -12,6 +12,13 @@ a template from ``model.init`` and ``make_optimizer(cfg).init``, the port
 with numpy alone.  The policy is the
 reference's (utils.py:121-155): the trainer saves only when the validation
 MRR improves, so ``last.ckpt`` holds the best weights.
+
+Under a mesh (``parallel/mesh.py``) the file keeps the single-device layout:
+every rank takes part in gathering the per-edge tables and their moments
+over its graph group, and rank 0 writes.  On restore every rank reads the
+whole file and takes its slice, so a run under a mesh restores on one
+device and the reverse.  (The JAX package writes orbax where its arrays are
+not fully addressable, ``kgc_gcn_tpu/train/checkpoint.py:54-55``.)
 """
 
 from __future__ import annotations
@@ -25,8 +32,10 @@ import torch
 
 from kgc_gcn_torch.config import Config
 from kgc_gcn_torch.convert import (
-    jax_leaf_names, opt_state_from_leaves, opt_state_leaves, params_from_numpy,
-    params_to_numpy)
+    jax_leaf_names, model_leaf_names, opt_state_from_leaves, opt_state_leaves,
+    params_from_numpy, params_to_numpy)
+from kgc_gcn_torch.parallel.distributed import all_gather_cat
+from kgc_gcn_torch.parallel.mesh import edge_table_names
 
 CKPT_NAME = "last.ckpt"
 PERIODIC_NAME = "periodic.ckpt"
@@ -114,13 +123,38 @@ def _to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, Optional[str]]:
     return t.numpy(), None
 
 
+def _gather_edge_tables(model, opt_state, cfg: Config, mesh, params: dict,
+                        opt: list) -> None:
+    """Replace each per-edge table's slice in ``params`` and ``opt`` (the
+    leaves of ``opt_state_leaves``) by the whole table, gathered over the
+    graph group (a collective: every rank calls it)."""
+    if mesh is None or mesh.graph == 1:
+        return
+    names = model_leaf_names(model, cfg)[0]
+    whole = lambda t: all_gather_cat(t.detach().float(), mesh.graph_group, 1)
+    for name in edge_table_names(model):
+        i = names.index(name)
+        params[name] = whole(model.get_parameter(name)).cpu().numpy()
+        for j, moments in ((1 + i, opt_state.mu),
+                           (1 + len(names) + i, opt_state.nu)):
+            opt[j] = whole(moments[i]).to(moments[i].dtype).cpu()
+
+
+def _mesh(model):
+    """The grid the model was put on (``parallel.mesh.shard_params``)."""
+    return getattr(model, "sharded_on", None)
+
+
 def _checkpoint_arrays(model, opt_state, cfg: Config, measure: float,
                        copy: bool = False) -> dict:
     """The npz entries of one checkpoint, as host arrays; ``copy`` makes
     every array its own copy, so that no later in-place update of a CPU
-    parameter or moment reaches it."""
+    parameter or moment reaches it.  Under a mesh the per-edge tables are
+    gathered whole on every rank."""
     params, state = params_to_numpy(model, cfg)
-    leaves = ([_to_numpy(t) for t in opt_state_leaves(opt_state)]
+    opt = opt_state_leaves(opt_state)
+    _gather_edge_tables(model, opt_state, cfg, _mesh(model), params, opt)
+    leaves = ([_to_numpy(t) for t in opt]
               + [(a, None) for a in params.values()]
               + [(a, None) for a in state.values()])
     arrays = {}
@@ -137,15 +171,22 @@ def _write_npz(path: str, arrays: dict) -> None:
         np.savez(f, **arrays)
 
 
+def _writes(mesh) -> bool:
+    return mesh is None or mesh.rank == 0
+
+
 def save_checkpoint(ckpt_dir: str, model, opt_state, cfg: Config,
                     measure: float) -> str:
     """Write ``<ckpt_dir>/last.ckpt`` atomically (write a temporary file,
-    then ``os.replace``): a crash never corrupts the previous checkpoint."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    then ``os.replace``): a crash never corrupts the previous checkpoint.
+    Under a mesh every rank calls it and rank 0 writes."""
     path = os.path.join(ckpt_dir, CKPT_NAME)
-    tmp = path + ".tmp"
-    _write_npz(tmp, _checkpoint_arrays(model, opt_state, cfg, measure))
-    os.replace(tmp, path)
+    arrays = _checkpoint_arrays(model, opt_state, cfg, measure)
+    if _writes(_mesh(model)):
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = path + ".tmp"
+        _write_npz(tmp, arrays)
+        os.replace(tmp, path)
     return path
 
 
@@ -169,11 +210,15 @@ class AsyncCheckpointer:
 
     def save_checkpoint_async(self, ckpt_dir: str, model, opt_state,
                               cfg: Config, measure: float) -> str:
+        """Under a mesh every rank calls it (the gather) and rank 0
+        writes."""
         self.wait_for_async_checkpoints()
-        os.makedirs(ckpt_dir, exist_ok=True)
         path = os.path.join(ckpt_dir, PERIODIC_NAME)
         tmp = path + ".tmp"
         arrays = _checkpoint_arrays(model, opt_state, cfg, measure, copy=True)
+        if not _writes(_mesh(model)):
+            return path
+        os.makedirs(ckpt_dir, exist_ok=True)
 
         def write():
             try:

@@ -18,6 +18,18 @@
     epoch (``utils/profiling.py``) and leaves that epoch out of the timing;
     with ``cfg.ckpt_every`` it writes periodic checkpoints in the
     background (``train/checkpoint.py:AsyncCheckpointer``).
+
+Under a mesh (``parallel/mesh.py``; ``kgc_gcn_tpu/train/loop.py:189-267``)
+every rank draws the same epoch plan and takes its data rank's slice of each
+step.  Each rank's loss is its rows' numerator over the GLOBAL denominator
+(its local loss times ``max(local rows, 1) / max(global rows, 1)``: every
+loss divides by ``max(Σ mask, 1)``), so the gradients are summed over the
+data group, in one flat collective, not averaged; the epoch's mean loss is
+the global one.  The dropout sites of the encoder draw from one stream that
+is the same on every rank (its activations are replicated), the decoder's
+sites and the negatives from a stream of the rank's data row.  Evaluation
+ranks each data rank's slice of every batch and sums the metric sums over
+the data group; rank 0 alone logs to file, records and writes.
 """
 
 from __future__ import annotations
@@ -32,7 +44,7 @@ import numpy as np
 import torch
 
 from kgc_gcn_torch.config import Config
-from kgc_gcn_torch.convert import model_params
+from kgc_gcn_torch.convert import model_leaf_names, model_params
 from kgc_gcn_torch.data.batching import QueryBank, build_labels, epoch_batches
 from kgc_gcn_torch.data.graph import Graph
 from kgc_gcn_torch.models.common import mm
@@ -42,6 +54,9 @@ from kgc_gcn_torch.ops.losses import bce_with_logits
 from kgc_gcn_torch.ops.ranking import (
     combine_head_tail, combine_head_tail_by_rel, filtered_ranks,
     rank_metric_sums_by_rel, rank_metrics)
+from kgc_gcn_torch.parallel.distributed import flat_all_reduce
+from kgc_gcn_torch.parallel.mesh import (
+    Mesh, edge_table_names, shard_batches, shard_graph, shard_params)
 from kgc_gcn_torch.train import optim
 from kgc_gcn_torch.train.checkpoint import AsyncCheckpointer, save_checkpoint
 from kgc_gcn_torch.utils.profiling import StepTimer, trace
@@ -58,19 +73,49 @@ class Trainer:
     trains it on sampled negatives."""
 
     def __init__(self, cfg: Config, model, graph: Graph,
-                 banks: Dict[str, QueryBank], plain: bool = False):
+                 banks: Dict[str, QueryBank], plain: bool = False,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.model = model
+        self.mesh = mesh
+        if mesh is not None:
+            # the model's per-edge tables become this rank's slices, and the
+            # (whole) graph this rank's edge slice, on the rank's device
+            shard_params(model, mesh)
+            graph = (shard_graph(graph, mesh) if mesh.graph > 1
+                     else graph.to(mesh.device))
         self.graph = graph
         self.banks = banks
         self.n_ent = graph.n_ent
         self.device = graph.device
         self.loss_impl = self._resolve_loss_impl(cfg, model)
         self.params = model_params(model, cfg)
+        tables = set(edge_table_names(model)) if mesh is not None else set()
+        self.sharded = [n in tables for n in model_leaf_names(model, cfg)[0]]
         self.opt_state = optim.init_state(self.params, cfg)
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(cfg.seed % 2**32)
+        self.batch_generator = self.generator
+        if mesh is not None and mesh.data > 1:
+            self.batch_generator = torch.Generator(device=self.device)
+        self.seed(cfg.seed % 2**32)
         self.kernels = PLAIN if plain else KERNELS
+
+    def seed(self, seed: int) -> None:
+        """Seed the encoder's stream (the same on every rank) and the
+        stream of the decoder's dropout and the negatives (one per data
+        row: ``seed + 1000003 * data rank``)."""
+        self.generator.manual_seed(seed)
+        if self.batch_generator is not self.generator:
+            self.batch_generator.manual_seed(
+                (seed + 1000003 * self.mesh.data_rank) % 2**32)
+
+    def rngs(self) -> Dict[str, torch.Generator]:
+        """The model's dropout sites of one step, the decoder's (``feat``,
+        ``hidden``) on the data row's stream."""
+        rngs = self.model.make_rngs(self.generator)
+        for site in ("feat", "hidden"):
+            rngs[site] = self.batch_generator
+        return rngs
 
     @staticmethod
     def _resolve_loss_impl(cfg: Config, model) -> str:
@@ -111,7 +156,7 @@ class Trainer:
         """The training loss of one batch, in train mode (dropout, BN batch
         statistics; the BN running statistics move)."""
         cfg, model = self.cfg, self.model
-        rngs = model.make_rngs(self.generator)
+        rngs = self.rngs()
         all_ent, all_rel = model.encode(self.graph, train=True, rngs=rngs,
                                         kernels=self.kernels)
         if self.loss_impl in ("sparse", "fused"):
@@ -130,13 +175,28 @@ class Trainer:
                               rngs=rngs)
         return bce_with_logits(logits, lbl, mask)
 
-    def train_step(self, lr: float, *batch: torch.Tensor) -> torch.Tensor:
-        """One optimizer step on ``loss(*batch)``; returns the batch loss (a
-        device scalar)."""
+    def gradients(self, *batch: torch.Tensor, scale: float = 1.0):
+        """(``scale * loss(*batch)``, its gradients in parameter order).
+        Under a data axis ``scale`` puts the rank's rows over the global
+        batch's, and the gradients are summed over the data group; a
+        per-edge table's gradient is the rank's slice."""
         loss = self.loss(*batch)
+        if scale != 1.0:
+            loss = loss * scale
         grads = list(torch.autograd.grad(loss, self.params))
-        optim.step(self.params, grads, self.opt_state, self.cfg, lr)
-        return loss.detach()
+        if self.mesh is not None:
+            grads = flat_all_reduce(grads, self.mesh.data_group)
+        return loss.detach(), grads
+
+    def train_step(self, lr: float, *batch: torch.Tensor,
+                   scale: float = 1.0) -> torch.Tensor:
+        """One optimizer step on ``gradients(*batch, scale=scale)``; returns
+        the (scaled) batch loss, a device scalar."""
+        loss, grads = self.gradients(*batch, scale=scale)
+        optim.step(self.params, grads, self.opt_state, self.cfg, lr,
+                   self.sharded,
+                   self.mesh.graph_group if self.mesh is not None else None)
+        return loss
 
     def train_epoch(self, epoch: int, host_rng: np.random.Generator,
                     max_steps: Optional[int] = None,
@@ -147,57 +207,92 @@ class Trainer:
         cfg = self.cfg
         lr = optim.epoch_lr(cfg, epoch)
         idx, mask = epoch_batches(self.n_train, cfg.batch_size, host_rng)
+        scales = np.ones(len(idx))
+        if self.mesh is not None and self.mesh.data > 1:
+            rows = np.maximum(mask.sum(axis=1), 1.0)
+            idx, mask = shard_batches(self.mesh, idx, mask)
+            scales = np.maximum(mask.sum(axis=1), 1.0) / rows
         idx = torch.from_numpy(idx).long().to(self.device)
         mask = torch.from_numpy(mask).to(self.device)
         steps = idx.shape[0] if max_steps is None else min(max_steps,
                                                            idx.shape[0])
         losses = []
         for s in range(steps):
-            losses.append(self.train_step(lr, *self.batch(idx[s], mask[s])))
+            losses.append(self.train_step(lr, *self.batch(idx[s], mask[s]),
+                                          scale=float(scales[s])))
             if on_step is not None:
                 on_step()
-        return float(torch.stack(losses).mean())   # the epoch's one host sync
+        if self.mesh is None:
+            return float(torch.stack(losses).mean())   # the one host sync
+        total = flat_all_reduce([torch.stack(losses).sum()],
+                                self.mesh.data_group)[0]
+        return float(total) / steps
 
     def evaluate(self, split: str = "valid", mark: str = "Val"
                  ) -> Dict[str, float]:
         return evaluate(self.cfg, self.model, self.graph, self.banks, split,
-                        mark, kernels=self.kernels)
+                        mark, kernels=self.kernels, mesh=self.mesh)
 
     def evaluate_per_relation(self, split: str = "valid"
                               ) -> Dict[str, np.ndarray]:
         return evaluate_per_relation(self.cfg, self.model, self.graph,
-                                     self.banks, split, kernels=self.kernels)
+                                     self.banks, split, kernels=self.kernels,
+                                     mesh=self.mesh)
 
 
 # ------------------------------------------------------------------ evaluation
 
-def _bank_ranks(model, all_ent, all_rel, bank: QueryBank, batch_size: int):
-    """(queries (B, 3), filtered ranks (B,)) of each query batch of a bank."""
+def _bank_ranks(model, all_ent, all_rel, bank: QueryBank, batch_size: int,
+                mesh: Optional[Mesh] = None):
+    """(queries (b, 3), filtered ranks (b,)) of each query batch of a bank;
+    under a data axis, of this data rank's slice of each batch (none where
+    the short last batch leaves the slice empty)."""
+    parts, part = (1, 0) if mesh is None else (mesh.data, mesh.data_rank)
+    width = batch_size // parts
     for lo in range(0, bank.n_queries, batch_size):
-        q = bank.queries[lo:lo + batch_size]
+        a = lo + part * width
+        b = min(a + width, lo + batch_size, bank.n_queries)
+        if a >= b:
+            continue
+        q = bank.queries[a:b]
         logits = model.decode(all_ent, all_rel, q[:, 0], q[:, 1])
-        yield q, filtered_ranks(logits, q[:, 2],
-                                bank.label_idx[lo:lo + batch_size])
+        yield q, filtered_ranks(logits, q[:, 2], bank.label_idx[a:b])
+
+
+def _sum_over_data(sums: Dict[str, object], mesh: Optional[Mesh],
+                   device) -> Dict[str, object]:
+    """Metric sums (floats or (R,) tensors) summed over the data group."""
+    if mesh is None or mesh.data == 1:
+        return sums
+    keys = list(sums)
+    vals = flat_all_reduce([torch.as_tensor(sums[k], dtype=torch.float64,
+                                            device=device) for k in keys],
+                           mesh.data_group)
+    return {k: (float(v) if v.dim() == 0 else v) for k, v in zip(keys, vals)}
 
 
 @torch.no_grad()
-def _bank_sums(model, all_ent, all_rel, bank: QueryBank,
-               batch_size: int) -> Dict[str, float]:
-    sums: Dict[str, float] = {}
-    for _, ranks in _bank_ranks(model, all_ent, all_rel, bank, batch_size):
+def _bank_sums(model, all_ent, all_rel, bank: QueryBank, batch_size: int,
+               mesh: Optional[Mesh] = None) -> Dict[str, float]:
+    sums = dict.fromkeys(rank_metrics(torch.ones(1)), 0.0)
+    for _, ranks in _bank_ranks(model, all_ent, all_rel, bank, batch_size,
+                                mesh):
         for k, v in rank_metrics(ranks).items():
-            sums[k] = sums.get(k, 0.0) + v
-    return sums
+            sums[k] += v
+    return _sum_over_data(sums, mesh, all_ent.device)
 
 
 @torch.no_grad()
 def evaluate(cfg: Config, model, graph: Graph, banks: Dict[str, QueryBank],
              split: str = "valid", mark: str = "Val",
-             kernels: Kernels = KERNELS) -> Dict[str, float]:
-    """Filtered MR/MRR/Hits over tail + head queries (reference main.py:80-103)."""
+             kernels: Kernels = KERNELS,
+             mesh: Optional[Mesh] = None) -> Dict[str, float]:
+    """Filtered MR/MRR/Hits over tail + head queries (reference
+    main.py:80-103); under a ``mesh``, every rank calls it."""
     bs = cfg.eval_batch_size or cfg.batch_size
     all_ent, all_rel = model.encode(graph, kernels=kernels)
-    tail, head = (_bank_sums(model, all_ent, all_rel, banks[f"{split}_{d}"], bs)
+    tail, head = (_bank_sums(model, all_ent, all_rel, banks[f"{split}_{d}"],
+                             bs, mesh)
                   for d in ("tail", "head"))
     results = combine_head_tail(tail, head)
     log_metrics(mark, results)
@@ -207,19 +302,26 @@ def evaluate(cfg: Config, model, graph: Graph, banks: Dict[str, QueryBank],
 @torch.no_grad()
 def evaluate_per_relation(cfg: Config, model, graph: Graph,
                           banks: Dict[str, QueryBank], split: str = "valid",
-                          kernels: Kernels = KERNELS) -> Dict[str, np.ndarray]:
+                          kernels: Kernels = KERNELS,
+                          mesh: Optional[Mesh] = None
+                          ) -> Dict[str, np.ndarray]:
     """Per-relation filtered metrics (``loop.py:evaluate_per_relation``):
     (R,) arrays keyed count/mr/mrr/hits@{1,3,10}, head and tail combined
     onto the forward relation id; NaN for relations with no queries."""
     bs = cfg.eval_batch_size or cfg.batch_size
     all_ent, all_rel = model.encode(graph, kernels=kernels)
+    dev = all_ent.device
+    empty = torch.zeros(0, dtype=torch.long, device=dev)
     sums = {}
     for d in ("tail", "head"):
-        parts = [rank_metric_sums_by_rel(ranks, q[:, 1], graph.n_rel)
-                 for q, ranks in _bank_ranks(model, all_ent, all_rel,
-                                             banks[f"{split}_{d}"], bs)]
-        sums[d] = {k: torch.stack([p[k] for p in parts]).sum(0).cpu().numpy()
-                   for k in parts[0]}
+        parts = [rank_metric_sums_by_rel(empty, empty, graph.n_rel)] + [
+            rank_metric_sums_by_rel(ranks, q[:, 1], graph.n_rel)
+            for q, ranks in _bank_ranks(model, all_ent, all_rel,
+                                        banks[f"{split}_{d}"], bs, mesh)]
+        total = {k: torch.stack([p[k] for p in parts]).sum(0)
+                 for k in parts[0]}
+        sums[d] = {k: v.cpu().numpy()
+                   for k, v in _sum_over_data(total, mesh, dev).items()}
     return combine_head_tail_by_rel(sums["tail"], sums["head"])
 
 
@@ -261,13 +363,18 @@ def train_and_evaluate(trainer: Trainer, model_dir: Optional[str] = None,
 def _epochs(trainer: Trainer, model_dir: Optional[str], saved_best: float,
             seed: int, profile_dir: Optional[str], profile_epoch: int,
             periodic: Optional[AsyncCheckpointer]) -> float:
-    cfg = trainer.cfg
+    cfg, mesh = trainer.cfg, trainer.mesh
+    lead = mesh is None or mesh.rank == 0   # the rank that records
     best_measure = saved_best
     patience_counter = 0
     host_rng = np.random.default_rng(seed)
     trainer.generator.manual_seed(seed)
+    if mesh is not None:   # and the data rows' streams
+        trainer.seed(seed)
     metrics_path = (os.path.join(model_dir, "metrics.jsonl")
-                    if model_dir is not None else None)
+                    if model_dir is not None and lead else None)
+    if not lead:
+        profile_dir = None
 
     def record(rec):
         """One JSON line per epoch in <model_dir>/metrics.jsonl."""

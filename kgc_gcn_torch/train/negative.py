@@ -3,7 +3,8 @@
 The positives are the real edges of both graph halves, ``(src, rel, dst)``:
 entries ``[0:E]`` of each dst-sorted half, 2E triples.  Each step scores the
 batch's true object against K entities drawn uniformly on the trainer's
-device, from the trainer's generator (no host RNG, no per-step host sync),
+device, from the trainer's batch generator (no host RNG, no per-step host
+sync; under a data axis, one stream per data row),
 through the model's ``score_candidates``.  False negatives are left in, as in
 the JAX package.  Objectives (``--neg_loss``): BCE over the 1+K logits,
 hinge margin ranking, or RotatE's self-adversarial weighting
@@ -32,15 +33,16 @@ class NegativeSamplingTrainer(Trainer):
     argument, so a caller can feed chosen ones."""
 
     def __init__(self, cfg: Config, model, graph: Graph,
-                 banks: Dict[str, QueryBank], plain: bool = False):
+                 banks: Dict[str, QueryBank], plain: bool = False,
+                 mesh=None):
         if cfg.neg_loss not in NEG_LOSSES:
             raise ValueError(f"unknown neg_loss {cfg.neg_loss!r}; valid: "
                              + " | ".join(NEG_LOSSES))
-        super().__init__(cfg, model, graph, banks, plain)
-        e = graph.n_edge
+        super().__init__(cfg, model, graph, banks, plain, mesh)
+        e = graph.n_edge   # the whole graph's edges, under a mesh too
         self.pos_triples = torch.cat([
             torch.stack([h.src[:e], h.rel[:e], h.dst[:e]], dim=1)
-            for h in (graph.inb, graph.outb)]).long()      # (2E, 3)
+            for h in (graph.inb, graph.outb)]).long().to(self.device)  # (2E, 3)
 
     @property
     def n_train(self) -> int:
@@ -49,7 +51,7 @@ class NegativeSamplingTrainer(Trainer):
     def batch(self, idx: torch.Tensor, mask: torch.Tensor) -> tuple:
         """(triples (B, 3), row mask (B,), negatives (B, K)) of one step."""
         neg = torch.randint(0, self.n_ent, (idx.shape[0], self.cfg.num_negatives),
-                            generator=self.generator, device=self.device)
+                            generator=self.batch_generator, device=self.device)
         return self.pos_triples[idx], mask, neg
 
     def loss(self, tri: torch.Tensor, mask: torch.Tensor,
@@ -57,7 +59,7 @@ class NegativeSamplingTrainer(Trainer):
         """The sampled objective of one batch in train mode: the true object
         ``tri[:, 2]`` first, then the negatives ``neg`` (B, K)."""
         cfg, model = self.cfg, self.model
-        rngs = model.make_rngs(self.generator)
+        rngs = self.rngs()
         all_ent, all_rel = model.encode(self.graph, train=True, rngs=rngs,
                                         kernels=self.kernels)
         cand = torch.cat([tri[:, 2:3], neg.to(tri.dtype)], dim=1)   # (B, 1+K)

@@ -13,6 +13,11 @@ functions over the parameter list:
      (``optim.py:21-57``);
   4. ``p += -lr * u`` with the epoch's ``epoch_lr``.
 
+Under a graph axis the clip's norm counts the whole per-edge table: each
+rank's slice contributes its squares, summed over the graph group
+(``sharded``, ``group``); every other leaf is whole on every rank.  Weight
+decay and Adam are elementwise and stay local.
+
 Parameters and moments are updated in place; the state is
 ``AdamState(count, mu, nu)`` in the order of the parameter list, which is the
 JAX leaf order (``convert.jax_leaf_names``), so it round-trips through the
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from kgc_gcn_torch.config import Config
+from kgc_gcn_torch.parallel.distributed import all_reduce_sum
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 _MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -53,11 +59,18 @@ def init_state(params: Sequence[torch.Tensor], cfg: Config) -> AdamState:
     return AdamState(0, zeros(), zeros())
 
 
-def clip_by_global_norm(grads: List[torch.Tensor],
-                        max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        sharded: Sequence[bool] = (),
+                        group=None) -> List[torch.Tensor]:
     """optax's rule: unchanged below ``max_norm``, else ``(g / norm) *
-    max_norm``.  The norm stays on the device (no host sync)."""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    max_norm``.  The norm stays on the device (no host sync).  Leaves
+    marked in ``sharded`` are one rank's slice of a leaf split over
+    ``group``: their squares are summed over it."""
+    sq = [torch.sum(g * g) for g in grads]
+    if group is not None and any(sharded):
+        part = all_reduce_sum(sum(q for q, s in zip(sq, sharded) if s), group)
+        sq = [q for q, s in zip(sq, sharded) if not s] + [part]
+    norm = torch.sqrt(sum(sq))
     keep = norm < max_norm
     return [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
 
@@ -68,10 +81,12 @@ def _bias_correction(decay: float, count: int) -> float:
 
 
 def step(params: Sequence[torch.Tensor], grads: List[torch.Tensor],
-         state: AdamState, cfg: Config, lr: float) -> None:
-    """One optimizer step: clip, decay, Adam, ``p -= lr * u``, in place."""
+         state: AdamState, cfg: Config, lr: float,
+         sharded: Sequence[bool] = (), group=None) -> None:
+    """One optimizer step: clip, decay, Adam, ``p -= lr * u``, in place
+    (``sharded`` and ``group`` as in ``clip_by_global_norm``)."""
     if cfg.clip_grad and cfg.clip_grad > 0:
-        grads = clip_by_global_norm(grads, cfg.clip_grad)
+        grads = clip_by_global_norm(grads, cfg.clip_grad, sharded, group)
     if cfg.weight_decay and cfg.weight_decay > 0:
         grads = [g + cfg.weight_decay * p for g, p in zip(grads, params)]
     state.count += 1

@@ -542,7 +542,7 @@ def test_basis_aggregate_on_a_hub_graph_matches_plain(cuda):
         out[name] = (agg.detach(), xt.grad, ct.grad)
     for got, want in zip(out["kernel"], out["plain"]):
         torch.testing.assert_close(got, want, rtol=1e-5,
-                                   atol=1e-5 * float(want.abs().max()))
+                                   atol=1e-5 * float(want.detach().abs().max()))
 
 
 @pytest.mark.cuda
@@ -1322,3 +1322,97 @@ def test_trace_checkpoints_and_reference_import_on_the_card(cuda, tmp_path):
     with torch.no_grad():
         a, b = model.encode(graph)[0], other.encode(graph)[0]
     assert torch.equal(a, b)
+
+
+def _toy_graph(device):
+    from kgc_gcn_torch.data.dataset import build_dataset
+    from kgc_gcn_torch.data.graph import build_graph
+    from kgc_gcn_torch.data.toy import toy_triples
+    ds = build_dataset("toy", *toy_triples(n_ent=60, n_rel=5, n_train=500))
+    return ds, build_graph(ds.train_triples, ds.num_entity, ds.num_relation)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g_size", [2, 4])
+def test_per_shard_aggregates_sum_to_the_whole_on_the_card(cuda, g_size):
+    """Graph axis G without a process group: each shard's aggregate of its
+    edge slice (K1 over the local CSR, forward and d_x) summed over the
+    shards equals the whole halves' aggregate through K1, and the per-edge
+    table's gradient is the shards' slices side by side; float32 sums in
+    another order (the norms are no dyadic numbers)."""
+    from kgc_gcn_torch.ops.scatter import aggregate_half
+    from kgc_gcn_torch.parallel.edge_parallel import (
+        local_half, make_pallas_sharded_aggregate)
+    ds, graph = _toy_graph(cuda)
+    n, d = graph.n_ent, 24
+    gen = torch.Generator().manual_seed(3)
+    x, rel, etab, cot = (torch.randn(s, generator=gen).to(cuda) for s in (
+        (n, d), (2 * graph.n_rel + 1, d), (2, graph.e_pad, d), (2, n, d)))
+    halves = (graph.inb.to(cuda), graph.outb.to(cuda))
+
+    def run(agg):
+        xs, rs, es = (t.clone().requires_grad_() for t in (x, rel, etab))
+        start = segment_sum.launches
+        out = agg(xs, rs, es)
+        grads = torch.autograd.grad(sum((o * c).sum() for o, c in
+                                        zip(out, cot)), (xs, rs, es))
+        return out, grads, segment_sum.launches - start
+
+    whole = run(lambda xs, rs, es: [aggregate_half(xs, rs, es[i], h, n)
+                                    for i, h in enumerate(halves)])
+    e_loc = graph.e_pad // g_size
+    agg = make_pallas_sharded_aggregate(None, n)
+
+    def sharded(xs, rs, es):
+        parts = [agg(xs, rs, (es[0, r * e_loc:(r + 1) * e_loc],
+                              es[1, r * e_loc:(r + 1) * e_loc]),
+                     [local_half(h, g_size, r).to(cuda) for h in halves])
+                 for r in range(g_size)]
+        return [sum(p[i] for p in parts) for i in range(2)]
+
+    shards = run(sharded)
+    assert whole[2] == 4 and shards[2] == 4 * g_size   # forward and d_x
+    for got, want in zip(shards[0] + list(shards[1]),
+                         whole[0] + list(whole[1])):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.detach().abs().max()))
+
+
+@pytest.mark.cuda
+def test_rgat_sharded_attend_of_one_shard_equals_attend(cuda):
+    """RGAT's per-shard attention (``attend_sharded``: K5 and K1 over the
+    edge slice) on one shard, without a group, is the one-device
+    attention: its output and the gradients of h and the attention
+    parameters through K5 and K1; the launches of both halves."""
+    from kgc_gcn_torch.models.rgat import RGATLayer
+    from kgc_gcn_torch.ops.kernels import KERNELS
+    ds, graph = _toy_graph(cuda)
+    halves = (graph.inb.to(cuda), graph.outb.to(cuda))
+    gen = torch.Generator().manual_seed(4)
+    layer = RGATLayer(2 * graph.n_rel, 16, 32, 4, gen).to(cuda)
+    with torch.no_grad():
+        layer.rel_bias.normal_(0, 0.5, generator=None)
+    h = torch.randn(graph.n_ent, 32, generator=gen).to(cuda)
+    cot = torch.randn(2, graph.n_ent, 32, generator=gen).to(cuda)
+    params = [h] + list(layer.parameters())
+    outs = []
+    for sharded in (False, True):
+        hs = h.clone().requires_grad_()
+        start = (segment_sum.launches, segment_max.launches)
+        if sharded:
+            res = layer.attend_sharded(hs, halves, graph.n_ent, KERNELS, None)
+        else:
+            res = [layer.attend(hs, half, graph.n_ent, KERNELS)
+                   for half in halves]
+        grads = torch.autograd.grad(sum((r * c).sum() for r, c in
+                                        zip(res, cot)),
+                                    [hs] + params[1:], allow_unused=True)
+        outs.append((res, grads, (segment_sum.launches - start[0],
+                                  segment_max.launches - start[1])))
+    assert outs[0][2] == outs[1][2] == (10, 2)
+    for got, want in zip(outs[1][0] + list(outs[1][1]),
+                         outs[0][0] + list(outs[0][1])):
+        if want is None:
+            continue
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.detach().abs().max()))

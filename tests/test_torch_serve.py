@@ -208,9 +208,12 @@ def test_cli_predict_and_test_on_cpu(tmp_path, toy_cfg, capsys, caplog):
 
 def test_cli_refuses_what_it_cannot_run(tmp_path):
     base = ["--dataset", "Toy", "--experiments_dir", str(tmp_path)]
-    for flags in (["--partition", "locality"], ["--data_axis", "2"],
-                  ["--graph_axis", "2"], ["--entity_sharded", "ring"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        cli.main(base + ["--do_train", "--device", "cpu",
+                         "--entity_sharded", "ring"])
+    # the mesh axes need a launcher's ranks (tests/test_torch_parallel.py)
+    for flags in (["--data_axis", "2"], ["--graph_axis", "2"]):
+        with pytest.raises(ValueError, match="WORLD_SIZE"):
             cli.main(base + ["--do_train", "--device", "cpu"] + flags)
     with pytest.raises(ValueError, match="restore dir"):
         cli.main(base + ["--do_test", "--device", "cpu"])
