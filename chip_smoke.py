@@ -129,7 +129,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      first; (e) the CLI on two ranks (--graph_axis 2 --partition locality,
      2 epochs on data/Toy), --do_test of its checkpoint on two ranks and in
      one process (equal metrics); (f) a world of one rank on NCCL, one
-     step against the one-process step.
+     step against the one-process step;
+ 15. the entity-sharded schedules (--entity_sharded), ranks of this script
+     sharing the card over gloo, at the WN18RR preset's widths on the corpus
+     of phase 5, dropout off: at graph_axis 2 one training step each of
+     MGCN + ConvE with use_pallas on gather (K1 4 a step per rank) and on
+     boundary (K1 per block) and plain on each of the three, basis R-GCN
+     + DistMult on each of the three schedules (plain, as in the JAX
+     package) and RGAT + DistMult on gather (K5 2, K1 10; and through the
+     plain versions), and at
+     graph_axis 4 MGCN (ring, boundary with K1) and R-GCN (ring,
+     boundary): rank 0 holds each step against the one-process kernel step
+     after 3 warm steps (same weights, Adam state, batch and ReLU sides,
+     the entity rows' sides cut to the rank's rows), each rank times one
+     more step; the bytes a rank moves per layer under each schedule,
+     counted on the host from the plans; then the CLI on two ranks
+     (--graph_axis 2 --entity_sharded boundary --use_pallas --partition
+     locality, 1 epoch on data/Toy) and --do_test of its checkpoint on the
+     two ranks and in one process (equal metrics).
 K1, K3, K7 and K8 checks use dyadic inputs, whose float32 sums are exact in
 any order, so kernel and plain version must agree to the bit; K5
 (segment-max, phase 3: the RGAT path's shape and edge cases), K4a and K4b
@@ -137,13 +154,15 @@ any order, so kernel and plain version must agree to the bit; K5
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Before them a line gives the card, its
 power limit and the wall seconds of the whole script and of phases 12,
-13 and 14.
+13, 14 and 15.
 Nothing of JAX is imported.
 
 --kernels-only runs phases 1-3 and the time rows of K1, K2a, K7 and K3 (each
 with its two passes' device times), K2b, K8 and K5, then prints their entries and
 the last line: a quick check of the kernels that drives no path (their
 launch counts are 0).  --mesh-only runs phases 1-2 and 14, then the last
+line.  --entity-only runs phases 1-2 and 15 (the entity-sharded
+schedules, ~125 s of card time with its own references), then the last
 line.
 """
 
@@ -1779,6 +1798,17 @@ def check_collectives(device) -> list:
     dist.all_gather(parts, torch.full((2,), float(r), device=device))
     check([float(p[0]) for p in parts] == [float(k) for k in range(w)],
           "all_gather")
+    if w > 1:   # the entity-sharded schedules' collectives, as they run
+        from kgc_gcn_torch.parallel.distributed import (
+            ppermute, reduce_scatter_rows)
+        grp = dist.new_group(list(range(w)))
+        t = torch.arange(2 * w, dtype=torch.float32, device=device) * (r + 1)
+        got = reduce_scatter_rows(t[:, None], grp)[:, 0]
+        check(got.tolist() == [w * (w + 1) / 2 * k for k in
+                               (2 * r, 2 * r + 1)], "reduce_scatter")
+        got = ppermute([torch.full((3,), float(r), device=device)], [1],
+                       grp)[0]
+        check(bool((got == (r - 1) % w).all()), "ppermute")
     return checks
 
 
@@ -1788,13 +1818,18 @@ class SlicedReplay(KinkReplay):
     the rank's data (graph) slice: the decoder's rows of the batch, RGAT's
     edges of a half."""
 
-    def __init__(self, masks, mesh):
+    def __init__(self, masks, mesh, rows=None):
         super().__init__()
-        self.masks, self.mesh = list(masks), mesh
+        self.masks, self.mesh, self.rows = list(masks), mesh, rows
 
     def _side(self, x: torch.Tensor) -> torch.Tensor:
         m = self.masks[self.replay].to(x.device)
-        n, mesh = x.shape[0], self.mesh
+        n, mesh, rows = x.shape[0], self.mesh, self.rows
+        if (rows is not None and m.shape[0] == rows.n_ent != n
+                and n == rows.rows_per):
+            # an entity-row mask: this rank's rows, padding rows off
+            m = torch.nn.functional.pad(m[rows.lo:rows.lo + rows.n_real],
+                                        (0, 0, 0, n - rows.n_real))
         for parts, part in ((mesh.data, mesh.data_rank),
                             (mesh.graph, mesh.graph_rank)):
             if m.shape[0] != n and parts > 1 and m.shape[0] == parts * n:
@@ -1829,7 +1864,7 @@ def mesh_reference(trainer, seed: int, launches: Launches, per_step,
         "mu": cpu(trainer.opt_state.mu), "nu": cpu(trainer.opt_state.nu),
         "idx": torch.from_numpy(idx.astype(np.int64)),
         "mask": torch.from_numpy(mask), "lr": optim.epoch_lr(cfg, 1),
-        "names": jax_leaf_names(cfg)[0], "per_step": list(per_step)}
+        "names": jax_leaf_names(cfg)[0]}
     batch = trainer.batch(ref["idx"].to(device), ref["mask"].to(device))
     kinks = KinkReplay()
     before = cpu(trainer.params)
@@ -1840,10 +1875,11 @@ def mesh_reference(trainer, seed: int, launches: Launches, per_step,
     optim.step(trainer.params, grads, trainer.opt_state, cfg, ref["lr"])
     torch.cuda.synchronize()
     got = launches.read()
-    if got != tuple(per_step):
+    if per_step is not None and got != tuple(per_step):
         raise AssertionError(f"{what} reference step: launches "
                              f"{Launches.show(got)}")
-    ref.update(loss=float(loss), grads=cpu(grads),
+    per_step = got
+    ref.update(loss=float(loss), grads=cpu(grads), per_step=list(per_step),
                updates=[p.detach().cpu() - b
                         for p, b in zip(trainer.params, before)],
                masks=cpu(kinks.masks))
@@ -1867,11 +1903,13 @@ def rank_step(case: dict, mesh, ds, graph, banks, launches: Launches) -> dict:
     from kgc_gcn_torch.train import optim
     from kgc_gcn_torch.train.loop import Trainer
     ref = torch.load(case["ref"])
-    cfg, device = Config(**ref["cfg"]), mesh.device
+    cfg = Config(**ref["cfg"]).replace(**case.get("cfg", {}))
+    device = mesh.device
     model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
                         e_pad=graph.e_pad, mesh=mesh)
     model.load_state_dict(ref["state"])
-    trainer = Trainer(cfg, model.to(device), graph, banks, mesh=mesh)
+    trainer = Trainer(cfg, model.to(device), graph, banks, mesh=mesh,
+                      plain=case.get("plain", False))
     trainer.opt_state.count = ref["count"]
     for dst, src in zip(trainer.opt_state.mu + trainer.opt_state.nu,
                         ref["mu"] + ref["nu"]):
@@ -1883,7 +1921,7 @@ def rank_step(case: dict, mesh, ds, graph, banks, launches: Launches) -> dict:
     batch = trainer.batch(torch.from_numpy(idx[0]).to(device),
                           torch.from_numpy(mask[0]).to(device))
     before = [p.detach().clone() for p in trainer.params]
-    replay = SlicedReplay(ref["masks"], mesh)
+    replay = SlicedReplay(ref["masks"], mesh, model.entity_rows)
     torch.cuda.synchronize()
     launches.zero()
     with replay.patched(replay=True):
@@ -1892,10 +1930,16 @@ def rank_step(case: dict, mesh, ds, graph, banks, launches: Launches) -> dict:
                trainer.sharded, mesh.graph_group)
     torch.cuda.synchronize()
     counts = launches.read()
-    if counts != tuple(ref["per_step"]):
+    want = tuple(case.get("per_step", ref["per_step"]))
+    if case.get("per_step") == "boundary":
+        # K1 forward and d_x per block of each half's plan
+        want = (2 * sum(len(a.blocks)
+                        for a in model.entity_sharding.boundary),) + (
+            0,) * 8
+    if counts != want:
         raise AssertionError(f"{case['name']}: launches "
                              f"{Launches.show(counts)}, want "
-                             f"{Launches.show(ref['per_step'])}")
+                             f"{Launches.show(want)}")
     loss = float(flat_all_reduce([loss], mesh.data_group)[0])
     tables = set(edge_table_names(model))
     whole = lambda t, name: (all_gather_cat(t.detach(), mesh.graph_group, 1)
@@ -1910,10 +1954,15 @@ def rank_step(case: dict, mesh, ds, graph, banks, launches: Launches) -> dict:
         out["errs"] = compare_step(case, ref, loss, got_g, got_u, names)
     lr = ref["lr"]
     step = lambda: trainer.train_step(lr, *batch, scale=scale)
-    wall, busy, top, _ = profile_kernels(step, steps=3)
-    out.update(wall_us=wall, busy_us=busy, k1_us=kinds_us(top, K1_PASSES),
-               k5_us=kinds_us(top, (K5_KERNEL,))[0],
-               step_ms=host_ms(step, 5))
+    # rank 0's comparison above must not enter the other ranks' times: a
+    # collective every rank reaches after it
+    torch.distributed.all_reduce(torch.zeros(1, device=device))
+    if case.get("profile", True):
+        wall, busy, top, _ = profile_kernels(step, steps=3)
+        out.update(wall_us=wall, busy_us=busy,
+                   k1_us=kinds_us(top, K1_PASSES),
+                   k5_us=kinds_us(top, (K5_KERNEL,))[0])
+    out["step_ms"] = host_ms(step, case.get("host_steps", 5))
     return out
 
 
@@ -2201,9 +2250,175 @@ def phase14(seed: int, work: str, corpus_root: str, fb_root: str, ds,
                        "nccl", local_world=1)
     log_ranks("nccl", res, "nccl")
     paths["mesh_nccl_rank0"] = tuple(res[0]["nccl"]["launches"])
+    out["refs"] = {k: refs[k] for k in ("mgcn", "rgat")}
     out["seconds"] = time.perf_counter() - t14
     log(f"[phase14] the host data engine and the edge-partitioned path "
         f"{out['seconds']:.1f} s")
+    return out, paths
+
+
+def plan_bytes(graph, g: int, d: int) -> dict:
+    """The bytes one rank moves per layer under each entity-sharded
+    schedule, at width ``d`` in float32, counted on the host from the
+    plans: the forward pass (the backward moves as many, transposed).
+    ``gather``: one all_gather of x for both halves and one reduce-scatter
+    of both halves side by side; ``ring``: G-1 shifts of the shard and the
+    same reduce-scatter; ``boundary``: each half's input and output
+    steps, padded as sent (and the real rows)."""
+    from kgc_gcn_torch.parallel.boundary import build_boundary_plan
+    n_pad = -(-graph.n_ent // g) * g
+    rows_per, row = n_pad // g, 4 * d
+    scatter = (g - 1) * rows_per * 2 * row
+    out = {"gather": (g - 1) * rows_per * row + scatter,
+           "ring": (g - 1) * rows_per * row + scatter,
+           "boundary": 0, "boundary_real": 0}
+    for half in (graph.inb, graph.outb):
+        _, st = build_boundary_plan(half.to("cpu"), g, n_pad)
+        out["boundary"] += (st["in_rows_padded"] + st["out_rows_padded"]) * row
+        out["boundary_real"] += (st["in_rows_real_max"]
+                                 + st["out_rows_real_max"]) * row
+    return out
+
+
+def log_es_ranks(what: str, results: list) -> None:
+    """Each rank's launches and step time of each phase-15 case."""
+    log(f"[entity] {what}: backend {results[0]['backend']} on "
+        f"{results[0]['device']}; collectives on CUDA tensors: "
+        f"{', '.join(results[0]['collectives'])}")
+    for r in results:
+        for name, c in r.items():
+            if isinstance(c, dict) and "launches" in c:
+                log(f"[entity] {what} {name} rank {r['rank']}: a step "
+                    f"launches {Launches.show(c['launches'])}; host "
+                    f"{c['step_ms']:.1f} ms the next step; "
+                    f"{c['ties']} ReLU inputs tied"
+                    + (f"; against the one-process step: {c['errs']}"
+                       if "errs" in c else ""))
+
+
+def phase15(seed: int, work: str, corpus_root: str, ds, graph, banks,
+            launches: Launches, refs=None) -> tuple:
+    """15: the entity-sharded schedules on the one card (ranks share it
+    over gloo); returns (summary, the launches of each rank's path).
+    ``refs`` are phase 14's one-process reference steps where it ran."""
+    from kgc_gcn_torch.config import Config, dataset_preset
+    from kgc_gcn_torch.models import build_model
+    from kgc_gcn_torch.train.checkpoint import load_checkpoint
+    from kgc_gcn_torch.train.loop import Trainer
+    t15 = time.perf_counter()
+    no_drop = dict(gcn_drop=0.0, conv_drop=0.0, hidden_drop=0.0,
+                   feat_drop=0.0)
+    cfgs = {"mgcn": dataset_preset("WN18RR", seed=seed, **no_drop),
+            "rgcn": dataset_preset("WN18RR", model="rgcn",
+                                   decoder="distmult", seed=seed, **no_drop),
+            "rgat": dataset_preset("WN18RR", model="rgat",
+                                   decoder="distmult", num_heads=4,
+                                   seed=seed, **no_drop)}
+    refs = dict(refs or {})
+    for key, cfg in cfgs.items():
+        if key in refs:
+            continue
+        model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
+                            e_pad=graph.e_pad, generator=torch.Generator()
+                            .manual_seed(seed)).to(graph.device)
+        refs[key] = os.path.join(work, f"ref15_{key}.pt")
+        mesh_reference(Trainer(cfg, model, graph, banks), seed, launches,
+                       None, refs[key], False, f"15 {key}")
+        del model
+        torch.cuda.empty_cache()
+    out, paths = {}, {}
+    for g in (2, 4):
+        b = plan_bytes(graph, g, cfgs["mgcn"].gcn_in_dim)
+        out[f"bytes_g{g}"] = b
+        log(f"[entity] bytes a rank moves per layer, forward (the backward "
+            f"as many), MGCN at d {cfgs['mgcn'].gcn_in_dim}, graph_axis {g},"
+            f" counted from the plans: gather {b['gather']}, ring "
+            f"{b['ring']}, boundary {b['boundary']} as sent "
+            f"({b['boundary_real']} of real rows)")
+    zero, k1 = (0,) * 9, lambda n: (n,) + (0,) * 8
+
+    def case(family, schedule, g, pallas, per_step, tag="", plain=False):
+        c = {"name": f"{family}_{schedule}{tag}", "ref": refs[family],
+             "per_step": per_step, "host_steps": 1, "profile": False,
+             "plain": plain,
+             "cfg": {"entity_sharded": schedule, "graph_axis": g,
+                     "use_pallas": pallas}}
+        if family == "mgcn":
+            c["degenerate"] = MESH_DEGENERATE
+        if family == "rgat":
+            c["cancelling"] = RGAT_DEGENERATE
+        return c
+
+    # each kernel form beside its plain form, both against the same
+    # one-process step: MGCN's plain schedules (use_pallas off), RGAT's
+    # kernel path through the plain versions
+    worlds = {
+        "es_g2": (2, [case("mgcn", "gather", 2, True, k1(4)),
+                      case("mgcn", "gather", 2, False, zero, "_plain"),
+                      case("mgcn", "boundary", 2, True, "boundary"),
+                      case("mgcn", "boundary", 2, False, zero, "_plain"),
+                      case("mgcn", "ring", 2, False, zero),
+                      case("rgcn", "gather", 2, False, zero),
+                      case("rgcn", "ring", 2, False, zero),
+                      case("rgcn", "boundary", 2, False, zero),
+                      case("rgat", "gather", 2, True,
+                           (10, 0, 0, 0, 0, 2, 0, 0, 0)),
+                      case("rgat", "gather", 2, True, zero, "_plain",
+                           plain=True)]),
+        "es_g4": (4, [case("mgcn", "ring", 4, False, zero),
+                      case("mgcn", "boundary", 4, True, "boundary"),
+                      case("rgcn", "ring", 4, False, zero),
+                      case("rgcn", "boundary", 4, False, zero)])}
+    for what, (g, cases) in worlds.items():
+        res = launch_ranks({"kind": "steps", "mesh": [1, g], "dataset": "SYN",
+                            "data_dir": corpus_root, "cases": cases},
+                           g, work, what)
+        log_es_ranks(what, res)
+        out[what] = res
+        for r in res:
+            for c in cases:
+                paths[f"{what}_{c['name']}_rank{r['rank']}"] = tuple(
+                    r[c["name"]]["launches"])
+    # the CLI on two ranks under --entity_sharded boundary, then --do_test
+    # of its checkpoint on the two ranks and in this process
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    run = os.path.join(work, "es_cli", "Toy")
+    base = ["--dataset", "Toy", "--data_dir", data, "--device", "cuda",
+            "--seed", str(seed)]
+    shard = ["--graph_axis", "2", "--entity_sharded", "boundary",
+             "--use_pallas"]
+    train_res = launch_ranks({"kind": "cli", "argv": base + shard + [
+        "--experiments_dir", os.path.join(work, "es_cli"), "--do_train",
+        "--max_epoch", "1", "--partition", "locality"]}, 2, work,
+        "es_cli_train")
+    test_res = launch_ranks({"kind": "cli", "argv": base + shard + [
+        "--experiments_dir", os.path.join(work, "es_cli_test"), "--do_test",
+        "--restore_dir", run]}, 2, work, "es_cli_test")
+    one = rank_cli(base + ["--experiments_dir",
+                           os.path.join(work, "es_one_test"), "--do_test",
+                           "--restore_dir", run], launches)
+    cfg_t = Config.from_json(os.path.join(run, "params.json"))
+    measure = load_checkpoint(run, cfg_t)[1]
+    mesh_test = test_res[0]["cli"]["test"]
+    if (mesh_test is None or mesh_test != one["test"]
+            or cfg_t.entity_sharded != "boundary"):
+        raise AssertionError(f"15 cli: two-rank test {mesh_test}, "
+                             f"one-process {one['test']}; params.json "
+                             f"entity_sharded {cfg_t.entity_sharded}")
+    for what, res in (("es_cli_train", train_res), ("es_cli_test", test_res)):
+        for r in res:
+            paths[f"{what}_rank{r['rank']}"] = tuple(r["cli"]["launches"])
+            if not r["cli"]["launches"][0]:
+                raise AssertionError(f"15 {what}: rank {r['rank']} launched "
+                                     "no K1")
+    paths["es_cli_test_one_process"] = tuple(one["launches"])
+    log(f"[entity] cli: two ranks, --graph_axis 2 --entity_sharded boundary "
+        f"--use_pallas --partition locality, 1 epoch on data/Toy: "
+        f"{train_res[0]['cli']['seconds']:.1f} s, checkpoint measure "
+        f"{measure}; --do_test on two ranks: {mesh_test}; in one process: "
+        f"{one['test']}")
+    out["seconds"] = time.perf_counter() - t15
+    log(f"[phase15] the entity-sharded schedules {out['seconds']:.1f} s")
     return out, paths
 
 
@@ -2215,6 +2430,9 @@ def main() -> int:
                     "rows only")
     ap.add_argument("--mesh-only", action="store_true",
                     help="phases 1-2 and 14 only (the multi-GPU path)")
+    ap.add_argument("--entity-only", action="store_true",
+                    help="phases 1-2 and 15 only (the entity-sharded "
+                    "schedules, --entity_sharded)")
     ap.add_argument("--rank", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rank:   # one rank of phase 14, started by this script
@@ -2289,6 +2507,14 @@ def main() -> int:
         write_corpus(os.path.join(fb_root, "SYN3"), args.seed, FB15K237)
         phase14(args.seed, work.name, corpus_root, fb_root, ds,
                 graph.to(device), make_banks(ds, device), launches)
+        work.cleanup()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if args.entity_only:
+        phase15(args.seed, work.name, corpus_root, ds, graph.to(device),
+                make_banks(ds, device), launches)
         work.cleanup()
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3382,6 +3608,12 @@ def main() -> int:
     mesh_summary, mesh_paths = phase14(args.seed, work.name, corpus_root,
                                        fb_root, ds, graph, banks, launches)
     paths.update(mesh_paths)
+
+    # 15. the entity-sharded schedules -------------------------------------------
+    es_summary, es_paths = phase15(args.seed, work.name, corpus_root, ds,
+                                   graph, banks, launches,
+                                   mesh_summary["refs"])
+    paths.update(es_paths)
     work.cleanup()
 
     paths.update({"mgcn_train": train_launches, "mgcn_serve": serve_launches,
@@ -3417,7 +3649,7 @@ def main() -> int:
     log(f"[smoke] {torch.cuda.get_device_name(0)}; {smi}; whole script "
         f"{time.perf_counter() - t_start:.1f} s, phase 12 {phase12_s:.1f} s, "
         f"phase 13 {phase13_s:.1f} s, phase 14 {mesh_summary['seconds']:.1f}"
-        " s")
+        f" s, phase 15 {es_summary['seconds']:.1f} s")
     log(json.dumps({"training": train, "serve_rgat": serve_rgat,
                     "serve_mgcn_stacked": serve_stacked, "few_sum": {
                         k: v for k, v in timings.items()

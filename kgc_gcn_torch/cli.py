@@ -38,8 +38,10 @@ restore).  ``--data_axis D --graph_axis G`` run on D x G ranks of a launcher
 ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``):
 each step's batch is split over D, each half's edges and the per-edge table
 over G (``parallel/``); NCCL where each rank has a card of its own, gloo
-where ranks share one.  ``--entity_sharded`` is not ported yet (ROADMAP.md
-§1 item 8); ``--do_predict`` serves on one process.
+where ranks share one.  ``--entity_sharded gather|ring|boundary`` (with
+``--graph_axis`` > 1) splits the entity rows over the graph ranks too
+(``parallel/entity_sharding.py``: MGCN and basis R-GCN on every schedule,
+RGAT on ``gather``); ``--do_predict`` serves on one process.
 ``--spmm_mode`` picks MGCN's aggregation schedule (``ew_impl``, as in the
 JAX CLI, has no flag: it is a ``Config`` field).  The flags that steer only
 the JAX package's TPU schedules (``--prng_impl``, ``--compile_cache_dir``,
@@ -245,12 +247,13 @@ def config_from_args(args: argparse.Namespace) -> Config:
     cfg = cfg.replace(**overrides)
 
     # a PRESET-sourced use_pallas yields to the flags that the JAX package's
-    # kernels cannot serve, as in its CLI (cli.py:245-258: also a non-halves
-    # spmm_mode under a graph axis; the others there are refused here
-    # anyway); an explicit --use_pallas still conflicts (models/mgcn.py:
-    # check_config raises)
+    # kernels cannot serve, as in its CLI (cli.py:244-258: the ring and
+    # boundary schedules, a non-halves spmm_mode under a graph axis; the
+    # others there are refused here anyway); an explicit --use_pallas still
+    # conflicts (models/mgcn.py:check_config raises)
     if cfg.use_pallas and "use_pallas" not in overrides and (
-            cfg.composition != "mult" or cfg.edge_sample_size > 0
+            cfg.entity_sharded in ("ring", "boundary")
+            or cfg.composition != "mult" or cfg.edge_sample_size > 0
             or (cfg.spmm_mode != "halves" and cfg.graph_axis > 1)):
         logging.info("preset use_pallas yields to a kernel-incompatible "
                      "flag")
@@ -296,6 +299,8 @@ def main(argv=None) -> int:
         raise ValueError("Must specify restore dir for testing or prediction")
     if args.do_predict and not args.predict_file:
         raise ValueError("--do_predict needs --predict_file")
+    if cfg.entity_sharded != "none" and cfg.graph_axis < 2:
+        raise ValueError("--entity_sharded needs --graph_axis > 1")
     if args.do_predict and launcher_env():
         raise ValueError("--do_predict serves on one process: run it "
                          "without a launcher (a checkpoint written under "

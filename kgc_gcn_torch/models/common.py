@@ -66,27 +66,34 @@ def batch_norm(
     momentum: float = 0.1,
     eps: float = 1e-5,
     group=None,
+    row_mask: Optional[torch.Tensor] = None,
+    n_rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Functional BatchNorm over all axes except ``channel_axis``; returns
     (y, new running mean, new running var).  With a process ``group`` (the
     data group: each rank holds an equal slice of the batch) the moments are
     the global batch's, in two passes as in ``kgc_gcn_tpu/models/
     common.py:75-104``: the sum, then the sum of squared deviations from the
-    global mean, each summed over the group (gradients summed back)."""
+    global mean, each summed over the group (gradients summed back).  Rows
+    of unequal slices (a rank's block of entity rows, the last one with
+    padding rows) give ``row_mask`` (rows,), 1 on the rows that count, and
+    ``n_rows``, the group's count of them."""
     axis = channel_axis % x.dim()
     axes = tuple(i for i in range(x.dim()) if i != axis)
     shape = [1] * x.dim()
     shape[axis] = x.shape[axis]
     if train:
         n = float(math.prod(x.shape[i] for i in axes))
-        if group is None:
+        if group is None and row_mask is None:
             m = x.mean(dim=axes)
             v = (x - m.reshape(shape)).square().mean(dim=axes)
         else:
-            n *= group_size(group)
-            m = all_reduce_sum(x.sum(dim=axes), group) / n
-            v = all_reduce_sum((x - m.reshape(shape)).square().sum(dim=axes),
-                               group) / n
+            w = 1.0 if row_mask is None else row_mask.reshape(
+                (-1,) + (1,) * (x.dim() - 1))
+            n = float(n_rows) if n_rows is not None else n * group_size(group)
+            m = all_reduce_sum((x * w).sum(dim=axes), group) / n
+            v = all_reduce_sum(((x - m.reshape(shape)).square() * w)
+                               .sum(dim=axes), group) / n
         new_mean = (1 - momentum) * mean + momentum * m
         new_var = (1 - momentum) * var + momentum * v * (n / max(n - 1.0, 1.0))
     else:
@@ -112,10 +119,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                rows=None) -> torch.Tensor:
+        """``rows`` (``parallel.entity_sharding.EntityRows``): ``x`` is a
+        rank's block of entity rows; the moments are over the real rows of
+        every rank's block, and scale and bias sum their gradients over the
+        group."""
+        scale, bias = self.scale, self.bias
+        group, mask, n = self.group, None, None
+        if rows is not None:
+            scale, bias = rows.weights(scale, bias)
+            group, mask, n = rows.group, rows.mask, rows.n_ent
         y, new_mean, new_var = batch_norm(
-            x, self.scale, self.bias, self.mean, self.var, train=train,
-            channel_axis=self.channel_axis, group=self.group)
+            x, scale, bias, self.mean, self.var, train=train,
+            channel_axis=self.channel_axis, group=group, row_mask=mask,
+            n_rows=n)
         if train:
             with torch.no_grad():
                 self.mean.copy_(new_mean)

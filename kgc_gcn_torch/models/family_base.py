@@ -7,7 +7,7 @@ and ``query`` where ``has_trunk``), and an
 ``encode(graph, train, rngs, kernels) -> (all_ent, all_rel)``.  Decoder state
 (ConvE's BatchNorm statistics) lives in the decoder's buffers, so nothing is
 threaded back out.  ``self.mesh`` is the family's ``parallel.mesh.Mesh``, or
-None on one device.
+None on one device; ``self.n_ent`` its entity count.
 """
 
 from __future__ import annotations
@@ -16,8 +16,23 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from kgc_gcn_torch.parallel.entity_sharding import EntityShardedAggregator
+
+
+def check_entity_sharded_mesh(cfg, mesh) -> None:
+    """The entity-sharded schedules split the rows over a graph group."""
+    if cfg.entity_sharded != "none" and mesh is None:
+        raise ValueError(
+            "entity_sharded needs a (data, graph) mesh (the CLI builds it "
+            "from --graph_axis)")
+
 
 class DecoderFamilyMixin:
+
+    # prepare_entity_sharding's EntityShardedAggregator, and the family's
+    # per-edge compose for it (None: MGCN's, with its kernel forms)
+    entity_sharding: Optional[EntityShardedAggregator] = None
+    _entity_compose = None
 
     def decode(self, all_ent: torch.Tensor, all_rel: torch.Tensor,
                src: torch.Tensor, rel: torch.Tensor, train: bool = False,
@@ -61,6 +76,30 @@ class DecoderFamilyMixin:
         names = tuple(f"layer{i}" for i in range(max(1, self.cfg.num_layers))
                       ) + ("feat", "hidden")
         return dict.fromkeys(names, generator)
+
+    def prepare_entity_sharding(self, graph) -> None:
+        """Build the entity-sharded schedule from the WHOLE graph on the
+        host (the JAX families' ``prepare_entity_sharding``); idempotent.
+        The Trainer calls it."""
+        if (self.cfg.entity_sharded == "none"
+                or self.entity_sharding is not None):
+            return
+        es = EntityShardedAggregator(self.cfg, self.mesh, self.n_ent,
+                                     self._entity_compose)
+        es.prepare(graph)
+        self.entity_sharding = es
+
+    @property
+    def entity_rows(self):
+        """This rank's block of the entity rows (``EntityRows``) when the
+        encoder runs entity-sharded, else None."""
+        if self.cfg.entity_sharded == "none":
+            return None
+        if self.entity_sharding is None:
+            raise RuntimeError(
+                "call prepare_entity_sharding(graph) before encode (the "
+                "Trainer does this)")
+        return self.entity_sharding.rows
 
     def prepare_edge_sharding(self, mesh) -> None:
         """Learn the mesh (called by ``parallel.mesh.shard_params``)."""

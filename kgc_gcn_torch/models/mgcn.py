@@ -35,6 +35,15 @@
     ``spmm_mode`` then runs ``halves`` (with ``use_pallas``, another mode is
     refused, as in the JAX package), and ``ew_impl``, ``bwd_perm`` and
     ``rel_compose`` take their defaults, with a warning.
+  * Entity-sharded (``entity_sharded`` gather | ring | boundary, a graph
+    axis G > 1; ``mgcn.py:121-142,300-303,343-349,387-401``): the entity
+    rows are split over the graph group (``parallel/entity_sharding.py``);
+    every layer's halves run the schedule on the rank's rows (with
+    ``use_pallas``: K1 per shard for ``gather``, K1 per block for
+    ``boundary``), and so do the weight products, the loop term, the
+    combine, BatchNorm (moments over the real rows of the group), tanh and
+    the dropout sites (their masks drawn for all N rows); one
+    ``gather_from_group`` of the last layer's rows feeds the decoder.
   * ``encode`` runs once per graph (per step in training); ``decode``,
     ``query_and_bias`` and ``score_candidates`` come from
     ``models/family_base.py``.
@@ -63,7 +72,8 @@ from kgc_gcn_torch.config import Config
 from kgc_gcn_torch.data.graph import Graph, padded_edge_count
 from kgc_gcn_torch.models.common import BatchNorm, dropout, mm, xavier_uniform
 from kgc_gcn_torch.models.decoders import build_decoder
-from kgc_gcn_torch.models.family_base import DecoderFamilyMixin
+from kgc_gcn_torch.models.family_base import (
+    DecoderFamilyMixin, check_entity_sharded_mesh)
 from kgc_gcn_torch.ops import scatter
 from kgc_gcn_torch.ops.fused_compose import aggregate_stacked
 from kgc_gcn_torch.ops.kernels import KERNELS, Kernels
@@ -110,7 +120,7 @@ def _edge_table(n_edge: int, e_pad: int, d: int,
 
 
 def check_config(cfg: Config, graph_axis: int = 1) -> None:
-    """The JAX package's refusals (``mgcn.py:110-120,158-165``), the port's
+    """The JAX package's refusals (``mgcn.py:110-142,158-165``), the port's
     schedules that compose by multiplication only (K3, K4a/K4b), and what
     the port does not run under a graph axis yet."""
     if cfg.num_layers > 1 and cfg.edge_sample_size > 0:
@@ -124,6 +134,22 @@ def check_config(cfg: Config, graph_axis: int = 1) -> None:
             "aggregation path (use_pallas=False, edge_sample_size=0, "
             "agg_schedule='fused'); the Pallas kernels and the reference "
             "bench schedule compose multiplicatively")
+    if cfg.entity_sharded != "none":
+        unsupported = [
+            # gather: per-shard CSR; boundary: per-block CSR; the ring runs
+            # the plain compose
+            ("use_pallas", cfg.use_pallas
+             and cfg.entity_sharded not in ("gather", "boundary")),
+            ("edge_sample_size", cfg.edge_sample_size > 0),
+            ("composition", cfg.composition != "mult"),
+            ("agg_schedule", cfg.agg_schedule != "fused"),
+        ]
+        bad = [k for k, v in unsupported if v]
+        if bad:
+            raise ValueError(
+                f"entity_sharded={cfg.entity_sharded!r} supports the mult "
+                "composition only (and use_pallas only with the gather and "
+                f"boundary schedules); incompatible flags: {bad}")
     if cfg.composition != "mult" and (cfg.spmm_mode == "stacked"
                                       or cfg.ew_impl == "pallas"):
         raise ValueError(
@@ -141,6 +167,12 @@ def check_config(cfg: Config, graph_axis: int = 1) -> None:
             "edge_sample_size and agg_schedule='reference' under "
             "graph_axis > 1 are not ported to kgc_gcn_torch yet "
             "(ROADMAP.md §1 item 8)")
+
+
+def _on_rows(rows, *weights: torch.Tensor) -> tuple:
+    """Weights applied to the rank's entity rows (their gradients summed
+    over the graph group), or the weights themselves without ``rows``."""
+    return weights if rows is None else rows.weights(*weights)
 
 
 def _contrib_dtype(cfg: Config, bwd_perm: str, k4b: bool) -> str:
@@ -163,6 +195,7 @@ class MGCN(DecoderFamilyMixin, nn.Module):
                  generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         check_config(cfg, mesh.graph if mesh is not None else 1)
+        check_entity_sharded_mesh(cfg, mesh)
         self.mesh = mesh
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.seed % 2**32)
@@ -211,9 +244,12 @@ class MGCN(DecoderFamilyMixin, nn.Module):
         rngs = rngs or {}
         c = self.conv
         dt = cfg.compute_dtype
-        x = self.entity_embedding
-        rel_all = torch.cat([self.relation_embedding, c.loop_rel], dim=0)
         sharded = self._graph_group(graph) is not None
+        # entity-sharded: this rank's block of the padded entity rows
+        rows = self.entity_rows
+        x = (self.entity_embedding if rows is None
+             else rows.take(self.entity_embedding))
+        rel_all = torch.cat([self.relation_embedding, c.loop_rel], dim=0)
         if train and cfg.edge_sample_size > 0 and "sample_in" in rngs:
             # K edges per half drawn on the device, rescaled by E/K
             # (mgcn.py:259-271): an unsorted sum, projected in float32
@@ -255,21 +291,26 @@ class MGCN(DecoderFamilyMixin, nn.Module):
             in_agg, out_agg = self._agg_halves(x, rel_all,
                                                self.edge_embeddings, graph,
                                                kernels)
-            in_res, out_res = (mm(in_agg, c.in_weight, dt),
-                               mm(out_agg, c.out_weight, dt))
+            w_in, w_out = _on_rows(rows, c.in_weight, c.out_weight)
+            in_res, out_res = mm(in_agg, w_in, dt), mm(out_agg, w_out, dt)
         all_ent, all_rel = self._combine(c, x, rel_all, in_res, out_res,
-                                         train, rngs, "")
+                                         train, rngs, "", rows)
         # depth layers: layer i + 2 takes layer i + 1's entity and relation
-        # outputs, with its own per-edge table (mgcn.py:334-364)
+        # outputs, with its own per-edge table (mgcn.py:334-364); under
+        # entity sharding they chain through the same schedules
+        drop = dropout if rows is None else rows.dropout
         for i, (ck, et_k) in enumerate(zip(self.extra_convs,
                                            self.extra_edge_embeddings)):
-            x_k = dropout(all_ent, cfg.gcn_drop, rngs.get(f"layer{i}"), train)
+            x_k = drop(all_ent, cfg.gcn_drop, rngs.get(f"layer{i}"), train)
             rel_k = torch.cat([all_rel, ck.loop_rel], dim=0)
             in_agg, out_agg = self._agg_halves(x_k, rel_k, et_k, graph,
                                                kernels)
+            w_in, w_out = _on_rows(rows, ck.in_weight, ck.out_weight)
             all_ent, all_rel = self._combine(
-                ck, x_k, rel_k, mm(in_agg, ck.in_weight, dt),
-                mm(out_agg, ck.out_weight, dt), train, rngs, str(i))
+                ck, x_k, rel_k, mm(in_agg, w_in, dt), mm(out_agg, w_out, dt),
+                train, rngs, str(i), rows)
+        if rows is not None:   # every rank's rows, for the decoder
+            all_ent = rows.whole(all_ent)
         # post-encoder entity dropout (reference model.py:34), before BOTH
         # the query gather and the all-entity scoring product
         all_ent = dropout(all_ent, cfg.gcn_drop, rngs.get("gcn"), train)
@@ -286,6 +327,10 @@ class MGCN(DecoderFamilyMixin, nn.Module):
         there, and the ``contrib`` schedule's gradients for all three."""
         cfg = self.cfg
         group = self._graph_group(graph)
+        if self.entity_sharding is not None:
+            # the rank's rows through the entity-sharded schedule
+            return self.entity_sharding.agg_pair(x, rel_all, et_full,
+                                                 kernels.seg_sum)
         if group is not None:
             # per shard over the local CSR, then one SUM (mgcn.py:455-470)
             agg = make_pallas_sharded_aggregate(
@@ -323,22 +368,27 @@ class MGCN(DecoderFamilyMixin, nn.Module):
 
     def _combine(self, c: MGCNConv, x: torch.Tensor, rel_all: torch.Tensor,
                  in_res: torch.Tensor, out_res: torch.Tensor, train: bool,
-                 rngs: Dict[str, torch.Generator], site: str
+                 rngs: Dict[str, torch.Generator], site: str, rows=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(drop(in) + drop(out) + loop) / 3`` (the loop term is NOT
         dropped, reference model.py:103), BatchNorm, tanh; relations
-        projected without the appended loop relation."""
+        projected without the appended loop relation.  With ``rows``
+        (``EntityRows``) ``x`` and the results are the rank's entity
+        rows."""
         cfg, dt = self.cfg, self.cfg.compute_dtype
-        loop_res = mm(loop_messages(x, c.loop_rel, c.loop_edge,
-                                    cfg.composition), c.loop_weight, dt)
-        out = (dropout(in_res, cfg.conv_drop, rngs.get(f"conv_in{site}"),
-                       train)
-               + dropout(out_res, cfg.conv_drop, rngs.get(f"conv_out{site}"),
-                         train)
+        drop = dropout if rows is None else rows.dropout
+        loop_rel, loop_edge, loop_w, *bias = _on_rows(
+            rows, c.loop_rel, c.loop_edge, c.loop_weight,
+            *([] if c.bias is None else [c.bias]))
+        loop_res = mm(loop_messages(x, loop_rel, loop_edge, cfg.composition),
+                      loop_w, dt)
+        out = (drop(in_res, cfg.conv_drop, rngs.get(f"conv_in{site}"), train)
+               + drop(out_res, cfg.conv_drop, rngs.get(f"conv_out{site}"),
+                      train)
                + loop_res) / 3.0
-        if c.bias is not None:
-            out = out + c.bias
-        return (torch.tanh(c.bn(out, train)),
+        if bias:
+            out = out + bias[0]
+        return (torch.tanh(c.bn(out, train, rows)),
                 mm(rel_all, c.rels_weight, dt)[:-1])
 
     def make_rngs(self, generator: torch.Generator

@@ -28,6 +28,18 @@ flat block-diagonal products of the JAX package's default layout
 ``(E, H, dh)`` view of ``z``.  The JAX tests show both layouts compute one
 function (``tests/test_rgat.py:234-261``).
 
+Entity-sharded (``entity_sharded=gather`` only, ``rgat.py:313-446,
+477-492,536-560,606-620``): the entity rows are split over the graph group
+(``parallel/entity_sharding.py:EntityRows``); per layer ``h`` is computed on
+the rank's rows and gathered (``all_gather_rows``), ``score_dst`` recomputed
+from the gathered rows, and ``attend_sharded`` runs over the rank's edge
+slices with the CSR over the ``n_pad`` padded rows: K5 per shard then the
+MAX, K1 for the denominator then the SUM, K1 for the weighted aggregate then
+a reduce-scatter to the rank's rows.  The self term, ReLU and dropout follow
+on the rank's rows; one ``gather_from_group`` feeds the decoder.  Ring and
+boundary are refused, as in the JAX package: their compressed exchanges
+would need their own max and denominator legs.
+
 Parameters keep the JAX names and shapes (``RGATLayerParams``), so
 ``convert.py`` maps a JAX ``RGATParams`` onto this module by name.
 """
@@ -43,13 +55,15 @@ from kgc_gcn_torch.config import Config
 from kgc_gcn_torch.data.graph import Graph, GraphHalf
 from kgc_gcn_torch.models.common import dropout, xavier_uniform
 from kgc_gcn_torch.models.decoders import build_decoder
-from kgc_gcn_torch.models.family_base import DecoderFamilyMixin
+from kgc_gcn_torch.models.family_base import (
+    DecoderFamilyMixin, check_entity_sharded_mesh)
 from kgc_gcn_torch.ops import sorted_ops
 from kgc_gcn_torch.ops.kernels import KERNELS, Kernels
 from kgc_gcn_torch.ops.sorted_ops import (
     edge_compose, gather_rows_few, gather_rows_sorted, segment_sum_sorted)
 from kgc_gcn_torch.parallel.distributed import (
-    all_reduce_max, all_reduce_sum, copy_to_group, reduce_from_group)
+    all_gather_rows, all_reduce_max, all_reduce_sum, copy_to_group,
+    reduce_from_group, reduce_scatter_rows)
 
 NEG_SLOPE = 0.2
 
@@ -121,22 +135,34 @@ class RGATLayer(nn.Module):
         return segment_sum_sorted(msg, half.dst, half.indptr, n_ent, seg_sum)
 
 
-    def attend_sharded(self, h: torch.Tensor, halves, n_ent: int,
+    def attend_sharded(self, h: torch.Tensor, halves, n_rows: int,
                        kernels: Kernels, group,
-                       contrib_dtype: torch.dtype = torch.float32) -> list:
+                       contrib_dtype: torch.dtype = torch.float32,
+                       entity_rows: bool = False) -> list:
         """``attend`` of both halves over this rank's edge slices, combined
-        over the graph group: [(N, d_out) per half]."""
+        over the graph group: [(n_rows, d_out) per half], ``h`` being the
+        replicated (N, d) rows.  With ``entity_rows`` ``h`` is the rank's
+        block of the padded rows, gathered here (the halves' CSR spans the
+        ``n_rows = n_pad`` rows), and each half's result is the rank's
+        block, reduce-scattered."""
         nh, dh = self.att_src.shape
         seg_sum = kernels.seg_sum
-        h, rel_mult, att_src, att_dst, rel_bias = copy_to_group(
-            group, h, self.rel_mult, self.att_src, self.att_dst,
-            self.rel_bias)
+        params = (self.rel_mult, self.att_src, self.att_dst, self.rel_bias)
+        if entity_rows:
+            h = all_gather_rows(h, group)
+            rel_mult, att_src, att_dst, rel_bias = copy_to_group(group,
+                                                                 *params)
+        else:
+            h, rel_mult, att_src, att_dst, rel_bias = copy_to_group(
+                group, h, *params)
+        # the destination term from the (gathered) rows on every rank: an
+        # (N, H) product is cheaper than a second collective
         score_dst = h @ block_matrix(att_dst)                   # (N, H)
         zs, ss = [], []
         for half in halves:
             z = edge_compose(h, rel_mult, half, seg_sum, contrib_dtype)
             sd_e = gather_rows_sorted(score_dst, half.dst, half.indptr,
-                                      n_ent, seg_sum)
+                                      n_rows, seg_sum)
             rb_e = gather_rows_few(rel_bias, half.rel,
                                    half.r_indptr.shape[0] - 1,
                                    (half.rperm, half.r_indptr, half.r_rel),
@@ -149,24 +175,27 @@ class RGATLayer(nn.Module):
         # denominator are combined over the group before any rank uses them
         smax = all_reduce_max(torch.cat([
             kernels.seg_max(s.detach().contiguous(), half.dst, half.indptr,
-                            n_ent) for s, half in zip(ss, halves)]), group)
+                            n_rows) for s, half in zip(ss, halves)]), group)
         expds = []
-        for s, half, m in zip(ss, halves, smax.split(n_ent)):
+        for s, half, m in zip(ss, halves, smax.split(n_rows)):
             m_e = torch.where(torch.isfinite(m), m, 0.0)[half.dst.long()]
             expds.append(torch.where(torch.isfinite(s), torch.exp(s - m_e),
                                      0.0))
         denom = all_reduce_sum(torch.cat([
-            segment_sum_sorted(e, half.dst, half.indptr, n_ent, seg_sum)
+            segment_sum_sorted(e, half.dst, half.indptr, n_rows, seg_sum)
             for e, half in zip(expds, halves)]), group)
         outs = []
-        for z, e, half, dn in zip(zs, expds, halves, denom.split(n_ent)):
+        for z, e, half, dn in zip(zs, expds, halves, denom.split(n_rows)):
             alpha = e / gather_rows_sorted(torch.clamp_min(dn, 1e-9),
-                                           half.dst, half.indptr, n_ent,
+                                           half.dst, half.indptr, n_rows,
                                            seg_sum)
             msg = (z.view(-1, nh, dh) * alpha[:, :, None]).view(-1, nh * dh)
-            outs.append(segment_sum_sorted(msg, half.dst, half.indptr, n_ent,
-                                           seg_sum))
-        return list(reduce_from_group(torch.cat(outs), group).split(n_ent))
+            outs.append(segment_sum_sorted(msg, half.dst, half.indptr,
+                                           n_rows, seg_sum))
+        if entity_rows:
+            return list(reduce_scatter_rows(torch.cat(outs, dim=1), group)
+                        .split(nh * dh, dim=1))
+        return list(reduce_from_group(torch.cat(outs), group).split(n_rows))
 
 
 class RGAT(DecoderFamilyMixin, nn.Module):
@@ -182,6 +211,16 @@ class RGAT(DecoderFamilyMixin, nn.Module):
         if cfg.gcn_out_dim % self.nh:
             raise ValueError(f"num_heads={self.nh} must divide "
                              f"gcn_out_dim={cfg.gcn_out_dim}")
+        if cfg.entity_sharded not in ("none", "gather"):
+            # the two-pass softmax rides the gather schedule's collectives;
+            # ring and boundary would need compressed max and denominator
+            # exchanges (rgat.py:477-492)
+            raise ValueError(
+                "model=rgat supports entity_sharded='gather' only (the "
+                "two-pass distributed softmax rides the gather schedule's "
+                "collectives; ring/boundary would need compressed "
+                "max/denom exchanges)")
+        check_entity_sharded_mesh(cfg, mesh)
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.seed % 2**32)
         self.cfg = cfg
@@ -214,6 +253,9 @@ class RGAT(DecoderFamilyMixin, nn.Module):
         stream = (torch.bfloat16 if self.cfg.use_pallas
                   and sorted_ops.EDGE_CONTRIB == "bf16" else torch.float32)
         group = self._graph_group(graph)
+        if self.cfg.entity_sharded == "gather":
+            return self._encode_entity_sharded(train, rngs, kernels, group,
+                                               stream)
         for i, layer in enumerate(self.layers):
             h = x @ layer.weight
             if group is not None:
@@ -228,3 +270,21 @@ class RGAT(DecoderFamilyMixin, nn.Module):
             x = dropout(torch.relu(agg), self.cfg.gcn_drop,
                         rngs.get(f"layer{i}"), train)
         return x, self.relation_embedding
+
+    def _encode_entity_sharded(self, train: bool,
+                               rngs: Dict[str, torch.Generator],
+                               kernels: Kernels, group,
+                               stream: torch.dtype
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every layer on the rank's entity rows (``rgat.py:536-560,
+        606-620``), over the aggregator's edge slices."""
+        rows, halves = self.entity_rows, self.entity_sharding.halves
+        x = rows.take(self.entity_embedding)
+        for i, layer in enumerate(self.layers):
+            w, self_w = rows.weights(layer.weight, layer.self_weight)
+            agg_in, agg_out = layer.attend_sharded(
+                x @ w, halves, rows.n_pad, kernels, group, stream,
+                entity_rows=True)
+            x = rows.dropout(torch.relu(agg_in + agg_out + x @ self_w),
+                             self.cfg.gcn_drop, rngs.get(f"layer{i}"), train)
+        return rows.whole(x), self.relation_embedding

@@ -20,6 +20,12 @@ decoder (the port's ``kgc_gcn_tpu/models/rgcn.py``).
     (E, B·d_in) expansion; ``block_compose``: the per-edge block products),
     sums them with ``index_add_``, and one SUM over the graph group follows
     (``parallel/edge_parallel.py:make_sharded_aggregate``).
+  * Entity-sharded (basis mode only, ``rgcn.py:185-195,235-250,340-355``):
+    each layer's halves run the schedule (``parallel/entity_sharding.py``)
+    with ``basis_compose`` on the rank's entity rows, plain as in the JAX
+    package (K7/K8 stay off); the basis product, the self term, ReLU and
+    dropout follow on the rank's rows, and one ``gather_from_group`` of the
+    last layer's rows feeds the decoder.
 
 Parameters keep the JAX layout and names (``layers.{i}.basis`` is
 ``(B, d_in, d_out)``), so ``convert.py`` maps a JAX ``RGCNParams`` onto this
@@ -37,7 +43,8 @@ from kgc_gcn_torch.config import Config
 from kgc_gcn_torch.data.graph import Graph
 from kgc_gcn_torch.models.common import dropout, xavier_uniform
 from kgc_gcn_torch.models.decoders import build_decoder
-from kgc_gcn_torch.models.family_base import DecoderFamilyMixin
+from kgc_gcn_torch.models.family_base import (
+    DecoderFamilyMixin, check_entity_sharded_mesh)
 from kgc_gcn_torch.ops import basis
 from kgc_gcn_torch.ops.basis import basis_aggregate
 from kgc_gcn_torch.ops.block import block_aggregate
@@ -89,6 +96,11 @@ class RGCN(DecoderFamilyMixin, nn.Module):
     ``cfg.num_blocks`` > 0 selects block mode, else basis mode
     (``cfg.num_bases``, 0 for min(2R, 30))."""
 
+    # the entity-sharded schedules compose with the basis expansion
+    # (rgcn.py:235-250); no per-edge table, where the JAX package passes a
+    # (2, E_pad, 1) table of ones
+    _entity_compose = staticmethod(basis_compose)
+
     def __init__(self, cfg: Config, n_ent: int, n_rel: int, n_edge: int,
                  generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
@@ -103,6 +115,13 @@ class RGCN(DecoderFamilyMixin, nn.Module):
         else:
             self.mode = "basis"
             self.nb = cfg.num_bases if cfg.num_bases > 0 else min(n_rel2, 30)
+        check_entity_sharded_mesh(cfg, mesh)
+        if cfg.entity_sharded != "none" and self.mode != "basis":
+            raise ValueError(
+                "entity_sharded with model=rgcn supports the basis "
+                "decomposition only (num_blocks=0): the block weights vary "
+                "per edge, so the compose cannot ride the shared exchange "
+                "schedules")
         d = cfg.gcn_in_dim
         layers = []
         for _ in range(max(1, cfg.num_layers)):
@@ -132,6 +151,8 @@ class RGCN(DecoderFamilyMixin, nn.Module):
                     and self.nb <= basis.BASIS_READBACK_MAX_BASES
                     else torch.float32)
         group = self._graph_group(graph)
+        if self.cfg.entity_sharded != "none":
+            return self._encode_entity_sharded(train, rngs, kernels)
         halves = (graph.inb, graph.outb)
         for i, layer in enumerate(self.layers):
             if self.mode == "block":
@@ -158,3 +179,22 @@ class RGCN(DecoderFamilyMixin, nn.Module):
             x = dropout(torch.relu(h), self.cfg.gcn_drop, rngs.get(f"layer{i}"),
                         train)
         return x, self.relation_embedding
+
+    def _encode_entity_sharded(self, train: bool,
+                               rngs: Dict[str, torch.Generator],
+                               kernels: Kernels
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The basis layers on the rank's entity rows: the exchange of the
+        (rows, B·d_in) expansion, then the basis product (``rgcn.py:
+        340-355``)."""
+        es, rows = self.entity_sharding, self.entity_rows
+        x = rows.take(self.entity_embedding)
+        for i, layer in enumerate(self.layers):
+            in_m, out_m = es.agg_pair(x, layer.coeff, (None, None),
+                                       kernels.seg_sum)
+            basis, self_w = rows.weights(layer.basis, layer.self_weight)
+            w = basis.reshape(-1, basis.shape[2])         # (B·d_in, d_out)
+            h = torch.matmul(in_m, w) + torch.matmul(out_m, w) + x @ self_w
+            x = rows.dropout(torch.relu(h), self.cfg.gcn_drop,
+                             rngs.get(f"layer{i}"), train)
+        return rows.whole(x), self.relation_embedding

@@ -128,7 +128,9 @@ def shard_params(model, mesh: Mesh) -> None:
     """Put the model on the grid, in place and once: each per-edge table
     becomes this rank's ``(2, E_pad/G, d)`` slice (``edge_slice``), the
     decoder's batch BatchNorms take their moments over the data group, and
-    the model learns its mesh (``model.prepare_edge_sharding``)."""
+    the model learns its mesh (``model.prepare_edge_sharding``; under
+    ``entity_sharded`` the model was built with it, and the Trainer calls
+    ``prepare_entity_sharding`` instead, as the JAX Trainer does)."""
     if getattr(model, "sharded_on", None) is not None:
         return
     from kgc_gcn_torch.models.common import BatchNorm
@@ -142,7 +144,8 @@ def shard_params(model, mesh: Mesh) -> None:
     for m in model.decoder.modules():
         if isinstance(m, BatchNorm):
             m.group = mesh.data_group
-    model.prepare_edge_sharding(mesh)
+    if model.cfg.entity_sharded == "none":
+        model.prepare_edge_sharding(mesh)
     model.sharded_on = mesh
 
 

@@ -26,8 +26,10 @@ step.  Each rank's loss is its rows' numerator over the GLOBAL denominator
 loss divides by ``max(Σ mask, 1)``), so the gradients are summed over the
 data group, in one flat collective, not averaged; the epoch's mean loss is
 the global one.  The dropout sites of the encoder draw from one stream that
-is the same on every rank (its activations are replicated), the decoder's
-sites and the negatives from a stream of the rank's data row.  Evaluation
+is the same on every rank (its activations are replicated; under
+``entity_sharded`` each rank draws the masks of all N rows and keeps its
+own), the decoder's sites and the negatives from a stream of the rank's
+data row.  Evaluation
 ranks each data rank's slice of every batch and sums the metric sums over
 the data group; rank 0 alone logs to file, records and writes.
 """
@@ -80,8 +82,12 @@ class Trainer:
         self.mesh = mesh
         if mesh is not None:
             # the model's per-edge tables become this rank's slices, and the
-            # (whole) graph this rank's edge slice, on the rank's device
+            # (whole) graph this rank's edge slice, on the rank's device;
+            # an entity-sharded schedule is built from the whole graph first
+            # (kgc_gcn_tpu/train/loop.py:63-74)
             shard_params(model, mesh)
+            if cfg.entity_sharded != "none":
+                model.prepare_entity_sharding(graph)
             graph = (shard_graph(graph, mesh) if mesh.graph > 1
                      else graph.to(mesh.device))
         self.graph = graph

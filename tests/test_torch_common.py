@@ -27,6 +27,12 @@ from kgc_gcn_torch.data.graph import build_graph
 from kgc_gcn_torch.data.toy import toy_triples
 from kgc_gcn_torch.models import build_model
 
+# The port's tests run on toy shapes, where torch's intra-op threads cost
+# more than they save, and several test processes share the machine's cores
+# (pytest-xdist workers, JAX's own threads): one thread per process.  Every
+# worker imports this module while it collects the port's test files.
+torch.set_num_threads(1)
+
 
 @functools.lru_cache(maxsize=None)
 def port_toy():

@@ -1416,3 +1416,136 @@ def test_rgat_sharded_attend_of_one_shard_equals_attend(cuda):
             continue
         torch.testing.assert_close(got, want, rtol=1e-5,
                                    atol=1e-5 * float(want.detach().abs().max()))
+
+
+def _entity_graph():
+    """A toy graph of 61 entities, which 2 and 4 ranks do not divide."""
+    from kgc_gcn_torch.data.dataset import build_dataset
+    from kgc_gcn_torch.data.graph import build_graph
+    from kgc_gcn_torch.data.toy import toy_triples
+    ds = build_dataset("toy", *toy_triples(n_ent=61, n_rel=5, n_train=500))
+    return build_graph(ds.train_triples, ds.num_entity, ds.num_relation)
+
+
+def _grads_of(fn, inputs, cot):
+    """``fn``'s outputs and the gradients of ``Σ out · cot`` in ``inputs``,
+    with the K1 and K5 launches it made."""
+    xs = [t.clone().requires_grad_() for t in inputs]
+    start = (segment_sum.launches, segment_max.launches)
+    out = fn(*xs)
+    grads = torch.autograd.grad(sum((o * c).sum() for o, c in zip(out, cot)),
+                                xs)
+    return (list(out) + list(grads),
+            (segment_sum.launches - start[0], segment_max.launches - start[1]))
+
+
+def _assert_forms_equal(got, want):
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5,
+                                   atol=1e-5 * float(w.detach().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g_size", [2, 4])
+def test_gather_schedule_k1_per_shard_matches_plain(cuda, g_size):
+    """Each rank's share of the entity-sharded gather schedule, without a
+    process group (its all_gather and reduce-scatter are then the
+    identity): K1 over the rank's edge slice into the n_pad rows, forward
+    and the gradients in x, the relation table and the table slice, equals
+    the plain compose and index_add_ of the same slice; 4 K1 launches a
+    rank (forward and d_x of two halves).  Float32 sums in another order."""
+    from kgc_gcn_torch.parallel.edge_parallel import (
+        local_half, make_entity_sharded_aggregate,
+        make_entity_sharded_aggregate_pallas)
+    graph = _entity_graph()
+    n_pad = -(-graph.n_ent // g_size) * g_size
+    e_loc, d = graph.e_pad // g_size, 24
+    gen = torch.Generator().manual_seed(5)
+    x, rel, etab, cot = (torch.randn(s, generator=gen).to(cuda) for s in (
+        (n_pad, d), (2 * graph.n_rel + 1, d), (2, graph.e_pad, d),
+        (2, n_pad, d)))
+    x[graph.n_ent:] = 0.0
+    kernel = make_entity_sharded_aggregate_pallas(None, n_pad)
+    plain = make_entity_sharded_aggregate(None, n_pad)
+    for r in range(g_size):
+        halves = [local_half(h, g_size, r, n_pad).to(cuda)
+                  for h in (graph.inb, graph.outb)]
+        inputs = (x, rel, etab[:, r * e_loc:(r + 1) * e_loc].contiguous())
+        runs = [_grads_of(lambda xs, rs, es, agg=agg: agg(
+            xs, rs, (es[0], es[1]), halves), inputs, cot)
+            for agg in (kernel, plain)]
+        assert runs[0][1] == (4, 0) and runs[1][1] == (0, 0), runs
+        _assert_forms_equal(runs[0][0], runs[1][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g_size", [2, 4])
+def test_boundary_k1_per_block_matches_plain(cuda, g_size):
+    """Each rank's boundary aggregate of each half without a process group
+    (its ppermutes are then the identity): K1 per block over the d_max
+    compressed rows (forward and d_x, each block a GraphHalf of its own)
+    equals the plain compose and index_add_ per block, forward and the
+    gradients in the rank's rows, the relation table and the table slice;
+    2 K1 launches a block."""
+    from kgc_gcn_torch.parallel.boundary import (
+        build_boundary_plan, make_boundary_aggregate)
+    from kgc_gcn_torch.parallel.edge_parallel import local_half
+    graph = _entity_graph()
+    n_pad = -(-graph.n_ent // g_size) * g_size
+    e_loc, d = graph.e_pad // g_size, 24
+    gen = torch.Generator().manual_seed(6)
+    rel = torch.randn(2 * graph.n_rel + 1, d, generator=gen).to(cuda)
+    for half in (graph.inb, graph.outb):
+        plan, _ = build_boundary_plan(half, g_size, n_pad)
+        for r in range(g_size):
+            local = local_half(half, g_size, r).to(cuda)
+            x, cot = (torch.randn(plan.rows_per, d, generator=gen).to(cuda)
+                      for _ in range(2))
+            et = torch.randn(e_loc, d, generator=gen).to(cuda)
+            runs = [_grads_of(
+                lambda xs, rs, es, agg=make_boundary_aggregate(
+                    None, plan, local, use_kernel, rank=r): [agg(xs, rs, es)],
+                (x, rel, et), [cot]) for use_kernel in (True, False)]
+            blocks = 1 + len(plan.t_steps)
+            assert runs[0][1] == (2 * blocks, 0), runs[0][1]
+            assert runs[1][1] == (0, 0)
+            _assert_forms_equal(runs[0][0], runs[1][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g_size", [2, 4])
+def test_rgat_entity_sharded_attend_matches_plain(cuda, g_size):
+    """RGAT's entity-sharded attend (``attend_sharded(entity_rows=True)``)
+    of each rank's edge slices over the n_pad rows, without a process
+    group: through K5 and K1 it equals its plain form, output and the
+    gradients of h and the attention parameters; K5 2 and K1 10 launches
+    a rank."""
+    from kgc_gcn_torch.models.rgat import RGATLayer
+    from kgc_gcn_torch.ops.kernels import KERNELS
+    from kgc_gcn_torch.parallel.edge_parallel import local_half
+    graph = _entity_graph()
+    n_pad = -(-graph.n_ent // g_size) * g_size
+    gen = torch.Generator().manual_seed(7)
+    layer = RGATLayer(2 * graph.n_rel, 16, 32, 4, gen).to(cuda)
+    with torch.no_grad():
+        layer.rel_bias.normal_(0, 0.5, generator=None)
+    h = torch.randn(n_pad, 32, generator=gen).to(cuda)
+    cot = torch.randn(2, n_pad, 32, generator=gen).to(cuda)
+    params = list(layer.parameters())
+    for r in range(g_size):
+        halves = [local_half(half, g_size, r, n_pad).to(cuda)
+                  for half in (graph.inb, graph.outb)]
+        runs = []
+        for kernels in (KERNELS, PLAIN):
+            hs = h.clone().requires_grad_()
+            start = (segment_sum.launches, segment_max.launches)
+            res = layer.attend_sharded(hs, halves, n_pad, kernels, None,
+                                       entity_rows=True)
+            grads = torch.autograd.grad(
+                sum((o * c).sum() for o, c in zip(res, cot)),
+                [hs] + params, allow_unused=True)
+            runs.append((res + [g for g in grads if g is not None],
+                         (segment_sum.launches - start[0],
+                          segment_max.launches - start[1])))
+        assert runs[0][1] == (10, 2) and runs[1][1] == (0, 0), runs
+        _assert_forms_equal(runs[0][0], runs[1][0])

@@ -111,6 +111,16 @@ def test_init_shapes_and_bounds(toy_cfg):
     dict(model="rgat", entity_sharded="ring"), dict(entity_sharded="ring"),
     dict(entity_sharded="boundary"), dict(entity_sharded="gather")])
 def test_unported_configurations_raise(toy_cfg, override):
+    """The entity-sharded schedules without a mesh (or RGAT's ring): the
+    ValueError the JAX package raises for the same configuration
+    (tests/test_torch_entity_sharding.py runs them on a mesh)."""
+    from kgc_gcn_tpu.models import build_model as jax_build_model
+    jcfg = toy_cfg.replace(**override)
+    with pytest.raises(ValueError) as jax_err:
+        jax_build_model(jcfg, 12, 4, 40)
     cfg = dataclasses.replace(port_cfg(toy_cfg), **override)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError) as err:
         build_model(cfg, 12, 4, 40)
+    for words in ("gather' only", "needs a (data, graph) mesh",
+                  "basis decomposition only"):
+        assert (words in str(err.value)) == (words in str(jax_err.value))

@@ -46,7 +46,9 @@ def test_importing_the_port_loads_no_jax():
             "kgc_gcn_torch.ops.kernels, kgc_gcn_torch.models.rgcn, "
             "kgc_gcn_torch.train.negative, kgc_gcn_torch.ops.segment_max, "
             "kgc_gcn_torch.ops.sorted_ops, kgc_gcn_torch.models.rgat, "
-            "kgc_gcn_torch.ops.elementwise, kgc_gcn_torch.ops.fused_compose\n"
+            "kgc_gcn_torch.ops.elementwise, kgc_gcn_torch.ops.fused_compose, "
+            "kgc_gcn_torch.parallel.entity_sharding, "
+            "kgc_gcn_torch.parallel.boundary\n"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'kgc_gcn_tpu'))\n"
             "print(bad)\n")

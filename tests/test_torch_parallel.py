@@ -67,9 +67,8 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _launch(argv, world: int, cwd, env_extra=None):
-    """``world`` ranks of ``argv`` on a free port; each rank's
-    (returncode, stdout, stderr), after all have ended or been killed."""
+def _start(argv, world: int, cwd, env_extra=None):
+    """``world`` ranks of ``argv`` on a free port, started."""
     port = _free_port()
     procs = []
     for rank in range(world):
@@ -82,6 +81,18 @@ def _launch(argv, world: int, cwd, env_extra=None):
             ["timeout", "-k", "5", str(RANK_TIMEOUT), sys.executable, *argv],
             cwd=str(cwd), env=env, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def _launch(argv, world: int, cwd, env_extra=None):
+    """``world`` ranks of ``argv`` on a free port; each rank's
+    (returncode, stdout, stderr), after all have ended or been killed."""
+    return _finish(_start(argv, world, cwd, env_extra))
+
+
+def _finish(procs):
+    """Each started rank's (returncode, stdout, stderr), after all have
+    ended or been killed; a rank that failed fails the test."""
     results = []
     try:
         for p in procs:
@@ -443,11 +454,13 @@ def test_stacked_with_use_pallas_under_graph_axis_raises(toy_cfg):
 
 
 def test_entity_sharded_still_raises(toy_cfg, tmp_path):
-    """The entity-sharded schedules are item 8's rest."""
+    """What the JAX package refuses of the entity-sharded schedules, the
+    port refuses too: a model without a mesh, and the CLI without a graph
+    axis (tests/test_torch_entity_sharding.py runs the schedules)."""
     cfg = port_cfg(toy_cfg).replace(entity_sharded="gather")
-    with pytest.raises(NotImplementedError, match="§1 item 8"):
+    with pytest.raises(ValueError, match="needs a .data, graph. mesh"):
         build_model(cfg, 12, 4, 40)
-    with pytest.raises(NotImplementedError, match="§1 item 8"):
+    with pytest.raises(ValueError, match="needs --graph_axis > 1"):
         cli.main(["--dataset", "Toy", "--experiments_dir", str(tmp_path),
                   "--do_train", "--device", "cpu", "--entity_sharded",
                   "boundary"])

@@ -149,9 +149,17 @@ def test_rgat_rejects_bad_heads(toy_cfg, heads):
     dict(entity_sharded="ring"), dict(entity_sharded="boundary"),
     dict(entity_sharded="gather")])
 def test_unported_rgat_configurations_raise(toy_cfg, override):
-    cfg = port_cfg(rgat_cfg(toy_cfg, **override))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(cfg, 12, 4, 40)
+    """Without a mesh (or, for RGAT, on ring and boundary) the ValueError
+    the JAX package raises for the same configuration
+    (tests/test_torch_entity_sharding.py runs the schedules on a mesh)."""
+    from kgc_gcn_tpu.models import build_model as jax_build_model
+    jcfg = rgat_cfg(toy_cfg, **override)
+    with pytest.raises(ValueError) as jax_err:
+        jax_build_model(jcfg, 12, 4, 40)
+    with pytest.raises(ValueError) as err:
+        build_model(port_cfg(jcfg), 12, 4, 40)
+    for words in ("gather' only", "needs a (data, graph) mesh"):
+        assert (words in str(err.value)) == (words in str(jax_err.value))
 
 
 @pytest.mark.parametrize("impl", ["sparse", "fused", "dense"])

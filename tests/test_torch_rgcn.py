@@ -262,9 +262,17 @@ def test_port_reads_the_jax_rgcn_checkpoint(toy, toy_cfg, tmp_path,
     dict(entity_sharded="gather"), dict(entity_sharded="boundary"),
     dict(entity_sharded="ring")])
 def test_unported_rgcn_configurations_raise(toy_cfg, override):
-    cfg = port_cfg(rgcn_cfg(toy_cfg, **override))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(cfg, 12, 4, 40)
+    """Without a mesh (or, for RGAT, on ring and boundary) the ValueError
+    the JAX package raises for the same configuration
+    (tests/test_torch_entity_sharding.py runs the schedules on a mesh)."""
+    from kgc_gcn_tpu.models import build_model as jax_build_model
+    jcfg = rgcn_cfg(toy_cfg, **override)
+    with pytest.raises(ValueError) as jax_err:
+        jax_build_model(jcfg, 12, 4, 40)
+    with pytest.raises(ValueError) as err:
+        build_model(port_cfg(jcfg), 12, 4, 40)
+    for words in ("gather' only", "needs a (data, graph) mesh"):
+        assert (words in str(err.value)) == (words in str(jax_err.value))
 
 
 def test_cli_trains_rgcn_on_negatives_then_serves(tmp_path, caplog, capsys):

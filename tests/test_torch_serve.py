@@ -208,7 +208,8 @@ def test_cli_predict_and_test_on_cpu(tmp_path, toy_cfg, capsys, caplog):
 
 def test_cli_refuses_what_it_cannot_run(tmp_path):
     base = ["--dataset", "Toy", "--experiments_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # the entity-sharded schedules need a graph axis, as in the JAX CLI
+    with pytest.raises(ValueError, match="needs --graph_axis > 1"):
         cli.main(base + ["--do_train", "--device", "cpu",
                          "--entity_sharded", "ring"])
     # the mesh axes need a launcher's ranks (tests/test_torch_parallel.py)

@@ -1,4 +1,5 @@
-"""One rank of the port's multi-process tests (tests/test_torch_parallel.py).
+"""One rank of the port's multi-process tests (tests/test_torch_parallel.py,
+tests/test_torch_entity_sharding.py).
 
     WORLD_SIZE=2 RANK=r MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
         python tests/torch_parallel_worker.py spec.json out_dir
@@ -34,6 +35,9 @@ from kgc_gcn_torch.ops.scatter import aggregate_half  # noqa: E402
 from kgc_gcn_torch.parallel import distributed  # noqa: E402
 from kgc_gcn_torch.parallel.edge_parallel import (  # noqa: E402
     make_pallas_sharded_aggregate, make_sharded_aggregate)
+from kgc_gcn_torch.parallel.entity_sharding import (  # noqa: E402
+    EntityShardedAggregator)
+from kgc_gcn_torch.models.rgcn import basis_compose  # noqa: E402
 from kgc_gcn_torch.parallel.mesh import (  # noqa: E402
     edge_table_names, make_mesh, shard_batches, shard_graph)
 from kgc_gcn_torch.train import optim  # noqa: E402
@@ -42,10 +46,12 @@ from kgc_gcn_torch.train.loop import Trainer  # noqa: E402
 from kgc_gcn_torch.train.negative import NegativeSamplingTrainer  # noqa: E402
 
 
-def problem():
+def problem(n_ent: int = 12):
     """The toy corpus of tests/conftest.py's ``toy`` fixture, on the CPU
-    (edges padded to 8: 40 a half, which 2 and 4 shards divide)."""
-    train, valid, test = toy_triples(n_ent=12, n_rel=4, n_train=40)
+    (edges padded to 8: 40 a half, which 2 and 4 shards divide); with
+    ``n_ent`` 13 the entity-sharded tests' corpus (13 rows, which 2 and 4
+    ranks do not divide)."""
+    train, valid, test = toy_triples(n_ent=n_ent, n_rel=4, n_train=40)
     ds = build_dataset("toy", train, valid, test)
     graph = build_graph(ds.train_triples, ds.num_entity, ds.num_relation,
                         pad_to=8)
@@ -97,8 +103,101 @@ def run_agg(case: dict, mesh, graph) -> dict:
     return out
 
 
+def run_es_agg(case: dict, mesh, graph) -> dict:
+    """An entity-sharded schedule's aggregate of both halves (``case``:
+    ``schedule``, ``compose`` mult or basis, ``forms``): the whole outputs
+    and the gradients of ``Σ out · cot`` in x, the relation table (basis:
+    the coefficients) and the per-edge table.  Without a mesh, the
+    single-process aggregate."""
+    rng = np.random.default_rng(case["seed"])
+    d, n, nb = case["d"], graph.n_ent, case.get("nb", 3)
+    f32 = lambda *shape: torch.tensor(rng.normal(0, 1, shape),
+                                      dtype=torch.float32)
+    basis = case["compose"] == "basis"
+    x = f32(n, d)
+    rel = f32(2 * graph.n_rel, nb) if basis else f32(2 * graph.n_rel + 1, d)
+    etab = f32(2, graph.e_pad, d)
+    cot = f32(2, n, nb * d if basis else d)
+    out = {}
+    for tag in case["forms"]:
+        xs, rs, et = (t.clone().requires_grad_() for t in (x, rel, etab))
+        halves = (graph.inb, graph.outb)
+        if mesh is None and basis:
+            res = make_sharded_aggregate(None, n, basis_compose)(
+                xs, rs, (None, None), halves)
+        elif mesh is None:
+            res = [aggregate_half(xs, rs, et[i], h, n)
+                   for i, h in enumerate(halves)]
+        else:
+            cfg = Config(entity_sharded=case["schedule"],
+                         use_pallas=tag == "kernel", graph_axis=mesh.graph)
+            es = EntityShardedAggregator(cfg, mesh, n,
+                                         basis_compose if basis else None)
+            es.prepare(graph)
+            e_loc = graph.e_pad // mesh.graph
+            lo = mesh.graph_rank * e_loc
+            pair = (None, None) if basis else et[:, lo:lo + e_loc]
+            res = [es.rows.whole(o)
+                   for o in es.agg_pair(es.rows.take(xs), rs, pair)]
+        loss = sum((r * c).sum() for r, c in zip(res, cot))
+        gx, gr, ge = torch.autograd.grad(loss, (xs, rs, et),
+                                         allow_unused=True)
+        ge = torch.zeros_like(etab) if ge is None else ge
+        if mesh is not None:
+            ge = distributed.all_gather_cat(ge[:, lo:lo + e_loc],
+                                            mesh.graph_group, 1)
+        for k, v in (("in", res[0]), ("out", res[1]), ("dx", gx),
+                     ("drel", gr), ("detab", ge)):
+            out[f"{tag}.{k}"] = v.detach().numpy().copy()
+    return out
+
+
+def run_coll(mesh) -> dict:
+    """Each entity-sharded collective of ``parallel/distributed.py`` on
+    rank-tagged rows: its forward and the gradient its backward rule gives
+    for a cotangent of the rank's own, each beside the value it must
+    have."""
+    g, r, group = mesh.graph, mesh.graph_rank, mesh.graph_group
+    rows = torch.arange(2 * g, dtype=torch.float32)[:, None].expand(-1, 3)
+    block = lambda v: torch.full((2, 3), float(v))
+    blocks = lambda f: torch.cat([block(f(q)) for q in range(g)])
+    total = g * (g + 1) / 2
+    own = slice(2 * r, 2 * r + 2)
+    cases = {
+        # (input, op, cotangent, forward want, backward want)
+        "all_gather_rows": (block(r), distributed.all_gather_rows,
+                            (r + 1) * (rows + 1), blocks(lambda q: q),
+                            total * (rows[own] + 1)),
+        "reduce_scatter_rows": ((r + 1) * (rows + 1),
+                                distributed.reduce_scatter_rows,
+                                block(r + 1), total * (rows[own] + 1),
+                                blocks(lambda q: q + 1)),
+        "gather_from_group": (block(r), distributed.gather_from_group,
+                              (r + 1) * (rows + 1), blocks(lambda q: q),
+                              (r + 1) * (rows[own] + 1)),
+        "scatter_to_group": (rows.clone(), distributed.scatter_to_group,
+                             block(r + 1), rows[own],
+                             blocks(lambda q: q + 1)),
+        "ppermute": (block(r), lambda t, grp: distributed.ppermute(
+            [t], [1], grp)[0], block(r + 10), block((r - 1) % g),
+            block((r + 1) % g + 10)),
+    }
+    out = {}
+    for name, (x, op, cot, fwd, bwd) in cases.items():
+        x = x.clone().requires_grad_()
+        y = op(x, group)
+        (grad,) = torch.autograd.grad((y * cot).sum(), x)
+        out.update({f"{name}.fwd": y.detach().numpy().copy(),
+                    f"{name}.fwd_want": fwd.numpy().copy(),
+                    f"{name}.bwd": grad.numpy().copy(),
+                    f"{name}.bwd_want": bwd.contiguous().numpy().copy()})
+    return out
+
+
 def _model(case: dict, ds, graph, mesh):
     cfg = Config(**case["cfg"])
+    if mesh is None:   # the single-process reference of a sharded case
+        cfg = cfg.replace(entity_sharded="none", graph_axis=1)
     model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
                         e_pad=graph.e_pad, mesh=mesh)
     state = np.load(case["state"])
@@ -173,6 +272,10 @@ def run_step(case: dict, mesh, ds, graph, banks) -> dict:
 def run_case(case: dict, mesh, ds, graph, banks) -> dict:
     if case["kind"] == "agg":
         return run_agg(case, mesh, graph)
+    if case["kind"] == "es_agg":
+        return run_es_agg(case, mesh, graph)
+    if case["kind"] == "coll":
+        return run_coll(mesh)
     return run_step(case, mesh, ds, graph, banks)
 
 
@@ -182,7 +285,7 @@ def main(spec_path: str, out_dir: str) -> None:
     distributed.maybe_initialize("cpu")
     data, graph_axis = spec["mesh"]
     mesh = make_mesh(data, graph_axis, torch.device("cpu"))
-    ds, graph, banks = problem()
+    ds, graph, banks = problem(spec.get("n_ent", 12))
     results = {}
     for case in spec["cases"]:
         for k, v in run_case(case, mesh, ds, graph, banks).items():
