@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of kgc_gcn_torch, the PyTorch/CUDA port, on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--kernels-only]
+    python3 chip_smoke.py [--seed N] [--kernels-only | --mesh-only |
+                           --entity-only | --rest-only]
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: require a CUDA card, print its name and power limit;
@@ -105,7 +106,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      at the WN18RR preset with bwd_perm operands and fwdw (K1 4), and one
      step's gradients of each against contrib's; (f) the CLI on data/Toy
      with --max_epoch 2 --profile_dir --ckpt_every 1 (the trace of epoch 2
-     names K1's kernel, periodic.ckpt equals the final parameters, epoch 2
+     names K1's kernel, periodic.orbax equals the final parameters, epoch 2
      has no steps_per_s), and the trace's bound at the WN18RR preset
      (TRACE_STEPS steps recorded of 10 more: size, events, seconds with and
      without it, host memory); (g) phase 5's weights written by
@@ -146,7 +147,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      counted on the host from the plans; then the CLI on two ranks
      (--graph_axis 2 --entity_sharded boundary --use_pallas --partition
      locality, 1 epoch on data/Toy) and --do_test of its checkpoint on the
-     two ranks and in one process (equal metrics).
+     two ranks and in one process (equal metrics);
+ 16. the rest of the edge-partitioned path, ranks of this script sharing
+     the card over gloo, at the WN18RR preset's widths on the corpus of
+     phase 5, dropout off, graph_axis 2: (a) one MGCN + ConvE step on K =
+     E/8 sampled edges a half, the ranks given the positions of the
+     one-process step, and (b) one step of the bench's
+     agg_schedule=reference (both index_add_, no kernel, as in the JAX
+     package), rank 0 holding each against the one-process step after 3
+     warm steps; (c) the CLI on two ranks (--graph_axis 2 --use_pallas
+     --ckpt_every 1, 1 epoch on data/Toy), which write last.orbax and
+     periodic.orbax, each rank reporting its own chunks, then --do_test
+     --do_predict of last.orbax on the two ranks (K1 4 on each: two
+     encodes of its slices; rank 1 prints nothing) and in one process:
+     equal metrics, the same top-10 (scores within 1e-5).
 K1, K3, K7 and K8 checks use dyadic inputs, whose float32 sums are exact in
 any order, so kernel and plain version must agree to the bit; K5
 (segment-max, phase 3: the RGAT path's shape and edge cases), K4a and K4b
@@ -154,7 +168,7 @@ any order, so kernel and plain version must agree to the bit; K5
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Before them a line gives the card, its
 power limit and the wall seconds of the whole script and of phases 12,
-13, 14 and 15.
+13, 14, 15 and 16.
 Nothing of JAX is imported.
 
 --kernels-only runs phases 1-3 and the time rows of K1, K2a, K7 and K3 (each
@@ -163,7 +177,7 @@ the last line: a quick check of the kernels that drives no path (their
 launch counts are 0).  --mesh-only runs phases 1-2 and 14, then the last
 line.  --entity-only runs phases 1-2 and 15 (the entity-sharded
 schedules, ~125 s of card time with its own references), then the last
-line.
+line.  --rest-only runs phases 1-2 and 16, then the last line.
 """
 
 from __future__ import annotations
@@ -1444,7 +1458,7 @@ def bounded_trace(graph, banks, work: str, seed: int) -> dict:
 def toy_profile_run(work: str, seed: int, launches: Launches) -> dict:
     """The CLI on data/Toy at full width with ``--max_epoch 2 --profile_dir
     --ckpt_every 1``: the trace of epoch 2 exists, is not empty and names
-    K1's passes; ``periodic.ckpt`` loads and equals the run's final
+    K1's passes; ``periodic.orbax`` loads and equals the run's final
     parameters; epoch 2 has no ``steps_per_s`` in metrics.jsonl; every K1
     launch of the run is counted.  Returns the trace's size and the run's
     launches."""
@@ -1501,7 +1515,8 @@ def toy_profile_run(work: str, seed: int, launches: Launches) -> dict:
     sd, _ = load_checkpoint(os.path.join(run, PERIODIC_NAME), cfg)
     for n, v in final.items():
         if not torch.equal(sd[n], v):
-            raise AssertionError(f"periodic.ckpt {n} is not the final value")
+            raise AssertionError(f"periodic.orbax {n} is not the final "
+                                 "value")
     traced = min(steps, TRACE_STEPS)
     rec = {"trace_bytes": size, "trace_events": len(events),
            "trace_bytes_per_step": size / traced, "steps_per_epoch": steps,
@@ -1510,7 +1525,7 @@ def toy_profile_run(work: str, seed: int, launches: Launches) -> dict:
         f"{seconds:.2f} s; trace of epoch 2 {name}: {size} B gzip, "
         f"{len(events)} events ({size / traced:.0f} B a step, {traced} of "
         f"{steps} steps traced), "
-        f"{k1} events of K1's pass A; periodic.ckpt equals the final "
+        f"{k1} events of K1's pass A; periodic.orbax equals the final "
         f"parameters; epoch 2 left out of steps_per_s; launches "
         f"{Launches.show(got)}")
     return rec
@@ -1889,6 +1904,29 @@ def mesh_reference(trainer, seed: int, launches: Launches, per_step,
         f" of the plan): loss {float(loss):.8f}; {Launches.show(got)}")
 
 
+@contextlib.contextmanager
+def recorded_draws(draws: list, replay: bool = False):
+    """The edge sampler's draws (``ops/sampler.py:draw_positions``): each
+    appended to ``draws`` (on the host), or with ``replay`` taken from it
+    in turn, then drawn anew once it is spent."""
+    from kgc_gcn_torch.ops import sampler
+    draw, queue = sampler.draw_positions, list(draws)
+
+    def record(gen, k, n, device):
+        if replay and queue:
+            return queue.pop(0).to(device)
+        idx = draw(gen, k, n, device)
+        if not replay:
+            draws.append(idx.detach().cpu())
+        return idx
+
+    sampler.draw_positions = record
+    try:
+        yield
+    finally:
+        sampler.draw_positions = draw
+
+
 def rank_step(case: dict, mesh, ds, graph, banks, launches: Launches) -> dict:
     """One rank's share of the compared step (the reference's weights, Adam
     state, batch and ReLU sides), then a profile of three more steps;
@@ -1997,27 +2035,35 @@ def compare_step(case: dict, ref: dict, loss: float, got_g, got_u,
 
 
 def rank_cli(argv, launches: Launches) -> dict:
-    """The CLI in this rank's process: its launches and the test metrics
-    it logged (rank 0; --do_test)."""
+    """The CLI in this rank's process: its launches, the test metrics it
+    logged (rank 0; --do_test), the lines it printed (--do_predict) and
+    the checkpoint files it reported writing."""
     from kgc_gcn_torch import cli
-    captured = _Capture()
-    logging.getLogger().addHandler(captured)
+    captured, root, out = _Capture(), logging.getLogger(), io.StringIO()
+    level = root.level
+    root.addHandler(captured)
+    if "RANK" in os.environ:   # ranks but 0 keep no log file: INFO on
+        root.setLevel(logging.INFO)
     try:
         launches.zero()
         t0 = time.perf_counter()
-        if cli.main(argv) != 0:
-            raise AssertionError(f"cli {argv} failed")
+        with contextlib.redirect_stdout(out):
+            if cli.main(argv) != 0:
+                raise AssertionError(f"cli {argv} failed")
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     finally:
-        logging.getLogger().removeHandler(captured)
+        root.removeHandler(captured)
+        root.setLevel(level)
     test = [m for m in captured.lines if "Test metrics" in m]
     return {"launches": list(launches.read()), "seconds": seconds,
-            "test": test[-1].split("metrics: ")[1].strip() if test else None}
+            "test": test[-1].split("metrics: ")[1].strip() if test else None,
+            "stdout": out.getvalue().splitlines(),
+            "written": [m for m in captured.lines if "this rank wrote" in m]}
 
 
 def run_rank(spec_path: str) -> int:
-    """One rank of phase 14 (``--rank``): join the process group the parent
+    """One rank of phases 14-16 (``--rank``): join the process group the parent
     configured, check the collectives, then run the spec's steps or CLI."""
     with open(spec_path) as f:
         spec = json.load(f)
@@ -2050,8 +2096,10 @@ def run_rank(spec_path: str) -> int:
         graph = build_graph(ds.train_triples, ds.num_entity, ds.num_relation)
         banks = make_banks(ds, info.device)
         for case in spec["cases"]:
-            out[case["name"]] = rank_step(case, mesh, ds, graph, banks,
-                                          launches)
+            with (recorded_draws(torch.load(case["positions"]), replay=True)
+                  if "positions" in case else contextlib.nullcontext()):
+                out[case["name"]] = rank_step(case, mesh, ds, graph, banks,
+                                              launches)
         return 0
     finally:
         print("RANK_RESULT " + json.dumps(out), flush=True)
@@ -2422,6 +2470,130 @@ def phase15(seed: int, work: str, corpus_root: str, ds, graph, banks,
     return out, paths
 
 
+def phase16(seed: int, work: str, corpus_root: str, ds, graph, banks,
+            launches: Launches) -> tuple:
+    """16: the rest of the edge-partitioned path on the one card (ranks
+    share it over gloo); returns (summary, the launches of each rank's
+    path)."""
+    from kgc_gcn_torch.config import dataset_preset
+    from kgc_gcn_torch.models import build_model
+    from kgc_gcn_torch.train.loop import Trainer
+    t16 = time.perf_counter()
+    no_drop = dict(gcn_drop=0.0, conv_drop=0.0, hidden_drop=0.0,
+                   feat_drop=0.0)
+    k_sample = ds.num_edge // 8
+    out, paths, cases = {}, {}, []
+    # (a) sampled, K = E/8 a half; (b) the bench's reference schedule: each
+    # against the one-process step after WARM_STEPS, the ranks given the
+    # compared step's sampled positions
+    for key, extra in (("sampled", dict(edge_sample_size=k_sample)),
+                       ("reference", dict(agg_schedule="reference"))):
+        cfg = dataset_preset("WN18RR", seed=seed, **no_drop, **extra)
+        model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
+                            e_pad=graph.e_pad, generator=torch.Generator()
+                            .manual_seed(seed)).to(graph.device)
+        ref, draws = os.path.join(work, f"ref16_{key}.pt"), []
+        with recorded_draws(draws):
+            mesh_reference(Trainer(cfg, model, graph, banks), seed, launches,
+                           (0,) * 9, ref, False, f"16 {key}")
+        case = {"name": key, "ref": ref, "degenerate": MESH_DEGENERATE,
+                "host_steps": 1, "profile": False}
+        if draws:   # the compared step's: in-half, then out-half
+            case["positions"] = os.path.join(work, "ref16_positions.pt")
+            torch.save(draws[-2:], case["positions"])
+        cases.append(case)
+        del model
+        torch.cuda.empty_cache()
+    res = launch_ranks({"kind": "steps", "mesh": [1, 2], "dataset": "SYN",
+                        "data_dir": corpus_root, "cases": cases}, 2, work,
+                       "rest_g2")
+    log_es_ranks("rest_g2", res)
+    out["steps"] = res
+    for r in res:
+        for c in cases:
+            paths[f"rest_g2_{c['name']}_rank{r['rank']}"] = tuple(
+                r[c["name"]]["launches"])
+    # (c) the CLI on two ranks: one epoch with periodic checkpoints, each
+    # rank writing its chunks; then --do_test --do_predict of last.orbax
+    # on the two ranks and in this process
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    run = os.path.join(work, "rest_cli", "Toy")
+    base = ["--dataset", "Toy", "--data_dir", data, "--device", "cuda",
+            "--seed", str(seed), "--use_pallas"]
+    train_res = launch_ranks({"kind": "cli", "argv": base + [
+        "--experiments_dir", os.path.join(work, "rest_cli"), "--do_train",
+        "--max_epoch", "1", "--graph_axis", "2", "--ckpt_every", "1"]}, 2,
+        work, "rest_cli_train")
+    tables = ("tree.params.edge_embeddings",
+              "tree.opt_state.1.mu.edge_embeddings",
+              "tree.opt_state.1.nu.edge_embeddings")
+    for r in train_res:
+        g = r["rank"]
+        own = ", ".join(sorted(f"{t}/0.{g}.0" for t in tables))
+        wrote = r["cli"]["written"]
+        if (len(wrote) != 2 or not all(w.endswith(f"per-edge chunks: {own}")
+                                       for w in wrote)
+                or not all(os.path.isdir(os.path.join(run, d))
+                           for d in ("last.orbax", "periodic.orbax"))):
+            raise AssertionError(f"16c: rank {g} reported {wrote}; "
+                                 f"{sorted(os.listdir(run))}")
+        log(f"[rest] cli rank {g} wrote: " + "; ".join(
+            w.split(": ", 1)[1] for w in wrote))
+    with open(os.path.join(work, "rest_queries.txt"), "w") as f:
+        with open(os.path.join(data, "Toy", "test.txt")) as t:
+            lines = [x.split("\t")[:2] for x in t.read().splitlines()]
+        f.write("".join(f"{a}\t{b}\n" for a, b in lines))
+    serve = ["--do_test", "--do_predict", "--predict_file",
+             os.path.join(work, "rest_queries.txt"), "--top_k", "10",
+             "--restore_dir", run]
+    mesh_res = launch_ranks({"kind": "cli", "argv": base + serve + [
+        "--experiments_dir", os.path.join(work, "rest_cli_serve"),
+        "--graph_axis", "2"]}, 2, work, "rest_cli_serve")
+    one = rank_cli(base + serve + ["--experiments_dir",
+                                   os.path.join(work, "rest_one_serve")],
+                   launches)
+    two = mesh_res[0]["cli"]
+    if (two["test"] is None or two["test"] != one["test"]
+            or mesh_res[1]["cli"]["stdout"]
+            or not len(two["stdout"]) == len(lines) == len(one["stdout"])):
+        raise AssertionError(f"16c: two-rank test {two['test']}, one-process "
+                             f"{one['test']}; rank 1 printed "
+                             f"{mesh_res[1]['cli']['stdout'][:2]}")
+    got = [json.loads(x) for x in two["stdout"]]
+    want = [json.loads(x) for x in one["stdout"]]
+    names = {}
+    table = lambda rows, k: torch.tensor(
+        [[e[k] if k == "score" else names.setdefault(e[k], len(names))
+          for e in r["topk"]] for r in rows], dtype=torch.float64)
+    s_two, s_one = table(got, "score"), table(want, "score")
+    assert_topk_match(s_two, table(got, "entity"), s_one,
+                      table(want, "entity"), 1e-5)
+    for what, rs in (("rest_cli_train", train_res),
+                     ("rest_cli_serve", mesh_res)):
+        for r in rs:
+            paths[f"{what}_rank{r['rank']}"] = tuple(r["cli"]["launches"])
+    paths["rest_cli_serve_one_process"] = tuple(one["launches"])
+    for r in mesh_res:   # K1 on each half's slice, for the test's encode
+        if tuple(r["cli"]["launches"]) != (4,) + (0,) * 8:   # and serving's
+            raise AssertionError(f"16c serve rank {r['rank']}: launches "
+                                 f"{Launches.show(r['cli']['launches'])}")
+    if not all(r["cli"]["launches"][0] for r in train_res):
+        raise AssertionError("16c: a training rank launched no K1")
+    out["serve_max_score_err"] = float((s_two - s_one).abs().max())
+    log(f"[rest] cli: two ranks, --graph_axis 2 --use_pallas --ckpt_every 1,"
+        f" 1 epoch on data/Toy: {train_res[0]['cli']['seconds']:.1f} s "
+        f"(launches rank 0 {Launches.show(train_res[0]['cli']['launches'])}"
+        f"); --do_test --do_predict of last.orbax on two ranks "
+        f"{two['seconds']:.1f} s, each rank's encodes K1 4: {two['test']}, "
+        f"{len(got)} lines from rank 0, none from rank 1; in one process "
+        f"{one['seconds']:.1f} s: {one['test']}; top-10 scores max abs err "
+        f"{out['serve_max_score_err']:.3g}")
+    out["seconds"] = time.perf_counter() - t16
+    log(f"[phase16] the rest of the edge-partitioned path "
+        f"{out['seconds']:.1f} s")
+    return out, paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2433,9 +2605,12 @@ def main() -> int:
     ap.add_argument("--entity-only", action="store_true",
                     help="phases 1-2 and 15 only (the entity-sharded "
                     "schedules, --entity_sharded)")
+    ap.add_argument("--rest-only", action="store_true",
+                    help="phases 1-2 and 16 only (sampling, the reference "
+                    "schedule, checkpoints and serving on ranks)")
     ap.add_argument("--rank", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.rank:   # one rank of phase 14, started by this script
+    if args.rank:   # one rank of phases 14-16, started by this script
         return run_rank(args.rank)
     t_start = time.perf_counter()
 
@@ -2512,9 +2687,10 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    if args.entity_only:
-        phase15(args.seed, work.name, corpus_root, ds, graph.to(device),
-                make_banks(ds, device), launches)
+    if args.entity_only or args.rest_only:
+        phase = phase15 if args.entity_only else phase16
+        phase(args.seed, work.name, corpus_root, ds, graph.to(device),
+              make_banks(ds, device), launches)
         work.cleanup()
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3614,6 +3790,11 @@ def main() -> int:
                                    graph, banks, launches,
                                    mesh_summary["refs"])
     paths.update(es_paths)
+
+    # 16. sampling, the reference schedule, checkpoints and serving on ranks
+    rest_summary, rest_paths = phase16(args.seed, work.name, corpus_root, ds,
+                                       graph, banks, launches)
+    paths.update(rest_paths)
     work.cleanup()
 
     paths.update({"mgcn_train": train_launches, "mgcn_serve": serve_launches,
@@ -3649,7 +3830,8 @@ def main() -> int:
     log(f"[smoke] {torch.cuda.get_device_name(0)}; {smi}; whole script "
         f"{time.perf_counter() - t_start:.1f} s, phase 12 {phase12_s:.1f} s, "
         f"phase 13 {phase13_s:.1f} s, phase 14 {mesh_summary['seconds']:.1f}"
-        f" s, phase 15 {es_summary['seconds']:.1f} s")
+        f" s, phase 15 {es_summary['seconds']:.1f} s, phase 16 "
+        f"{rest_summary['seconds']:.1f} s")
     log(json.dumps({"training": train, "serve_rgat": serve_rgat,
                     "serve_mgcn_stacked": serve_stacked, "few_sum": {
                         k: v for k, v in timings.items()

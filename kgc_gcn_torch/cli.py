@@ -19,9 +19,11 @@ depth (``--num_layers``), with the ``sub`` and ``corr`` compositions
 trains 1-vs-all or on sampled negatives (``--train_mode
 negative_sampling``), and writes ``params.json``, ``train.log``,
 ``metrics.jsonl`` and, on every validation improvement, ``last.ckpt`` under
-``<experiments_dir>/<dataset>``; with ``--restore_dir`` it resumes from that
-checkpoint, optimizer state included, and ``--init_embeddings`` warm-starts
-the embedding tables from an ``.npz`` first.  ``--do_test`` and
+``<experiments_dir>/<dataset>`` (``last.orbax`` under a launcher with more
+than one rank, each rank writing its part, as the JAX package does); with
+``--restore_dir`` it resumes from that checkpoint, optimizer state
+included, and ``--init_embeddings`` warm-starts the embedding tables from an
+``.npz`` first.  ``--do_test`` and
 ``--do_predict`` serve a checkpoint that either package wrote
 (``--restore_dir``, whose ``params.json`` supplies the model-shape flags),
 or the reference implementation's own PyTorch ``last.ckpt``
@@ -29,7 +31,10 @@ or the reference implementation's own PyTorch ``last.ckpt``
 from with fresh optimizer moments); ``--do_test --per_relation`` also
 writes ``per_relation.json``.  ``--profile_dir D`` writes a
 ``torch.profiler`` trace of training epoch 2 into D; ``--ckpt_every K``
-writes ``periodic.ckpt`` every K epochs in the background.
+writes ``periodic.orbax`` every K epochs in the background.  Either layout
+restores on any mesh, each rank taking its slice of the per-edge tables
+(``train/checkpoint.py``); orbax's OCDBT default, which the JAX package
+writes, is refused.
 ``--device`` (default ``cuda``) picks the card or, when asked for, the CPU.
 ``--partition locality`` renumbers the entities by graph communities
 (``data/partition.py``; recorded in ``params.json`` and adopted on
@@ -38,10 +43,13 @@ restore).  ``--data_axis D --graph_axis G`` run on D x G ranks of a launcher
 ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``):
 each step's batch is split over D, each half's edges and the per-edge table
 over G (``parallel/``); NCCL where each rank has a card of its own, gloo
-where ranks share one.  ``--entity_sharded gather|ring|boundary`` (with
-``--graph_axis`` > 1) splits the entity rows over the graph ranks too
-(``parallel/entity_sharding.py``: MGCN and basis R-GCN on every schedule,
-RGAT on ``gather``); ``--do_predict`` serves on one process.
+where ranks share one; ``--edge_sample_size`` and the bench's
+``agg_schedule=reference`` run per edge slice too.  ``--entity_sharded
+gather|ring|boundary`` (with ``--graph_axis`` > 1) splits the entity rows
+over the graph ranks too (``parallel/entity_sharding.py``: MGCN and basis
+R-GCN on every schedule, RGAT on ``gather``).  ``--do_predict`` under a
+launcher encodes once on every rank, and rank 0 alone serves the queries
+and prints the lines (the JAX package prints on every process).
 ``--spmm_mode`` picks MGCN's aggregation schedule (``ew_impl``, as in the
 JAX CLI, has no flag: it is a ``Config`` field).  The flags that steer only
 the JAX package's TPU schedules (``--prng_impl``, ``--compile_cache_dir``,
@@ -74,9 +82,9 @@ from kgc_gcn_torch.data.partition import partition_dataset
 from kgc_gcn_torch.models import build_model
 from kgc_gcn_torch.models.common import init_embeddings_from_npz
 from kgc_gcn_torch.ops.ranking import corpus_from_per_rel
-from kgc_gcn_torch.parallel.distributed import (
-    launcher_env, maybe_initialize, shutdown)
-from kgc_gcn_torch.parallel.mesh import check_mesh_shape, make_mesh, shard_like
+from kgc_gcn_torch.parallel.distributed import maybe_initialize, shutdown
+from kgc_gcn_torch.parallel.mesh import (
+    check_mesh_shape, make_mesh, shard_params)
 from kgc_gcn_torch.serve import Predictor, serve_file, serve_stream
 from kgc_gcn_torch.train.checkpoint import load_checkpoint
 from kgc_gcn_torch.train.loop import (
@@ -98,7 +106,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset", default="WN18RR")
     p.add_argument("--seed", default=19960326, type=int)
     p.add_argument("--restore_dir", default=None,
-                   help="run directory holding a JAX npz last.ckpt")
+                   help="run directory holding last.orbax or last.ckpt "
+                        "(either package's)")
     p.add_argument("--restore_torch", default=None,
                    help="import a reference (PyTorch) last.ckpt file")
     p.add_argument("--init_embeddings", default=None,
@@ -301,10 +310,6 @@ def main(argv=None) -> int:
         raise ValueError("--do_predict needs --predict_file")
     if cfg.entity_sharded != "none" and cfg.graph_axis < 2:
         raise ValueError("--entity_sharded needs --graph_axis > 1")
-    if args.do_predict and launcher_env():
-        raise ValueError("--do_predict serves on one process: run it "
-                         "without a launcher (a checkpoint written under "
-                         "--data_axis/--graph_axis has the one-device layout)")
     # one process per rank: rank 0 writes the run record and the log file
     lead = os.environ.get("RANK", "0") == "0"
     model_dir = os.path.join(cfg.experiments_dir, cfg.dataset)
@@ -376,10 +381,15 @@ def _run(args: argparse.Namespace, cfg: Config, model_dir: str,
         best = ref_measure
         logging.info("Imported reference checkpoint %s (measure: %s)",
                      cfg.restore_torch, best)
+    if mesh is not None:
+        # the per-edge tables become the rank's slices, before a restore
+        # reads them (kgc_gcn_tpu/cli.py:378-405)
+        shard_params(model, mesh)
     if cfg.restore_dir is not None:
-        # every rank reads the whole file; the mesh takes its slices
+        # either layout; under a mesh, each per-edge table's and moment's
+        # slice of this rank (from last.orbax, its chunks alone)
         state_dict, best, *opt = load_checkpoint(
-            cfg.restore_dir, cfg, with_opt_state=cfg.do_train)
+            cfg.restore_dir, cfg, with_opt_state=cfg.do_train, mesh=mesh)
         if cfg.model == "mgcn":
             # the file's conv bias or none, whatever the model held
             model.conv.set_bias(state_dict.get("conv.bias"))
@@ -400,7 +410,7 @@ def _run(args: argparse.Namespace, cfg: Config, model_dir: str,
             trainer.opt_state.count = opt_state.count
             for dst, src in zip(trainer.opt_state.mu + trainer.opt_state.nu,
                                 opt_state.mu + opt_state.nu):
-                dst.copy_(src if mesh is None else shard_like(src, dst, mesh))
+                dst.copy_(src)
     if cfg.do_train:
         logging.info("Training %s+%s, %s, loss_impl=%s, on %s", cfg.model,
                      cfg.decoder, cfg.train_mode, trainer.loss_impl, device)
@@ -414,7 +424,11 @@ def _run(args: argparse.Namespace, cfg: Config, model_dir: str,
         evaluate(cfg, model, graph, banks, "test", mark="Test",
                  mesh=mesh)
     if args.do_predict:
+        # under a mesh every rank takes part in the one encode; rank 0
+        # alone serves and prints (eval-mode decoding has no collective)
         predictor = Predictor(cfg, model, graph, ds.entity2id, ds.relation2id)
+        if not lead:
+            return 0
         if args.predict_file == "-":
             for line in serve_stream(predictor, sys.stdin, k=args.top_k):
                 print(line, flush=True)   # one JSON line per query, streamed

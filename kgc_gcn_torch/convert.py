@@ -79,7 +79,7 @@ def jax_leaf_names(cfg: Config, conv_bias: bool = False
     return params, state
 
 
-def _module_key(state_name: str) -> str:
+def module_key(state_name: str) -> str:
     """JAX state path -> port state-dict key (``conv_bn.*`` are the buffers
     of ``conv.bn``, ``extra_bn.i.*`` those of ``extra_convs.i.bn``;
     ``decoder.bnK.*`` keep their names)."""
@@ -116,7 +116,7 @@ def params_to_numpy(model, cfg: Config
     p_names, s_names = model_leaf_names(model, cfg)
     arr = lambda t: t.detach().to("cpu", torch.float32).numpy()
     return ({n: arr(sd[n]) for n in p_names},
-            {n: arr(sd[_module_key(n)]) for n in s_names})
+            {n: arr(sd[module_key(n)]) for n in s_names})
 
 
 def opt_state_leaves(state) -> List[torch.Tensor]:
@@ -148,5 +148,5 @@ def params_from_numpy(params: Dict[str, np.ndarray],
     for name, arr in params.items():
         out[name] = torch.from_numpy(np.array(arr, np.float32))
     for name, arr in state.items():
-        out[_module_key(name)] = torch.from_numpy(np.array(arr, np.float32))
+        out[module_key(name)] = torch.from_numpy(np.array(arr, np.float32))
     return out

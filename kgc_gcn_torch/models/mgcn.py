@@ -22,10 +22,13 @@
     relation outputs, and always runs the ``halves`` schedule.
   * Edge sampling (``edge_sample_size`` K > 0, one layer, training only):
     each half aggregates K edges drawn on the device (``ops/sampler.py``),
-    summed with ``index_add_``; evaluation encodes the full graph.
+    summed with ``index_add_``; evaluation encodes the full graph.  Under
+    a graph axis each rank sums the drawn edges of its slice, then one SUM
+    (``parallel/edge_parallel.py:make_sampled_aggregate``).
   * ``agg_schedule=reference`` (bench only): every edge message projected
     and summed unsorted (``ops/scatter.py:
-    aggregate_half_reference_schedule``).
+    aggregate_half_reference_schedule``); under a graph axis per edge
+    slice, then one SUM (``make_reference_aggregate``).
   * Under a graph axis (``mesh.graph`` G > 1, ``mgcn.py:405-470``): every
     layer's halves run per shard, each rank's slice of the edges through K1
     over its local CSR into the full (N, d) rows, then one SUM over the
@@ -74,14 +77,14 @@ from kgc_gcn_torch.models.common import BatchNorm, dropout, mm, xavier_uniform
 from kgc_gcn_torch.models.decoders import build_decoder
 from kgc_gcn_torch.models.family_base import (
     DecoderFamilyMixin, check_entity_sharded_mesh)
-from kgc_gcn_torch.ops import scatter
+from kgc_gcn_torch.ops import sampler, scatter
 from kgc_gcn_torch.ops.fused_compose import aggregate_stacked
 from kgc_gcn_torch.ops.kernels import KERNELS, Kernels
-from kgc_gcn_torch.ops.sampler import aggregate_sampled_half, sample_half
 from kgc_gcn_torch.ops.scatter import (
-    aggregate_half, aggregate_half_reference_schedule, aggregate_stacked_xla,
-    loop_messages)
-from kgc_gcn_torch.parallel.edge_parallel import make_pallas_sharded_aggregate
+    aggregate_half, aggregate_stacked_xla, loop_messages)
+from kgc_gcn_torch.parallel.edge_parallel import (
+    make_pallas_sharded_aggregate, make_reference_aggregate,
+    make_sampled_aggregate)
 
 
 class MGCNConv(nn.Module):
@@ -120,9 +123,8 @@ def _edge_table(n_edge: int, e_pad: int, d: int,
 
 
 def check_config(cfg: Config, graph_axis: int = 1) -> None:
-    """The JAX package's refusals (``mgcn.py:110-142,158-165``), the port's
-    schedules that compose by multiplication only (K3, K4a/K4b), and what
-    the port does not run under a graph axis yet."""
+    """The JAX package's refusals (``mgcn.py:110-142,158-165``) and the
+    port's schedules that compose by multiplication only (K3, K4a/K4b)."""
     if cfg.num_layers > 1 and cfg.edge_sample_size > 0:
         raise ValueError(
             "edge_sample_size is only supported with num_layers=1")
@@ -161,12 +163,6 @@ def check_config(cfg: Config, graph_axis: int = 1) -> None:
             f"spmm_mode={cfg.spmm_mode!r} cannot ride an edge partition: "
             "its one call covers both halves' whole edge lists; use "
             "spmm_mode='halves' (per-shard K1) with graph_axis > 1")
-    if graph_axis > 1 and (cfg.edge_sample_size > 0
-                           or cfg.agg_schedule == "reference"):
-        raise NotImplementedError(
-            "edge_sample_size and agg_schedule='reference' under "
-            "graph_axis > 1 are not ported to kgc_gcn_torch yet "
-            "(ROADMAP.md §1 item 8)")
 
 
 def _on_rows(rows, *weights: torch.Tensor) -> tuple:
@@ -244,24 +240,29 @@ class MGCN(DecoderFamilyMixin, nn.Module):
         rngs = rngs or {}
         c = self.conv
         dt = cfg.compute_dtype
-        sharded = self._graph_group(graph) is not None
         # entity-sharded: this rank's block of the padded entity rows
         rows = self.entity_rows
         x = (self.entity_embedding if rows is None
              else rows.take(self.entity_embedding))
         rel_all = torch.cat([self.relation_embedding, c.loop_rel], dim=0)
+        group = self._graph_group(graph)
         if train and cfg.edge_sample_size > 0 and "sample_in" in rngs:
             # K edges per half drawn on the device, rescaled by E/K
-            # (mgcn.py:259-271): an unsorted sum, projected in float32
-            in_res, out_res = (
-                aggregate_sampled_half(
-                    x, rel_all, self.edge_embeddings[i],
-                    sample_half(rngs[name], half, cfg.edge_sample_size,
-                                self.n_edge), self.n_ent) @ w
-                for i, (half, name, w) in enumerate((
-                    (graph.inb, "sample_in", c.in_weight),
-                    (graph.outb, "sample_out", c.out_weight))))
-        elif cfg.spmm_mode in ("stacked", "stacked_xla") and not sharded:
+            # (mgcn.py:259-271): an unsorted sum, projected in float32.
+            # Under a graph axis every rank draws the same positions and
+            # sums those of its edge slice, then one SUM over the group
+            lo = 0 if group is None else (self.mesh.graph_rank
+                                          * graph.inb.src.shape[0])
+            samples = [sampler.take_slice(
+                half, sampler.draw_positions(
+                    rngs[name], cfg.edge_sample_size, self.n_edge,
+                    half.src.device), lo, self.n_edge)
+                for half, name in ((graph.inb, "sample_in"),
+                                   (graph.outb, "sample_out"))]
+            in_agg, out_agg = make_sampled_aggregate(group, self.n_ent)(
+                x, rel_all, self.edge_embeddings, samples)
+            in_res, out_res = in_agg @ c.in_weight, out_agg @ c.out_weight
+        elif cfg.spmm_mode in ("stacked", "stacked_xla") and group is None:
             # the whole positional table as (2*E_pad, d_in), a view:
             # stacked position k is its row k
             etab2 = self.edge_embeddings.reshape(2 * self.e_pad, -1)
@@ -281,12 +282,11 @@ class MGCN(DecoderFamilyMixin, nn.Module):
             in_res, out_res = (mm(in_agg, c.in_weight, dt),
                                mm(out_agg, c.out_weight, dt))
         elif cfg.agg_schedule == "reference":
-            # project every edge message, then an unsorted sum (bench only)
-            in_res, out_res = (
-                aggregate_half_reference_schedule(
-                    x, rel_all, self.edge_embeddings[i], half, w, self.n_ent)
-                for i, (half, w) in enumerate(((graph.inb, c.in_weight),
-                                               (graph.outb, c.out_weight))))
+            # project every edge message, then an unsorted sum (bench
+            # only); under a graph axis per edge slice, then one SUM
+            in_res, out_res = make_reference_aggregate(group, self.n_ent)(
+                x, rel_all, self.edge_embeddings, (graph.inb, graph.outb),
+                (c.in_weight, c.out_weight))
         else:
             in_agg, out_agg = self._agg_halves(x, rel_all,
                                                self.edge_embeddings, graph,

@@ -8,11 +8,19 @@ E/K, so the aggregated neighbourhood sum stays unbiased:
 
     E[ (E/K) * sum_{k<K} m_{e_k} ] = sum_e m_e.
 
-Sampling (``sample_half``) and aggregation (``aggregate_sampled_half``) are
-apart, so that a caller can hand both packages the same positions: the two
-random streams cannot match.  The sample is not dst-sorted, so it is summed
-with ``index_add_``, as the JAX package sums it with XLA's unsorted
-``segment_sum``; neither package has a kernel here.
+Sampling (``draw_positions``, ``take_half``) and aggregation
+(``aggregate_sampled_half``) are apart, so that a caller can hand both
+packages the same positions: the two random streams cannot match.  The
+sample is not dst-sorted, so it is summed with ``index_add_``, as the JAX
+package sums it with XLA's unsorted ``segment_sum``; neither package has a
+kernel here.
+
+Under a graph axis every rank draws the same K global positions (the
+encoder's stream is the same on every rank) and keeps those in its edge
+slice (``take_slice``), the others at weight 0, so that shapes stay static;
+the ranks' sums add up to the one-process sample's, as under the JAX
+package's GSPMD (``parallel/edge_parallel.py:
+make_sampled_aggregate``).
 """
 
 from __future__ import annotations
@@ -46,13 +54,36 @@ def take_half(half: GraphHalf, idx: torch.Tensor,
                        half.norm[idx] * scale.to(half.norm.device))
 
 
+def take_slice(half: GraphHalf, idx: torch.Tensor, lo: int,
+               n_edge_real: int) -> SampledHalf:
+    """The part of the sample at global positions ``idx`` (K,) that lies in
+    this rank's edge slice ``[lo, lo + E_loc)`` of a half (``half`` the
+    slice, ``parallel.edge_parallel.local_half``): positions mapped to
+    ``p - lo``, the others to 0 with norm 0; norms scaled by the global
+    ``n_edge_real / K``."""
+    e_loc = half.src.shape[0]
+    pos = idx.long() - lo
+    own = (pos >= 0) & (pos < e_loc)
+    loc = torch.where(own, pos, torch.zeros_like(pos))
+    s = take_half(half, loc, n_edge_real)
+    return s._replace(norm=s.norm * own.to(s.norm.dtype))
+
+
+def draw_positions(generator: torch.Generator, num_samples: int,
+                   n_edge_real: int, device) -> torch.Tensor:
+    """``num_samples`` uniform draws with replacement among a half's real
+    edge positions ``[0, n_edge_real)``, on ``device``."""
+    return torch.randint(0, n_edge_real, (num_samples,), generator=generator,
+                         device=device)
+
+
 def sample_half(generator: torch.Generator, half: GraphHalf, num_samples: int,
                 n_edge_real: int) -> SampledHalf:
     """``num_samples`` uniform draws with replacement from the half's real
     edges, on the half's device (``sampler.py:sample_half``)."""
-    idx = torch.randint(0, n_edge_real, (num_samples,), generator=generator,
-                        device=half.src.device)
-    return take_half(half, idx, n_edge_real)
+    return take_half(half, draw_positions(generator, num_samples,
+                                          n_edge_real, half.src.device),
+                     n_edge_real)
 
 
 def aggregate_sampled_half(x: torch.Tensor, rel_all: torch.Tensor,

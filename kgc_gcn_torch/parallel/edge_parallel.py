@@ -25,6 +25,11 @@ The edge-partitioned aggregate over the graph group is:
     result feeds replicated work, so the backward passes the cotangent
     through).
 
+The sampled aggregate (``make_sampled_aggregate``) and the bench's
+reference schedule (``make_reference_aggregate``) run the same way
+on each rank's slice, summed with ``index_add_``, as the JAX package's GSPMD
+runs them; neither package has a kernel there.
+
 The entity-sharded schedules (``edge_parallel.py:249-484`` there) take the
 entity rows split over the graph group instead: rank ``i`` holds rows
 ``[i·n_pad/G, (i+1)·n_pad/G)`` of the padded ``n_pad = ceil(N/G)·G`` rows,
@@ -50,7 +55,9 @@ import numpy as np
 import torch
 
 from kgc_gcn_torch.data.graph import GraphHalf
-from kgc_gcn_torch.ops.scatter import aggregate_half
+from kgc_gcn_torch.ops.sampler import aggregate_sampled_half
+from kgc_gcn_torch.ops.scatter import (
+    aggregate_half, aggregate_half_reference_schedule)
 from kgc_gcn_torch.ops.segment_sum import segment_sum
 from kgc_gcn_torch.parallel.distributed import (
     all_gather_rows, copy_to_group, group_rank, group_size, ppermute,
@@ -182,6 +189,49 @@ def make_sharded_aggregate(group, n_rows: int,
 
     return agg
 
+
+def make_sampled_aggregate(group, n_ent: int):
+    """The sampled aggregate (``aggregate_sampled_half``, on the edge
+    slices as the JAX package's GSPMD runs it, ``mgcn.py:259-271``):
+    returns ``agg(x, rel_all, etab (2, E_loc, d), samples) -> [(N, d) per
+    half]``, where ``samples`` are the halves' ``ops/sampler.py:
+    take_slice`` of the global positions (the rank's own, the others at
+    norm 0).  Each rank composes its slice's messages and sums them with
+    ``index_add_``; both halves cross the graph group in one SUM (a
+    ``group`` of None: one device, the whole table).  The per-edge table's
+    gradient lands on the owner's slice only."""
+
+    def agg(x: torch.Tensor, rel_all: torch.Tensor, etab: torch.Tensor,
+            samples: Sequence) -> List[torch.Tensor]:
+        x, rel_all = copy_to_group(group, x, rel_all)
+        parts = [aggregate_sampled_half(x, rel_all, etab[i], s, n_ent)
+                 for i, s in enumerate(samples)]
+        return list(reduce_from_group(torch.cat(parts), group).split(n_ent))
+
+    return agg
+
+
+def make_reference_aggregate(group, n_ent: int):
+    """``ops/scatter.py:aggregate_half_reference_schedule`` of both halves
+    (the bench's schedule, on the edge slices as the JAX package's GSPMD
+    runs it, ``mgcn.py:305-310``): returns ``agg(x, rel_all, etab (2,
+    E_loc, d_in), halves, weights) -> [(N, d_out) per half]``.  Each rank
+    projects its slice's messages through the half's direction weight and
+    sums them into ``(N, d_out)`` with ``index_add_``; both halves cross
+    the graph group in one SUM (a ``group`` of None: one device).  The
+    weights enter per-shard work, so their gradients are summed over the
+    group as x's are."""
+
+    def agg(x: torch.Tensor, rel_all: torch.Tensor, etab: torch.Tensor,
+            halves: Sequence[GraphHalf],
+            weights: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        x, rel_all, *weights = copy_to_group(group, x, rel_all, *weights)
+        parts = [aggregate_half_reference_schedule(x, rel_all, etab[i], half,
+                                                   w, n_ent)
+                 for i, (half, w) in enumerate(zip(halves, weights))]
+        return list(reduce_from_group(torch.cat(parts), group).split(n_ent))
+
+    return agg
 
 
 # ------------------------------------------------------ entity-sharded schedules

@@ -116,12 +116,16 @@ def edge_slice(n: int, mesh: Mesh) -> slice:
     return slice(mesh.graph_rank * e_loc, (mesh.graph_rank + 1) * e_loc)
 
 
+def is_edge_table(name: str) -> bool:
+    """Whether the leaf of this (JAX or module) path is a per-edge table:
+    MGCN's ``(2, E_pad, d)`` positional tables, one per layer."""
+    return name == "edge_embeddings" or name.startswith(
+        "extra_edge_embeddings.")
+
+
 def edge_table_names(model) -> List[str]:
-    """The model's per-edge tables: MGCN's ``(2, E_pad, d)`` positional
-    tables, one per layer; the other families have none."""
-    return [n for n, _ in model.named_parameters()
-            if n == "edge_embeddings"
-            or n.startswith("extra_edge_embeddings.")]
+    """The model's per-edge tables; the other families have none."""
+    return [n for n, _ in model.named_parameters() if is_edge_table(n)]
 
 
 def shard_params(model, mesh: Mesh) -> None:

@@ -12,12 +12,13 @@
     by forward relation (``--per_relation``).
   * ``train_and_evaluate`` is the reference's epoch loop
     (reference main.py:138-174): eval every ``eval_every`` epochs, best
-    validation MRR saved to ``last.ckpt``, the patience quirk (an improvement
-    smaller than ``patience`` still counts as stale), early stop, and one
-    ``metrics.jsonl`` record per epoch.  With ``profile_dir`` it traces one
-    epoch (``utils/profiling.py``) and leaves that epoch out of the timing;
-    with ``cfg.ckpt_every`` it writes periodic checkpoints in the
-    background (``train/checkpoint.py:AsyncCheckpointer``).
+    validation MRR saved to ``last.ckpt`` (``last.orbax`` on ranks), the
+    patience quirk (an improvement smaller than ``patience`` still counts
+    as stale), early stop, and one ``metrics.jsonl`` record per epoch.
+    With ``profile_dir`` it traces one epoch (``utils/profiling.py``) and
+    leaves that epoch out of the timing; with ``cfg.ckpt_every`` it writes
+    periodic checkpoints in the background
+    (``train/checkpoint.py:AsyncCheckpointer``).
 
 Under a mesh (``parallel/mesh.py``; ``kgc_gcn_tpu/train/loop.py:189-267``)
 every rank draws the same epoch plan and takes its data rank's slice of each
@@ -31,7 +32,8 @@ is the same on every rank (its activations are replicated; under
 own), the decoder's sites and the negatives from a stream of the rank's
 data row.  Evaluation
 ranks each data rank's slice of every batch and sums the metric sums over
-the data group; rank 0 alone logs to file, records and writes.
+the data group; rank 0 alone logs to file and records, and every rank writes
+its part of each checkpoint (``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -352,7 +354,7 @@ def train_and_evaluate(trainer: Trainer, model_dir: Optional[str] = None,
     ``utils/profiling.py:TRACE_STEPS`` steps in ``profile_dir``) and is
     left out of the steps/s, as epoch 1 is (``loop.py:309-383``).  With
     ``cfg.ckpt_every > 0`` and a ``model_dir``, every ``ckpt_every``-th
-    epoch writes ``periodic.ckpt`` in the background, before validation,
+    epoch writes ``periodic.orbax`` in the background, before validation,
     with the best measure so far; the loop joins the last write when it
     ends, also on an exception."""
     cfg = trainer.cfg
@@ -420,7 +422,7 @@ def _epochs(trainer: Trainer, model_dir: Optional[str], saved_best: float,
                      epoch, cfg.max_epoch, loss, dt, rate)
 
         if periodic is not None and epoch % cfg.ckpt_every == 0:
-            # crash insurance on a fixed cadence, beside the best last.ckpt
+            # crash insurance on a fixed cadence, beside the best checkpoint
             periodic.save_checkpoint_async(model_dir, trainer.model,
                                            trainer.opt_state, cfg,
                                            best_measure)

@@ -1,5 +1,6 @@
 """The port stands alone: nothing in kgc_gcn_torch/ or chip_smoke.py imports
-JAX, jaxlib or kgc_gcn_tpu, and importing the port's CLI loads no JAX."""
+JAX, jaxlib, kgc_gcn_tpu, orbax or tensorstore (the card has neither), and
+importing the port's CLI loads none of them."""
 
 import ast
 import os
@@ -10,7 +11,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "kgc_gcn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "kgc_gcn_tpu", "orbax", "tensorstore")
 
 
 def _port_files():
@@ -48,9 +49,10 @@ def test_importing_the_port_loads_no_jax():
             "kgc_gcn_torch.ops.sorted_ops, kgc_gcn_torch.models.rgat, "
             "kgc_gcn_torch.ops.elementwise, kgc_gcn_torch.ops.fused_compose, "
             "kgc_gcn_torch.parallel.entity_sharding, "
-            "kgc_gcn_torch.parallel.boundary\n"
+            "kgc_gcn_torch.parallel.boundary, "
+            "kgc_gcn_torch.train.orbax_layout\n"
             "bad = sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'jaxlib', 'kgc_gcn_tpu'))\n"
+            f"if m.split('.')[0] in {FORBIDDEN!r})\n"
             "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=str(ROOT), timeout=120,

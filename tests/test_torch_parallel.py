@@ -1,10 +1,11 @@
 """The port's multi-GPU path on the CPU (kgc_gcn_torch/parallel/*, the
 sharded encoders of models/{mgcn,rgcn,rgat}.py, the data-parallel loss,
-BatchNorm, clip and evaluation of train/, the gathered checkpoint, the CLI
-under a launcher): gloo ranks in subprocesses (tests/torch_parallel_worker.py,
-which imports no JAX), each world launched once per module, against the
-single-process step on the same weights and batch and, for MGCN and the
-sharded aggregate, against the JAX package.
+BatchNorm, clip and evaluation of train/, the checkpoint the ranks write,
+the CLI under a launcher): gloo ranks in subprocesses
+(tests/torch_parallel_worker.py, which imports no JAX), each world
+launched once per module, against the single-process step on the same
+weights and batch and, for MGCN and the sharded aggregate, against the
+JAX package.
 
 Weights come from the JAX models of tests/test_torch_common.py (seeded);
 dropout is off.  Every rank has OMP_NUM_THREADS=1, a free port and a
@@ -414,9 +415,10 @@ def test_data_2_by_graph_2_step_matches_single_process(world_d2g2, reference):
 
 def test_checkpoint_under_graph_axis_loads_single_process(world_g2, weights,
                                                           reference):
-    """Rank 0 writes the single-device npz layout: every leaf of the file
-    (the per-edge table and its moments gathered) equals the
-    single-process step's."""
+    """The two ranks write ``last.orbax``, each its part: every leaf of
+    it, read whole in one process (the per-edge table and its moments
+    assembled from both ranks' chunks), equals the single-process
+    step's."""
     case, _ = _results(world_g2, "mgcn")
     cfg = port_cfg(weights["mgcn"][0])
     sd, measure, opt = load_checkpoint(case["ckpt"], cfg, with_opt_state=True)

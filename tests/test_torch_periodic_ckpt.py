@@ -3,9 +3,10 @@
 against the JAX package's semantics (``checkpoint.py:138-206``,
 ``loop.py:384-390,418-419``).
 
-The port writes ``periodic.ckpt`` in ``last.ckpt``'s npz layout: the JAX
-package's ``load_checkpoint`` reads it with a JAX template and the port's
-reads it by path.  The save is a snapshot: a parameter changed in place
+The port writes ``periodic.orbax`` in orbax's directory layout, as the JAX
+package does (``train/orbax_layout.py``): the JAX package's
+``load_checkpoint`` reads it with a JAX template and the port's reads it by
+path.  The save is a snapshot: a parameter changed in place
 right after it returns does not reach the file.  At most one write is in
 flight, and the promotion leaves a loadable file at every instant; the loop
 joins the last write at its end, also when it leaves on an exception.
@@ -89,8 +90,8 @@ def test_an_update_in_place_after_the_save_does_not_reach_the_file(
     want = {k: v.clone() for k, v in model.state_dict().items()}
     want_mu = [m.clone() for m in trainer.opt_state.mu]
     gate = threading.Event()
-    write = pckpt._write_npz
-    monkeypatch.setattr(pckpt, "_write_npz",
+    write = pckpt._write_files
+    monkeypatch.setattr(pckpt, "_write_files",
                         lambda *a: (gate.wait(10), write(*a)))
     writer = AsyncCheckpointer()
     path = writer.save_checkpoint_async(str(tmp_path), model,
@@ -121,8 +122,8 @@ def test_promotion_leaves_a_loadable_file_at_every_instant(
     first = load_checkpoint(path, cfg)[0]
 
     gate = threading.Event()
-    write = pckpt._write_npz
-    monkeypatch.setattr(pckpt, "_write_npz",
+    write = pckpt._write_files
+    monkeypatch.setattr(pckpt, "_write_files",
                         lambda *a: (gate.wait(10), write(*a)))
     with torch.no_grad():
         model.entity_embedding.add_(1.0)
@@ -134,7 +135,7 @@ def test_promotion_leaves_a_loadable_file_at_every_instant(
                                first["entity_embedding"], rtol=0, atol=0)
     gate.set()
 
-    # a crash after the first rename: the old file waits at .old
+    # a crash after the first rename: the old directory waits at .old
     replace, calls = os.replace, []
 
     def crash_on_second(src, dst):
@@ -154,7 +155,7 @@ def test_promotion_leaves_a_loadable_file_at_every_instant(
     def fail(*a):
         raise OSError("disk full")
 
-    monkeypatch.setattr(pckpt, "_write_npz", fail)
+    monkeypatch.setattr(pckpt, "_write_files", fail)
     os.replace(path + ".old", path)
     writer.save_checkpoint_async(str(tmp_path), model, trainer.opt_state,
                                  cfg, 0.75)
@@ -177,7 +178,8 @@ def test_cli_writes_periodic_checkpoints_as_jax_does(tmp_path, ckpt_every):
                      "--max_epoch", "3", "--batch_size", "64",
                      "--ckpt_every", str(ckpt_every)] + FLAGS) == 0
     run = exp / "Toy"
-    assert sorted(p for p in os.listdir(run) if "ckpt" in p) == [
+    assert sorted(p for p in os.listdir(run)
+                  if "ckpt" in p or "orbax" in p) == [
         "last.ckpt", PERIODIC_NAME]
     with open(run / "metrics.jsonl") as f:
         recs = [json.loads(line) for line in f][1:]
@@ -214,8 +216,8 @@ def test_the_loop_joins_its_write_when_it_leaves_on_an_exception(
     cfg, model, trainer = _trained(toy_cfg, steps=0)
     trainer.cfg = cfg = cfg.replace(ckpt_every=1, max_epoch=3, eval_every=5)
     gate = threading.Event()
-    write = pckpt._write_npz
-    monkeypatch.setattr(pckpt, "_write_npz",
+    write = pckpt._write_files
+    monkeypatch.setattr(pckpt, "_write_files",
                         lambda *a: (gate.wait(0.5), write(*a)))
     epoch_of = trainer.train_epoch
 
@@ -227,7 +229,8 @@ def test_the_loop_joins_its_write_when_it_leaves_on_an_exception(
     trainer.train_epoch = train_epoch
     with pytest.raises(RuntimeError, match="epoch 2 failed"):
         ploop.train_and_evaluate(trainer, str(tmp_path), seed=3)
-    assert sorted(p for p in os.listdir(tmp_path) if "ckpt" in p) == [
+    assert sorted(p for p in os.listdir(tmp_path)
+                  if "ckpt" in p or "orbax" in p) == [
         PERIODIC_NAME]
     sd, measure = load_checkpoint(str(tmp_path / PERIODIC_NAME), cfg)
     assert measure == 0.0

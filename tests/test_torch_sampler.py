@@ -7,8 +7,8 @@ encode, and the reference schedule alone and inside the encoder.
 
 The two packages draw from different generators (jax.random against
 torch.Generator), so the tests hand both the same numpy-drawn positions:
-JAX's ``jax.random.randint`` is replaced by them, and the port's
-``sample_half`` by ``take_half`` on them.  Dropout is off.  Tolerances:
+JAX's ``jax.random.randint`` is replaced by them, and so is the port's
+``draw_positions``.  Dropout is off.  Tolerances:
 aggregates and encodes 1e-5 (float32 sums in another order), gradients
 ``GRAD_RTOL`` with the absolute part relative to each tensor's largest and
 its floor, loss rtol 1e-5 (tests/test_torch_train.py); the sampled step's
@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import kgc_gcn_torch.models.mgcn as pmgcn
+import kgc_gcn_torch.ops.sampler as psampler
 from kgc_gcn_tpu.ops import sampler as jsampler
 from kgc_gcn_tpu.ops.scatter import (
     aggregate_half_reference_schedule as jax_reference_schedule)
@@ -131,8 +132,8 @@ def test_sampled_training_step_matches_jax(toy, toy_cfg, monkeypatch):
     monkeypatch.setattr(jax.random, "randint", lambda key, shape, lo, hi:
                         jnp.asarray(next(jit), jnp.int32))
     pit = iter(draws)
-    monkeypatch.setattr(pmgcn, "sample_half", lambda gen, half, k, n:
-                        take_half(half, torch.from_numpy(next(pit)), n))
+    monkeypatch.setattr(psampler, "draw_positions", lambda gen, k, n, device:
+                        torch.from_numpy(next(pit)))
     bank = jbanks["train"]
     idx = np.array([5, 2, 7, 0])
     mask = np.array([1, 1, 1, 0], np.float32)

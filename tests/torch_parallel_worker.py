@@ -1,5 +1,5 @@
 """One rank of the port's multi-process tests (tests/test_torch_parallel.py,
-tests/test_torch_entity_sharding.py).
+tests/test_torch_entity_sharding.py, tests/test_torch_graph_axis_rest.py).
 
     WORLD_SIZE=2 RANK=r MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
         python tests/torch_parallel_worker.py spec.json out_dir
@@ -14,10 +14,13 @@ starts in the time of a torch import.
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import os
 import sys
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -30,18 +33,22 @@ from kgc_gcn_torch.data.dataset import build_dataset  # noqa: E402
 from kgc_gcn_torch.data.graph import build_graph  # noqa: E402
 from kgc_gcn_torch.data.toy import toy_triples  # noqa: E402
 from kgc_gcn_torch.models import build_model  # noqa: E402
-from kgc_gcn_torch.convert import model_leaf_names  # noqa: E402
-from kgc_gcn_torch.ops.scatter import aggregate_half  # noqa: E402
+from kgc_gcn_torch.convert import (  # noqa: E402
+    jax_leaf_names, model_leaf_names)
+from kgc_gcn_torch.ops import sampler  # noqa: E402
+from kgc_gcn_torch.ops.scatter import (  # noqa: E402
+    aggregate_half, aggregate_half_reference_schedule)
 from kgc_gcn_torch.parallel import distributed  # noqa: E402
 from kgc_gcn_torch.parallel.edge_parallel import (  # noqa: E402
-    make_pallas_sharded_aggregate, make_sharded_aggregate)
+    make_pallas_sharded_aggregate, make_reference_aggregate,
+    make_sampled_aggregate, make_sharded_aggregate)
 from kgc_gcn_torch.parallel.entity_sharding import (  # noqa: E402
     EntityShardedAggregator)
 from kgc_gcn_torch.models.rgcn import basis_compose  # noqa: E402
 from kgc_gcn_torch.parallel.mesh import (  # noqa: E402
-    edge_table_names, make_mesh, shard_batches, shard_graph)
+    edge_table_names, is_edge_table, make_mesh, shard_batches, shard_graph)
 from kgc_gcn_torch.train import optim  # noqa: E402
-from kgc_gcn_torch.train.checkpoint import save_checkpoint  # noqa: E402
+from kgc_gcn_torch.train import checkpoint  # noqa: E402
 from kgc_gcn_torch.train.loop import Trainer  # noqa: E402
 from kgc_gcn_torch.train.negative import NegativeSamplingTrainer  # noqa: E402
 
@@ -152,6 +159,82 @@ def run_es_agg(case: dict, mesh, graph) -> dict:
     return out
 
 
+def run_rest_agg(case: dict, mesh, graph) -> dict:
+    """The sampled aggregate on the case's positions (one list per half)
+    and the reference schedule, both halves: the whole outputs and the
+    gradients of ``Σ out · cot`` in x, the relation table, the per-edge
+    table and (reference) the direction weights.  Without a mesh, the
+    single-process ``aggregate_sampled_half`` / reference schedule."""
+    rng = np.random.default_rng(case["seed"])
+    d, d_out, n = case["d"], case["d_out"], graph.n_ent
+    f32 = lambda *shape: torch.tensor(rng.normal(0, 1, shape),
+                                      dtype=torch.float32)
+    x, rel, etab = f32(n, d), f32(2 * graph.n_rel + 1, d), f32(2, graph.e_pad,
+                                                             d)
+    ws, cot, cot_ref = [f32(d, d_out) for _ in range(2)], f32(2, n, d), f32(
+        2, n, d_out)
+    pos = [torch.tensor(p) for p in case["positions"]]
+    local = shard_graph(graph, mesh) if mesh is not None else graph
+    halves = (local.inb, local.outb)
+    e_loc = halves[0].src.shape[0]
+    lo = 0 if mesh is None else mesh.graph_rank * e_loc
+    group = None if mesh is None else mesh.graph_group
+    out = {}
+    for tag in ("sampled", "reference"):
+        ts = [t.clone().requires_grad_() for t in (x, rel, etab, *ws)]
+        xs, rs, et, w_in, w_out = ts
+        et_local = et[:, lo:lo + e_loc]
+        if tag == "sampled":
+            samples = [sampler.take_slice(h, p, lo, graph.n_edge)
+                       if mesh is not None else
+                       sampler.take_half(h, p, graph.n_edge)
+                       for h, p in zip(halves, pos)]
+            res = (make_sampled_aggregate(group, n)(
+                xs, rs, et_local, samples) if mesh is not None else
+                [sampler.aggregate_sampled_half(xs, rs, et[i], smp, n)
+                 for i, smp in enumerate(samples)])
+            c = cot
+        else:
+            res = (make_reference_aggregate(group, n)(
+                xs, rs, et_local, halves, (w_in, w_out))
+                if mesh is not None else
+                [aggregate_half_reference_schedule(xs, rs, et[i], h, w, n)
+                 for i, (h, w) in enumerate(zip(halves, (w_in, w_out)))])
+            c = cot_ref
+        loss = sum((r * k).sum() for r, k in zip(res, c))
+        grads = torch.autograd.grad(loss, ts, allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for g, t in zip(grads, ts)]
+        ge = grads[2]
+        if mesh is not None:
+            # the rank's slice only: another rank's rows stay 0 here
+            out[f"{tag}.foreign"] = np.asarray(float(torch.cat(
+                [ge[:, :lo], ge[:, lo + e_loc:]], 1).abs().sum()))
+            ge = distributed.all_gather_cat(ge[:, lo:lo + e_loc], group, 1)
+        for k, v in (("in", res[0]), ("out", res[1]), ("dx", grads[0]),
+                     ("drel", grads[1]), ("detab", ge), ("dw_in", grads[3]),
+                     ("dw_out", grads[4])):
+            out[f"{tag}.{k}"] = v.detach().numpy().copy()
+    return out
+
+
+def run_restore(case: dict, mesh) -> dict:
+    """``load_checkpoint`` of the case's checkpoint on this mesh, every
+    leaf and moment made whole again (the per-edge slices gathered)."""
+    cfg = Config(**case["cfg"])
+    sd, measure, opt = checkpoint.load_checkpoint(
+        case["path"], cfg, with_opt_state=True, mesh=mesh)
+    whole = lambda t, name: (distributed.all_gather_cat(
+        t.float(), mesh.graph_group, 1) if mesh is not None
+        and is_edge_table(name) else t.float()).numpy().copy()
+    out = {"measure": np.asarray(measure), "count": np.asarray(opt.count)}
+    out.update({f"sd.{k}": whole(v, k) for k, v in sd.items()})
+    for tag, moments in (("mu", opt.mu), ("nu", opt.nu)):
+        for name, t in zip(jax_leaf_names(cfg)[0], moments):
+            out[f"{tag}.{name}"] = whole(t, name)
+    return out
+
+
 def run_coll(mesh) -> dict:
     """Each entity-sharded collective of ``parallel/distributed.py`` on
     rank-tagged rows: its forward and the gradient its backward rule gives
@@ -233,11 +316,44 @@ def _step_batch(trainer, idx, mask, neg):
     return trainer.pos_triples[idx], mask, neg
 
 
+@contextlib.contextmanager
+def given_positions(case: dict):
+    """With ``positions`` in the case, every draw of the edge sampler
+    returns them in turn (in-half, out-half, again), so that the ranks and
+    the single process sample the same edges."""
+    if "positions" not in case:
+        yield
+        return
+    turns = itertools.cycle([torch.tensor(p) for p in case["positions"]])
+    with mock.patch.object(sampler, "draw_positions",
+                           lambda *a, **k: next(turns)):
+        yield
+
+
+def write_checkpoint(path: str, model, trainer, cfg) -> list:
+    """``save_checkpoint`` of the model; the files this rank wrote."""
+    written, write = [], checkpoint._write_files
+
+    def record(*a):
+        written.extend(write(*a))
+        return written
+
+    with mock.patch.object(checkpoint, "_write_files", record):
+        checkpoint.save_checkpoint(path, model, trainer.opt_state, cfg, 0.25)
+    return written
+
+
 def run_step(case: dict, mesh, ds, graph, banks) -> dict:
     """One step from the case's weights: the loss (summed over the data
     group), every gradient, the BN statistics after the forward, and, from
     a second copy of the weights, every leaf after one ``train_step``; with
-    ``ckpt``, that model's checkpoint is written."""
+    ``ckpt``, that model's checkpoint is written (``written``: the files
+    this rank wrote).  With ``positions``, the edge sampler's draws."""
+    with given_positions(case):
+        return _run_step(case, mesh, ds, graph, banks)
+
+
+def _run_step(case: dict, mesh, ds, graph, banks) -> dict:
     out = {}
     idx, mask, neg, scale = _batch(case, mesh)
     cfg, model = _model(case, ds, graph, mesh)
@@ -265,7 +381,8 @@ def run_step(case: dict, mesh, ds, graph, banks) -> dict:
     for name, p in zip(names, trainer.params):
         out[f"param.{name}"] = _whole(p, name, model, mesh)
     if case.get("ckpt"):
-        save_checkpoint(case["ckpt"], model, trainer.opt_state, cfg, 0.25)
+        written = write_checkpoint(case["ckpt"], model, trainer, cfg)
+        out["written"] = np.asarray(sorted(written))
     return out
 
 
@@ -276,6 +393,10 @@ def run_case(case: dict, mesh, ds, graph, banks) -> dict:
         return run_es_agg(case, mesh, graph)
     if case["kind"] == "coll":
         return run_coll(mesh)
+    if case["kind"] == "rest_agg":
+        return run_rest_agg(case, mesh, graph)
+    if case["kind"] == "restore":
+        return run_restore(case, mesh)
     return run_step(case, mesh, ds, graph, banks)
 
 
