@@ -2,7 +2,7 @@
 """Smoke run of kgc_gcn_torch, the PyTorch/CUDA port, on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--kernels-only | --mesh-only |
-                           --entity-only | --rest-only]
+                           --entity-only | --rest-only | --remat-only]
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: require a CUDA card, print its name and power limit;
@@ -160,7 +160,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      periodic.orbax, each rank reporting its own chunks, then --do_test
      --do_predict of last.orbax on the two ranks (K1 4 on each: two
      encodes of its slices; rank 1 prints nothing) and in one process:
-     equal metrics, the same top-10 (scores within 1e-5).
+     equal metrics, the same top-10 (scores within 1e-5);
+ 17. --remat (the encoder recomputed in the backward) at the WN18RR
+     preset's widths on the corpus of phase 5, dropout on: on each path
+     (MGCN halves, fused loss, ew_impl=pallas, stacked, stacked_xla, 2
+     layers corr, K = E/8 sampled edges, KGC_MGCN_CONTRIB=bf16; R-GCN basis
+     and block, 1-vs-all; RGAT), after 2 warm steps, the plain step twice
+     and the remat step from one state (tools/remat_probe.py), with
+     PyTorch's default and with its deterministic algorithms: the loss,
+     gradients, parameters, BN statistics and generator state bit-equal
+     where the plain step repeats to the bit, else within the kernel step's
+     tolerances, and the remat step's launches the plain step's plus one
+     encoder forward's (each kernel of the path's recompute among them);
+     the peak memory and ms a step with and without --remat at WN18RR's
+     proportions times 1 and 4 (MGCN + ConvE, batch 128, float32, K1); one
+     CLI epoch with --remat (K1 6 a step).
 K1, K3, K7 and K8 checks use dyadic inputs, whose float32 sums are exact in
 any order, so kernel and plain version must agree to the bit; K5
 (segment-max, phase 3: the RGAT path's shape and edge cases), K4a and K4b
@@ -168,7 +182,7 @@ any order, so kernel and plain version must agree to the bit; K5
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Before them a line gives the card, its
 power limit and the wall seconds of the whole script and of phases 12,
-13, 14, 15 and 16.
+13, 14, 15, 16 and 17.
 Nothing of JAX is imported.
 
 --kernels-only runs phases 1-3 and the time rows of K1, K2a, K7 and K3 (each
@@ -178,6 +192,7 @@ launch counts are 0).  --mesh-only runs phases 1-2 and 14, then the last
 line.  --entity-only runs phases 1-2 and 15 (the entity-sharded
 schedules, ~125 s of card time with its own references), then the last
 line.  --rest-only runs phases 1-2 and 16, then the last line.
+--remat-only runs phases 1-2 and 17, then the last line.
 """
 
 from __future__ import annotations
@@ -2594,6 +2609,174 @@ def phase16(seed: int, work: str, corpus_root: str, ds, graph, banks,
     return out, paths
 
 
+# phase 17's paths: the WN18RR preset's widths on the corpus of phase 5,
+# dropout on, with the config's changes, the bf16 stream's knob (or None)
+# and the kernels that the recompute must launch (Launches.NAMES)
+REMAT_PATHS = {
+    "mgcn_halves": (dict(), None, ("K1",)),
+    "mgcn_fused": (dict(loss_impl="fused"), None, ("K1",)),
+    "mgcn_ew_pallas": (dict(ew_impl="pallas"), None, ("K1", "K4a")),
+    "mgcn_stacked": (dict(spmm_mode="stacked"), None, ("K3",)),
+    "mgcn_stacked_xla": (dict(spmm_mode="stacked_xla"), None, ("K1",)),
+    "mgcn_2layers_corr": (dict(num_layers=2, composition="corr",
+                               use_pallas=False), None, ("K1",)),
+    "mgcn_sampled": (dict(edge_sample_size=WN18RR[2] // 8), None, ()),
+    "mgcn_contrib_bf16": (dict(), ("scatter", "MGCN_CONTRIB"), ("K1",)),
+    "rgcn_basis": (dict(model="rgcn", decoder="distmult", num_bases=30),
+                   None, ("K7",)),
+    "rgcn_block": (dict(model="rgcn", decoder="distmult", num_bases=0,
+                        num_blocks=10), None, ("K1",)),
+    "rgat": (dict(model="rgat", decoder="distmult", num_heads=4), None,
+             ("K1", "K5")),
+}
+REMAT_SCALES = (1, 4)
+REMAT_STEPS = 10
+
+
+def remat_close(res: dict, cfg, before, what: str) -> None:
+    """The remat step within the kernel-vs-plain step's tolerances of the
+    plain step (``same_step``'s): the loss, every gradient, update and BN
+    statistic; a leaf that BatchNorm cancels (DEGENERATE) or RGAT's
+    ``att_dst`` holds its gradient to STEP_ATOL x the step's largest, its
+    update finite."""
+    from kgc_gcn_torch.convert import jax_leaf_names
+    t_p, t_r = res["plain"]["tensors"], res["remat"]["tensors"]
+    n = res["plain"]["n_grads"]
+    torch.testing.assert_close(t_r[0], t_p[0], rtol=STEP_LOSS_RTOL, atol=0.0,
+                               msg=f"{what} loss")
+    g_max = max(float(g.abs().max()) for g in t_p[1:1 + n])
+    for i, name in enumerate(jax_leaf_names(cfg)[0]):
+        g, w = t_r[1 + i], t_p[1 + i]
+        u, v = t_r[1 + n + i] - before[i], t_p[1 + n + i] - before[i]
+        if name in DEGENERATE or name.rsplit(".", 1)[-1] in RGAT_DEGENERATE:
+            torch.testing.assert_close(g, w, rtol=STEP_RTOL,
+                                       atol=STEP_ATOL * g_max,
+                                       msg=f"{what} grad {name}")
+            if not torch.isfinite(u).all():
+                raise AssertionError(f"{what}: non-finite update {name}")
+            continue
+        close_rel(g, w, STEP_RTOL, STEP_ATOL, f"{what} grad {name}")
+        close_rel(u, v, STEP_RTOL, STEP_ATOL, f"{what} update {name}")
+    for j, (x, y) in enumerate(zip(t_r[1 + 2 * n:], t_p[1 + 2 * n:])):
+        close_rel(x, y, STEP_RTOL, STEP_ATOL, f"{what} buffer {j}")
+
+
+def remat_path(name: str, ds, graph, banks, seed: int, launches: Launches,
+               gen) -> dict:
+    """One path of ``REMAT_PATHS``: a model from ``seed``, 2 warm steps,
+    then from that state the plain step twice and the remat step
+    (``tools/remat_probe.py:remat_against_plain``), once with PyTorch's
+    default algorithms and once with its deterministic ones: where the
+    plain step repeats to the bit the remat step must equal it to the bit,
+    elsewhere lie within ``remat_close``; the remat step launches the plain
+    step's kernels plus one encoder forward's, among them each kernel of
+    the path's recompute."""
+    from kgc_gcn_torch.config import dataset_preset
+    from kgc_gcn_torch.convert import model_params
+    from kgc_gcn_torch.models import build_model
+    from kgc_gcn_torch.ops import scatter
+    from kgc_gcn_torch.tools.remat_probe import remat_against_plain
+    from kgc_gcn_torch.train.loop import Trainer
+    extra, knob_at, recomputed = REMAT_PATHS[name]
+    cfg = dataset_preset("WN18RR", seed=seed, **extra)
+    stream = (knob(scatter, knob_at[1], "bf16") if knob_at
+              else contextlib.nullcontext())
+    out = {}
+    with stream:
+        model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
+                            e_pad=graph.e_pad, generator=torch.Generator()
+                            .manual_seed(seed)).to(graph.device)
+        if cfg.model == "rgat":        # the attention bias starts at zero
+            with torch.no_grad():
+                for layer in model.layers:
+                    layer.rel_bias.normal_(0.0, 0.5,
+                                           generator=torch.Generator(
+                                               graph.device).manual_seed(seed))
+        warm = Trainer(cfg, model, graph, banks)
+        warm.train_epoch(1, np.random.default_rng(seed), max_steps=2)
+        b = cfg.batch_size
+        idx = torch.randperm(warm.n_train, generator=gen)[:b]
+        batch = warm.batch(idx.to(graph.device),
+                           torch.ones(b, device=graph.device))
+        before = [p.detach().clone() for p in model_params(model, cfg)]
+        for mode in ("default", "deterministic"):
+            res = remat_against_plain(cfg, model, graph, banks, batch,
+                                      launches.wrappers, warm.opt_state,
+                                      deterministic=mode == "deterministic")
+            if not res["bit_equal"]:
+                remat_close(res, cfg, before, f"remat {name} ({mode})")
+            out[mode] = res
+    got = out["default"]["launches"]
+    want = tuple(p + f for p, f in zip(got["plain"], got["forward"]))
+    fwd = dict(zip(Launches.NAMES, got["forward"]))
+    if (got["remat"] != want or not all(fwd[k] for k in recomputed)
+            or out["deterministic"]["launches"] != got):
+        raise AssertionError(
+            f"remat {name}: launches {Launches.show(got['remat'])}; plain "
+            f"{Launches.show(got['plain'])}, encoder forward "
+            f"{Launches.show(got['forward'])}, recompute must launch "
+            f"{recomputed}")
+    rec = {}
+    for mode, res in out.items():
+        rec[mode] = {k: res[k] for k in ("repeatable", "bit_equal",
+                                         "max_abs_err", "plain_spread")}
+        kind = ("bit-equal" if res["bit_equal"] else
+                f"max abs err {res['max_abs_err']:.3g} (the plain step "
+                f"repeats within {res['plain_spread']:.3g})")
+        log(f"[remat] {name}, {mode} algorithms: remat step vs plain step "
+            f"from one warm state (loss, {res['plain']['n_grads']} "
+            f"gradients, parameters, BN statistics, generator state): "
+            f"{kind}; the plain step repeats to the bit: "
+            f"{res['repeatable']}")
+    log(f"[remat] {name}: launches plain {Launches.show(got['plain'])}; "
+        f"remat {Launches.show(got['remat'])}")
+    rec["launches"] = {k: dict(zip(Launches.NAMES, v)) for k, v in got.items()}
+    return rec
+
+
+def phase17(seed: int, work: str, corpus_root: str, ds, graph, banks,
+            launches: Launches, gen) -> tuple:
+    """17: ``--remat`` on every path of REMAT_PATHS (remat step against the
+    plain step), the memory and time ladder at REMAT_SCALES
+    (``tools/remat_probe.py``) and one CLI epoch with ``--remat``; returns
+    (summary, the launches of each path's remat step, the ladder's and the
+    CLI epoch's)."""
+    from kgc_gcn_torch.config import dataset_preset
+    from kgc_gcn_torch.tools.remat_probe import probe
+    t17 = time.perf_counter()
+    out, paths = {"paths": {}, "ladder": []}, {}
+    for name in REMAT_PATHS:
+        rec = remat_path(name, ds, graph, banks, seed, launches, gen)
+        out["paths"][name] = rec
+        paths[f"remat_step_{name}"] = tuple(rec["launches"]["remat"].values())
+        paths[f"plain_step_{name}"] = tuple(rec["launches"]["plain"].values())
+        torch.cuda.empty_cache()
+    launches.zero()
+    for scale in REMAT_SCALES:
+        rec = probe(scale, 1, REMAT_STEPS, graph.device)
+        out["ladder"].append(rec)
+        log("[remat] ladder " + json.dumps(rec))
+    paths["remat_ladder"] = launches.read()
+    # one epoch through the CLI with --remat: K1 6 a step (the recompute's
+    # 2), 2 in the validation encode
+    cfg0 = dataset_preset("WN18RR")
+    steps = -(-banks["train"].n_queries // cfg0.batch_size)
+    exp_dir = os.path.join(work, "experiments_remat")
+    argv = ["--dataset", "SYN", "--data_dir", corpus_root, "--experiments_dir",
+            exp_dir, "--do_train", "--remat", "--max_epoch", "1",
+            "--eval_every", "1", "--seed", str(seed)]
+    for flag in ("learning_rate", "gcn_drop", "feat_drop", "hidden_drop"):
+        argv += [f"--{flag}", str(getattr(cfg0, flag))]
+    paths["mgcn_remat_train"], ep = cli_epoch(
+        argv, os.path.join(exp_dir, "SYN"), launches,
+        (6 * steps + 2, 0, 0, 0, 0, 0, 0, 0, 0),
+        f"cli --do_train --remat --max_epoch 1 ({steps} steps)")
+    out["cli_epoch_s"] = ep["sec"]
+    out["seconds"] = time.perf_counter() - t17
+    log(f"[remat] phase 17 {out['seconds']:.1f} s")
+    return out, paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2608,6 +2791,8 @@ def main() -> int:
     ap.add_argument("--rest-only", action="store_true",
                     help="phases 1-2 and 16 only (sampling, the reference "
                     "schedule, checkpoints and serving on ranks)")
+    ap.add_argument("--remat-only", action="store_true",
+                    help="phases 1-2 and 17 only (--remat)")
     ap.add_argument("--rank", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rank:   # one rank of phases 14-16, started by this script
@@ -2691,6 +2876,14 @@ def main() -> int:
         phase = phase15 if args.entity_only else phase16
         phase(args.seed, work.name, corpus_root, ds, graph.to(device),
               make_banks(ds, device), launches)
+        work.cleanup()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if args.remat_only:
+        phase17(args.seed, work.name, corpus_root, ds, graph.to(device),
+                make_banks(ds, device), launches, gen)
         work.cleanup()
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3795,6 +3988,11 @@ def main() -> int:
     rest_summary, rest_paths = phase16(args.seed, work.name, corpus_root, ds,
                                        graph, banks, launches)
     paths.update(rest_paths)
+
+    # 17. --remat: the encoder recomputed in the backward ------------------------
+    remat_summary, remat_paths = phase17(args.seed, work.name, corpus_root, ds,
+                                         graph, banks, launches, gen)
+    paths.update(remat_paths)
     work.cleanup()
 
     paths.update({"mgcn_train": train_launches, "mgcn_serve": serve_launches,
@@ -3831,7 +4029,8 @@ def main() -> int:
         f"{time.perf_counter() - t_start:.1f} s, phase 12 {phase12_s:.1f} s, "
         f"phase 13 {phase13_s:.1f} s, phase 14 {mesh_summary['seconds']:.1f}"
         f" s, phase 15 {es_summary['seconds']:.1f} s, phase 16 "
-        f"{rest_summary['seconds']:.1f} s")
+        f"{rest_summary['seconds']:.1f} s, phase 17 "
+        f"{remat_summary['seconds']:.1f} s")
     log(json.dumps({"training": train, "serve_rgat": serve_rgat,
                     "serve_mgcn_stacked": serve_stacked, "few_sum": {
                         k: v for k, v in timings.items()

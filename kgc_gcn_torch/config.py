@@ -17,9 +17,17 @@ MGCN's ``bwd_perm`` ``operands`` and ``fwdw`` take the backward's products
 off K4b, as the JAX package takes them off its kernel; the port computes
 ``contrib``'s gradients for all three.
 
+``remat`` recomputes the 1-vs-all trainer's encoder in the backward instead
+of keeping its activations (``train/remat.py``), as ``jax.checkpoint`` does
+in the JAX package.
+
 Fields that only steer the JAX package's TPU schedules are accepted and have
-no effect here: ``prng_impl``, ``compile_cache_dir``, ``conv_impl``,
-``rel_compose``, ``remat`` and ``scan_epoch``.
+no effect here: ``prng_impl`` (the TPU's random-number hardware),
+``compile_cache_dir`` (XLA's compile cache; the port's kernels build once
+per source into ``build/kgc_gcn_torch/``), ``conv_impl`` (how XLA lowers
+the same ConvE convolution), ``rel_compose`` (a gather or an MXU one-hot
+read of the same relation rows) and ``scan_epoch``: the port's epoch is a
+Python loop over the steps either way, ``lax.scan``'s counterpart.
 """
 
 from __future__ import annotations
@@ -100,8 +108,9 @@ class Config:
     rel_compose: str = "gather"      # no effect on the port
     loss_impl: str = "auto"          # auto | dense | sparse | fused (training)
     prng_impl: str = "rbg"           # no effect on the port
-    remat: bool = False              # no effect on the port
-    scan_epoch: bool = True          # no effect on the port
+    remat: bool = False              # 1-vs-all: recompute the encoder in the
+                                     # backward (train/remat.py)
+    scan_epoch: bool = True          # no effect: the epoch is a Python loop
     eval_batch_size: int = 0         # 0: use batch_size
     data_axis: int = 1
     graph_axis: int = 1

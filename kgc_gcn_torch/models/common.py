@@ -11,12 +11,17 @@ dropout (the port's ``kgc_gcn_tpu/models/common.py``).
     batch (``group``), as the JAX package's GSPMD does.
   * dropout: inverted dropout ``where(keep, x / (1 - p), 0)``.
   * ``init_embeddings_from_npz``: warm-start tables (``--init_embeddings``).
+  * ``frozen_running_stats``: a BatchNorm in train mode that leaves its
+    running statistics alone (the encoder's recompute under ``--remat``,
+    ``train/remat.py``).
 
 Initializers and dropout masks draw from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Optional, Tuple
 
@@ -102,13 +107,31 @@ def batch_norm(
     return y * scale.reshape(shape) + bias.reshape(shape), new_mean, new_var
 
 
+# set within ``frozen_running_stats``, in the thread that runs the block
+_STATS_FROZEN = contextvars.ContextVar("stats_frozen", default=False)
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Within (in this thread): ``BatchNorm.forward(train=True)`` normalizes
+    with the batch statistics as always and leaves the running statistics
+    where they are.  The recompute of a checkpointed encoder runs in it, so
+    that one step moves them once."""
+    token = _STATS_FROZEN.set(True)
+    try:
+        yield
+    finally:
+        _STATS_FROZEN.reset(token)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm parameters ``scale``/``bias`` and running ``mean``/``var``
     under the JAX package's names (``BNParams``/``BNState``).
 
     ``forward(x)`` normalizes with the running statistics; ``forward(x,
     train=True)`` with the batch statistics, and then moves the running
-    statistics in place, outside autograd."""
+    statistics in place, outside autograd (but not within
+    ``frozen_running_stats``)."""
 
     def __init__(self, c: int, channel_axis: int = -1):
         super().__init__()
@@ -134,7 +157,7 @@ class BatchNorm(nn.Module):
             x, scale, bias, self.mean, self.var, train=train,
             channel_axis=self.channel_axis, group=group, row_mask=mask,
             n_rows=n)
-        if train:
+        if train and not _STATS_FROZEN.get():
             with torch.no_grad():
                 self.mean.copy_(new_mean)
                 self.var.copy_(new_var)

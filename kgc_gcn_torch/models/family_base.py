@@ -29,6 +29,10 @@ def check_entity_sharded_mesh(cfg, mesh) -> None:
 
 class DecoderFamilyMixin:
 
+    # the decoder's dropout sites; every other site of ``make_rngs`` is the
+    # encoder's (the trainer's ``--remat`` replays those)
+    DECODER_SITES = ("feat", "hidden")
+
     # prepare_entity_sharding's EntityShardedAggregator, and the family's
     # per-edge compose for it (None: MGCN's, with its kernel forms)
     entity_sharding: Optional[EntityShardedAggregator] = None
@@ -74,7 +78,7 @@ class DecoderFamilyMixin:
         trainer's one generator (a site missing here would silently not
         drop)."""
         names = tuple(f"layer{i}" for i in range(max(1, self.cfg.num_layers))
-                      ) + ("feat", "hidden")
+                      ) + self.DECODER_SITES
         return dict.fromkeys(names, generator)
 
     def prepare_entity_sharding(self, graph) -> None:

@@ -399,4 +399,4 @@ class MGCN(DecoderFamilyMixin, nn.Module):
         names = ["sample_in", "sample_out", "conv_in", "conv_out"]
         for i in range(len(self.extra_convs)):
             names += [f"layer{i}", f"conv_in{i}", f"conv_out{i}"]
-        return dict.fromkeys(names + ["gcn", "feat", "hidden"], generator)
+        return dict.fromkeys(names + ["gcn", *self.DECODER_SITES], generator)

@@ -6,6 +6,10 @@
     over the epoch's shuffled batch plan (a Python loop where the JAX package
     runs ``lax.scan``); the padded rows of the last batch are query 0 with
     mask 0 and, as in the JAX package, enter the decoder's BN statistics.
+    With ``cfg.remat`` the encoder is recomputed in the backward instead of
+    keeping its activations (``train/remat.py``); ``scan_epoch`` is
+    accepted and the loop is the same either way (it is ``scan``'s
+    counterpart).
   * Evaluation encodes the graph ONCE per pass and scores the query batches
     against the cached entity table; ranks are comparison counts
     (``ops/ranking.py``).  ``evaluate_per_relation`` splits the same ranks
@@ -61,7 +65,7 @@ from kgc_gcn_torch.ops.ranking import (
 from kgc_gcn_torch.parallel.distributed import flat_all_reduce
 from kgc_gcn_torch.parallel.mesh import (
     Mesh, edge_table_names, shard_batches, shard_graph, shard_params)
-from kgc_gcn_torch.train import optim
+from kgc_gcn_torch.train import optim, remat
 from kgc_gcn_torch.train.checkpoint import AsyncCheckpointer, save_checkpoint
 from kgc_gcn_torch.utils.profiling import StepTimer, trace
 
@@ -121,7 +125,7 @@ class Trainer:
         """The model's dropout sites of one step, the decoder's (``feat``,
         ``hidden``) on the data row's stream."""
         rngs = self.model.make_rngs(self.generator)
-        for site in ("feat", "hidden"):
+        for site in self.model.DECODER_SITES:
             rngs[site] = self.batch_generator
         return rngs
 
@@ -165,8 +169,7 @@ class Trainer:
         statistics; the BN running statistics move)."""
         cfg, model = self.cfg, self.model
         rngs = self.rngs()
-        all_ent, all_rel = model.encode(self.graph, train=True, rngs=rngs,
-                                        kernels=self.kernels)
+        all_ent, all_rel = self.encode_train(rngs)
         if self.loss_impl in ("sparse", "fused"):
             h, ent_bias = model.query_and_bias(all_ent, all_rel, q[:, 0],
                                                q[:, 1], train=True, rngs=rngs)
@@ -182,6 +185,17 @@ class Trainer:
         logits = model.decode(all_ent, all_rel, q[:, 0], q[:, 1], train=True,
                               rngs=rngs)
         return bce_with_logits(logits, lbl, mask)
+
+    def encode_train(self, rngs: Dict[str, torch.Generator]) -> tuple:
+        """The encoder in train mode; with ``cfg.remat`` checkpointed, its
+        sites' generators replayed in the recompute (``train/remat.py``)."""
+        encode = lambda: self.model.encode(self.graph, train=True, rngs=rngs,
+                                           kernels=self.kernels)
+        if not self.cfg.remat:
+            return encode()
+        return remat.checkpointed(
+            encode, [g for site, g in rngs.items()
+                     if site not in self.model.DECODER_SITES])
 
     def gradients(self, *batch: torch.Tensor, scale: float = 1.0):
         """(``scale * loss(*batch)``, its gradients in parameter order).

@@ -4,7 +4,7 @@ RGAT attention wrappers' gradients through K1, and one training step through
 the kernels against the same step in plain PyTorch (MGCN 1-vs-all, also
 under each aggregation schedule, at 2 layers with corr and with ComplEx on
 the fused loss; R-GCN on sampled negatives, also with RotatE; RGAT
-1-vs-all).
+1-vs-all), and a ``--remat`` step against the plain step (MGCN, RGAT).
 
 This file imports neither JAX nor kgc_gcn_tpu, so that it runs on a machine
 with a card and no JAX (tests/conftest.py imports JAX, hence --noconftest):
@@ -881,6 +881,61 @@ def test_rgat_kernel_step_matches_plain_step(cuda):
         agree = torch.isclose(uk, up, rtol=1e-3, atol=1e-7)
         assert float(agree.float().mean()) > 0.999, disagreement(
             names[i], agree, gk, gp, uk, up, out["plain"][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deterministic", [False, True])
+@pytest.mark.parametrize("family", ["mgcn", "rgat"])
+def test_remat_step_equals_plain_step(cuda, family, deterministic):
+    """``--remat`` on the card, dropout on: from one state, the plain step
+    twice and the remat step (``tools/remat_probe.py:
+    remat_against_plain``), with PyTorch's default or deterministic
+    algorithms.  With the deterministic ones the plain step repeats and
+    the remat step's loss, gradients, parameters, BN statistics and
+    generator state equal it to the bit; with the default ones (atomic
+    sums in PyTorch's index and convolution gradients) they lie within the
+    kernel-vs-plain step's tolerances.  The remat step launches the plain
+    step's kernels plus one encoder forward's (K1, and K5 for RGAT)."""
+    from kgc_gcn_torch.config import dataset_preset
+    from kgc_gcn_torch.data.batching import make_banks
+    from kgc_gcn_torch.data.dataset import build_dataset
+    from kgc_gcn_torch.data.graph import build_graph
+    from kgc_gcn_torch.data.toy import toy_triples
+    from kgc_gcn_torch.models import build_model
+    from kgc_gcn_torch.tools.remat_probe import remat_against_plain
+
+    ds = build_dataset("toy", *toy_triples(n_ent=40, n_rel=5, n_train=300))
+    graph = build_graph(ds.train_triples, ds.num_entity,
+                        ds.num_relation).to(cuda)
+    banks = make_banks(ds, cuda)
+    cfg = dataset_preset("Toy", gcn_in_dim=16, gcn_out_dim=32, k_w=4, k_h=8,
+                         num_filter=4, kernel_size=3, batch_size=16,
+                         gcn_drop=0.2, conv_drop=0.2, feat_drop=0.2,
+                         hidden_drop=0.3, seed=5)
+    if family == "rgat":
+        cfg = cfg.replace(model="rgat", decoder="distmult", num_heads=4,
+                          num_layers=2)
+    model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
+                        e_pad=graph.e_pad).to(cuda)
+    bank = banks["train"]
+    idx = torch.arange(16, device=cuda)
+    batch = (bank.queries[idx], bank.label_idx[idx],
+             torch.ones(16, device=cuda))
+    res = remat_against_plain(cfg, model, graph, banks, batch,
+                              (segment_sum, segment_max),
+                              deterministic=deterministic)
+    assert res["bit_equal"] or not deterministic
+    got = res["launches"]
+    assert got["remat"] == tuple(p + f for p, f in zip(got["plain"],
+                                                       got["forward"]))
+    assert got["forward"][0] > 0
+    assert (got["forward"][1] > 0) == (family == "rgat")
+    if not res["bit_equal"]:
+        plain, rem = res["plain"]["tensors"], res["remat"]["tensors"]
+        torch.testing.assert_close(rem[0], plain[0], rtol=1e-5, atol=0.0)
+        for a, w in zip(rem[1:], plain[1:]):
+            torch.testing.assert_close(a, w, rtol=1e-3,
+                                       atol=1e-4 * float(w.abs().max()))
 
 
 # K4a / K4b: elementwise products in the plain version's order, each rounded

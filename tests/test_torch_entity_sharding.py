@@ -43,7 +43,7 @@ from test_torch_common import (
     jax_and_port_models, jax_leaves, port_cfg, rgat_cfg, rgcn_cfg)
 from test_torch_parallel import (
     GRAD_ATOL, GRAD_RTOL, IDX, LR, MASK, WORKER, _check_step, _finish,
-    _grad_close, _no_dropout, _start)
+    _grad_close, _no_dropout, _start, check_remat_pair, remat_pair)
 from torch_parallel_worker import problem, run_case
 
 N_ENT = 13
@@ -121,7 +121,9 @@ def worlds(weights, tmp_path_factory):
     for g in (2, 4):
         tmp = tmp_path_factory.mktemp(f"es_g{g}")
         cases = ([{"name": "coll", "kind": "coll"}] + _aggs()
-                 + [_step(weights, f, s, g, k) for f, s, k in STEPS[g]])
+                 + [_step(weights, f, s, g, k) for f, s, k in STEPS[g]]
+                 + (remat_pair(_step(weights, "mgcn", "boundary", g, True))
+                    if g == 2 else []))
         spec = tmp / "spec.json"
         spec.write_text(json.dumps({"mesh": [1, g], "n_ent": N_ENT,
                                     "cases": cases}))
@@ -357,6 +359,18 @@ def test_entity_sharded_step_matches_single_process(worlds, reference, g,
         f"{family}_{schedule}{'_k1' if pallas else ''}"]
     for got in ranks:
         _check_step(got, reference(case))
+
+
+def test_entity_sharded_remat_step_equals_plain_step(worlds):
+    """``--remat`` on the ``boundary`` schedule at G 2 with K1 (the
+    recompute's boundary exchanges, BatchNorm moments over the group and
+    the gather of the rows run again in the backward), dropout on: every
+    rank's remat step equals its plain step to the bit."""
+    _, plain = worlds[2]["mgcn_boundary_k1_drop"]
+    _, remat = worlds[2]["mgcn_boundary_k1_drop_remat"]
+    check_remat_pair(plain, remat)
+    _, no_drop = worlds[2]["mgcn_boundary_k1"]
+    assert not np.array_equal(plain[0]["loss"], no_drop[0]["loss"])
 
 
 @pytest.mark.parametrize("family,schedule", [

@@ -151,6 +151,27 @@ def _step_case(weights, name, family, idx=IDX, mask=MASK, cfg=None, **kw):
 
 
 AGG = {"name": "agg", "kind": "agg", "seed": 7, "d": 5}
+DROP = dict(gcn_drop=0.3, conv_drop=0.2, hidden_drop=0.3, feat_drop=0.2)
+
+
+def remat_pair(case):
+    """``case`` with dropout on (``<name>_drop``) and the same under
+    ``--remat`` (``<name>_drop_remat``), checkpoint writing left out."""
+    cfg = dict(case["cfg"], **DROP)
+    plain = {k: v for k, v in case.items() if k != "ckpt"}
+    plain.update(name=case["name"] + "_drop", cfg=cfg)
+    return [plain, dict(plain, name=plain["name"] + "_remat",
+                        cfg=dict(cfg, remat=True))]
+
+
+def check_remat_pair(plain_ranks, remat_ranks):
+    """Each rank's remat step (loss, gradients, clipped gradients, BN
+    statistics, the leaves after one Adam step) equals its plain step to
+    the bit; the dropout masks moved the step."""
+    for r, (p, q) in enumerate(zip(plain_ranks, remat_ranks)):
+        assert p.keys() == q.keys()
+        for k in p:
+            np.testing.assert_array_equal(q[k], p[k], err_msg=f"rank {r} {k}")
 
 
 @pytest.fixture(scope="module")
@@ -158,7 +179,8 @@ def world_g2(weights, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("g2")
     cases = [AGG, _step_case(weights, "mgcn", "mgcn",
                              ckpt=str(tmp / "ckpt"))] + [
-        _step_case(weights, f, f) for f in ("rgcn", "rgcn_block", "rgat")]
+        _step_case(weights, f, f) for f in ("rgcn", "rgcn_block", "rgat")
+    ] + remat_pair(_step_case(weights, "mgcn", "mgcn"))
     return cases, _world(tmp, [1, 2], cases), tmp
 
 
@@ -315,6 +337,18 @@ def test_sharded_aggregate_matches_jax_and_single_process(world_g2, toy,
                             np.testing.assert_allclose(
                                 g, w, rtol=GRAD_RTOL,
                                 atol=GRAD_ATOL * np.abs(w).max(), err_msg=k)
+
+
+def test_graph_axis_2_remat_step_equals_plain_step(world_g2):
+    """``--remat`` under the edge partition (the recompute's per-slice K1
+    sums and their SUM over the graph group run again in the backward),
+    dropout on: every rank's remat step equals its plain step to the
+    bit."""
+    _, plain = _results(world_g2, "mgcn_drop")
+    _, remat = _results(world_g2, "mgcn_drop_remat")
+    check_remat_pair(plain, remat)
+    _, no_drop = _results(world_g2, "mgcn")
+    assert not np.array_equal(plain[0]["loss"], no_drop[0]["loss"])
 
 
 @pytest.mark.parametrize("g_size", [2, 4])
