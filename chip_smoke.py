@@ -471,29 +471,6 @@ def log_profile(what: str, fn, steps: int = 3, kinds=()) -> dict:
     return out
 
 
-def phase_ms(trainer, batch, lr, n: int = 10) -> dict:
-    """Median host ms of one training step's phases, each ended by a
-    device sync: forward + loss, backward, optimizer."""
-    from kgc_gcn_torch.train import optim
-    out = {"forward": [], "backward": [], "optimizer": []}
-    for _ in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = trainer.loss(*batch)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        grads = list(torch.autograd.grad(loss, trainer.params))
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        optim.step(trainer.params, grads, trainer.opt_state, trainer.cfg, lr)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        for k, a, b in (("forward", t0, t1), ("backward", t1, t2),
-                        ("optimizer", t2, t3)):
-            out[k].append((b - a) * 1e3)
-    return {k: statistics.median(v) for k, v in out.items()}
-
-
 def dyadic(e: int, d: int, dtype, gen) -> torch.Tensor:
     return (torch.randint(-511, 512, (e, d), generator=gen) / 256).to(dtype)
 
@@ -1153,8 +1130,7 @@ def timed_steps(trainer, launches: Launches, per_step, what: str,
     """3 set-up steps of ``trainer``'s epoch, then ``steps`` (default
     TIMED_STEPS) warm ones (steps/s, edges/s, peak memory, mean loss), each
     of which must launch ``per_step`` kernels; then a profile (with the
-    device µs of the kernels named by ``kinds``) and the host phases of one
-    step."""
+    device µs of the kernels named by ``kinds``)."""
     from kgc_gcn_torch.train import optim
     steps = steps or TIMED_STEPS
     host_rng = np.random.default_rng(seed)
@@ -1180,9 +1156,6 @@ def timed_steps(trainer, launches: Launches, per_step, what: str,
     prof = log_profile(f"one {what} training step",
                        lambda: trainer.train_step(lr, *batch), steps=3,
                        kinds=kinds)
-    phases = phase_ms(trainer, batch, lr)
-    log(f"[train] {what} step phases (host ms, each ended by a sync): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
     n_msgs = trainer.graph.num_messages
     log(f"[train] {what}: {steps} warm steps in {dt:.3f} s = "
         f"{sps:.2f} steps/s, {sps * n_msgs:.4g} edges/s (2E+N = {n_msgs}); "
@@ -1191,7 +1164,7 @@ def timed_steps(trainer, launches: Launches, per_step, what: str,
         + f"; peak memory {peak} B; an epoch of {trainer.steps_per_epoch} "
         f"steps ~ {trainer.steps_per_epoch / sps:.1f} s")
     return {"steps_per_s": sps, "edges_per_s": sps * n_msgs,
-            "peak_bytes": peak, "loss": loss, **prof, "phases_ms": phases,
+            "peak_bytes": peak, "loss": loss, **prof,
             "launches_per_step": dict(zip(Launches.NAMES,
                                           (c / steps for c in got)))}
 

@@ -13,10 +13,12 @@ query's relation onto its forward id and split the same quantities by it.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
+
+from kgc_gcn_torch.utils import profiling
 
 
 def mask_entities(scores: torch.Tensor, filter_idx: torch.Tensor) -> torch.Tensor:
@@ -39,15 +41,22 @@ def filtered_ranks(
     return 1 + (masked > target).sum(dim=1)
 
 
+def metric_names(hits_at: int = 10) -> List[str]:
+    """The keys of ``rank_metrics``, in its order."""
+    return ["count", "mr", "mrr"] + [f"hits@{k}" for k in range(1, hits_at + 1)]
+
+
 def rank_metrics(ranks: torch.Tensor, hits_at: int = 10) -> Dict[str, float]:
     """Sums for one batch (reference main.py:129-133): count, mr, mrr and
-    hits@1..hits@{hits_at}, to be combined across the tail and head passes."""
+    hits@1..hits@{hits_at}, to be combined across the tail and head passes.
+    Their read blocks the host on the device (``utils/profiling.py:
+    host_reads`` counts it)."""
     r = ranks.double()
-    names = ["mr", "mrr"] + [f"hits@{k}" for k in range(1, hits_at + 1)]
     sums = torch.stack([r.sum(), (1.0 / r).sum()]
                        + [(r <= k).sum().double()
-                          for k in range(1, hits_at + 1)]).tolist()
-    return {"count": float(r.numel()), **dict(zip(names, sums))}
+                          for k in range(1, hits_at + 1)])
+    profiling.host_reads += 1
+    return dict(zip(metric_names(hits_at), [float(r.numel())] + sums.tolist()))
 
 
 def combine_head_tail(

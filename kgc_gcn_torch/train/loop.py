@@ -60,14 +60,15 @@ from kgc_gcn_torch.ops.fused_loss import fused_score_bce, sparse_bce_with_logits
 from kgc_gcn_torch.ops.kernels import KERNELS, PLAIN, Kernels
 from kgc_gcn_torch.ops.losses import bce_with_logits
 from kgc_gcn_torch.ops.ranking import (
-    combine_head_tail, combine_head_tail_by_rel, filtered_ranks,
+    combine_head_tail, combine_head_tail_by_rel, filtered_ranks, metric_names,
     rank_metric_sums_by_rel, rank_metrics)
 from kgc_gcn_torch.parallel.distributed import flat_all_reduce
 from kgc_gcn_torch.parallel.mesh import (
     Mesh, edge_table_names, shard_batches, shard_graph, shard_params)
 from kgc_gcn_torch.train import optim, remat
 from kgc_gcn_torch.train.checkpoint import AsyncCheckpointer, save_checkpoint
-from kgc_gcn_torch.utils.profiling import StepTimer, trace
+from kgc_gcn_torch.utils import profiling
+from kgc_gcn_torch.utils.profiling import StepTimer, span, trace
 
 
 class Trainer:
@@ -169,22 +170,29 @@ class Trainer:
         statistics; the BN running statistics move)."""
         cfg, model = self.cfg, self.model
         rngs = self.rngs()
-        all_ent, all_rel = self.encode_train(rngs)
+        with span("encode"):
+            all_ent, all_rel = self.encode_train(rngs)
         if self.loss_impl in ("sparse", "fused"):
-            h, ent_bias = model.query_and_bias(all_ent, all_rel, q[:, 0],
-                                               q[:, 1], train=True, rngs=rngs)
-            if self.loss_impl == "fused":
-                return fused_score_bce(h, all_ent, ent_bias, label_idx,
-                                       cfg.lbl_smooth, mask,
-                                       self.kernels.dense_loss,
-                                       self.kernels.dense_grads)
-            logits = mm(h, all_ent.T, cfg.compute_dtype) + ent_bias[None, :]
-            return sparse_bce_with_logits(logits, label_idx, cfg.lbl_smooth,
-                                          mask)
-        lbl = build_labels(label_idx, self.n_ent, cfg.lbl_smooth)
-        logits = model.decode(all_ent, all_rel, q[:, 0], q[:, 1], train=True,
-                              rngs=rngs)
-        return bce_with_logits(logits, lbl, mask)
+            with span("decode"):
+                h, ent_bias = model.query_and_bias(
+                    all_ent, all_rel, q[:, 0], q[:, 1], train=True, rngs=rngs)
+                if self.loss_impl == "sparse":
+                    logits = (mm(h, all_ent.T, cfg.compute_dtype)
+                              + ent_bias[None, :])
+            with span("loss"):   # the fused loss scores the batch too (K2a)
+                if self.loss_impl == "fused":
+                    return fused_score_bce(h, all_ent, ent_bias, label_idx,
+                                           cfg.lbl_smooth, mask,
+                                           self.kernels.dense_loss,
+                                           self.kernels.dense_grads)
+                return sparse_bce_with_logits(logits, label_idx,
+                                              cfg.lbl_smooth, mask)
+        with span("decode"):
+            logits = model.decode(all_ent, all_rel, q[:, 0], q[:, 1],
+                                  train=True, rngs=rngs)
+        with span("loss"):
+            lbl = build_labels(label_idx, self.n_ent, cfg.lbl_smooth)
+            return bce_with_logits(logits, lbl, mask)
 
     def encode_train(self, rngs: Dict[str, torch.Generator]) -> tuple:
         """The encoder in train mode; with ``cfg.remat`` checkpointed, its
@@ -205,9 +213,11 @@ class Trainer:
         loss = self.loss(*batch)
         if scale != 1.0:
             loss = loss * scale
-        grads = list(torch.autograd.grad(loss, self.params))
+        with span("backward"):
+            grads = list(torch.autograd.grad(loss, self.params))
         if self.mesh is not None:
-            grads = flat_all_reduce(grads, self.mesh.data_group)
+            with span("allreduce"):
+                grads = flat_all_reduce(grads, self.mesh.data_group)
         return loss.detach(), grads
 
     def train_step(self, lr: float, *batch: torch.Tensor,
@@ -215,9 +225,11 @@ class Trainer:
         """One optimizer step on ``gradients(*batch, scale=scale)``; returns
         the (scaled) batch loss, a device scalar."""
         loss, grads = self.gradients(*batch, scale=scale)
-        optim.step(self.params, grads, self.opt_state, self.cfg, lr,
-                   self.sharded,
-                   self.mesh.graph_group if self.mesh is not None else None)
+        with span("optimizer"):
+            optim.step(self.params, grads, self.opt_state, self.cfg, lr,
+                       self.sharded,
+                       self.mesh.graph_group if self.mesh is not None
+                       else None)
         return loss
 
     def train_epoch(self, epoch: int, host_rng: np.random.Generator,
@@ -240,14 +252,17 @@ class Trainer:
                                                            idx.shape[0])
         losses = []
         for s in range(steps):
-            losses.append(self.train_step(lr, *self.batch(idx[s], mask[s]),
-                                          scale=float(scales[s])))
+            with span("step"):
+                losses.append(self.train_step(
+                    lr, *self.batch(idx[s], mask[s]), scale=float(scales[s])))
             if on_step is not None:
                 on_step()
+        profiling.host_reads += 1                      # the one host sync
         if self.mesh is None:
-            return float(torch.stack(losses).mean())   # the one host sync
-        total = flat_all_reduce([torch.stack(losses).sum()],
-                                self.mesh.data_group)[0]
+            return float(torch.stack(losses).mean())
+        with span("allreduce"):
+            total = flat_all_reduce([torch.stack(losses).sum()],
+                                    self.mesh.data_group)[0]
         return float(total) / steps
 
     def evaluate(self, split: str = "valid", mark: str = "Val"
@@ -277,8 +292,11 @@ def _bank_ranks(model, all_ent, all_rel, bank: QueryBank, batch_size: int,
         if a >= b:
             continue
         q = bank.queries[a:b]
-        logits = model.decode(all_ent, all_rel, q[:, 0], q[:, 1])
-        yield q, filtered_ranks(logits, q[:, 2], bank.label_idx[a:b])
+        with span("score"):
+            logits = model.decode(all_ent, all_rel, q[:, 0], q[:, 1])
+        with span("rank"):
+            ranks = filtered_ranks(logits, q[:, 2], bank.label_idx[a:b])
+        yield q, ranks
 
 
 def _sum_over_data(sums: Dict[str, object], mesh: Optional[Mesh],
@@ -287,19 +305,23 @@ def _sum_over_data(sums: Dict[str, object], mesh: Optional[Mesh],
     if mesh is None or mesh.data == 1:
         return sums
     keys = list(sums)
-    vals = flat_all_reduce([torch.as_tensor(sums[k], dtype=torch.float64,
-                                            device=device) for k in keys],
-                           mesh.data_group)
+    with span("allreduce"):
+        vals = flat_all_reduce([torch.as_tensor(sums[k], dtype=torch.float64,
+                                                device=device) for k in keys],
+                               mesh.data_group)
+    profiling.host_reads += sum(v.dim() == 0 for v in vals)
     return {k: (float(v) if v.dim() == 0 else v) for k, v in zip(keys, vals)}
 
 
 @torch.no_grad()
 def _bank_sums(model, all_ent, all_rel, bank: QueryBank, batch_size: int,
                mesh: Optional[Mesh] = None) -> Dict[str, float]:
-    sums = dict.fromkeys(rank_metrics(torch.ones(1)), 0.0)
+    sums = dict.fromkeys(metric_names(), 0.0)
     for _, ranks in _bank_ranks(model, all_ent, all_rel, bank, batch_size,
                                 mesh):
-        for k, v in rank_metrics(ranks).items():
+        with span("metric_sync"):
+            batch = rank_metrics(ranks)
+        for k, v in batch.items():
             sums[k] += v
     return _sum_over_data(sums, mesh, all_ent.device)
 
@@ -312,11 +334,13 @@ def evaluate(cfg: Config, model, graph: Graph, banks: Dict[str, QueryBank],
     """Filtered MR/MRR/Hits over tail + head queries (reference
     main.py:80-103); under a ``mesh``, every rank calls it."""
     bs = cfg.eval_batch_size or cfg.batch_size
-    all_ent, all_rel = model.encode(graph, kernels=kernels)
-    tail, head = (_bank_sums(model, all_ent, all_rel, banks[f"{split}_{d}"],
-                             bs, mesh)
-                  for d in ("tail", "head"))
-    results = combine_head_tail(tail, head)
+    with span("eval_pass"):
+        with span("encode"):
+            all_ent, all_rel = model.encode(graph, kernels=kernels)
+        tail, head = (_bank_sums(model, all_ent, all_rel,
+                                 banks[f"{split}_{d}"], bs, mesh)
+                      for d in ("tail", "head"))
+        results = combine_head_tail(tail, head)
     log_metrics(mark, results)
     return results
 
@@ -331,19 +355,22 @@ def evaluate_per_relation(cfg: Config, model, graph: Graph,
     (R,) arrays keyed count/mr/mrr/hits@{1,3,10}, head and tail combined
     onto the forward relation id; NaN for relations with no queries."""
     bs = cfg.eval_batch_size or cfg.batch_size
-    all_ent, all_rel = model.encode(graph, kernels=kernels)
-    dev = all_ent.device
-    empty = torch.zeros(0, dtype=torch.long, device=dev)
-    sums = {}
-    for d in ("tail", "head"):
-        parts = [rank_metric_sums_by_rel(empty, empty, graph.n_rel)] + [
-            rank_metric_sums_by_rel(ranks, q[:, 1], graph.n_rel)
-            for q, ranks in _bank_ranks(model, all_ent, all_rel,
-                                        banks[f"{split}_{d}"], bs, mesh)]
-        total = {k: torch.stack([p[k] for p in parts]).sum(0)
-                 for k in parts[0]}
-        sums[d] = {k: v.cpu().numpy()
-                   for k, v in _sum_over_data(total, mesh, dev).items()}
+    with span("eval_pass"):
+        with span("encode"):
+            all_ent, all_rel = model.encode(graph, kernels=kernels)
+        dev = all_ent.device
+        empty = torch.zeros(0, dtype=torch.long, device=dev)
+        sums = {}
+        for d in ("tail", "head"):
+            parts = [rank_metric_sums_by_rel(empty, empty, graph.n_rel)] + [
+                rank_metric_sums_by_rel(ranks, q[:, 1], graph.n_rel)
+                for q, ranks in _bank_ranks(model, all_ent, all_rel,
+                                            banks[f"{split}_{d}"], bs, mesh)]
+            total = _sum_over_data({k: torch.stack([p[k] for p in parts]).sum(0)
+                                    for k in parts[0]}, mesh, dev)
+            with span("metric_sync"):
+                sums[d] = {k: v.cpu().numpy() for k, v in total.items()}
+            profiling.host_reads += len(total)
     return combine_head_tail_by_rel(sums["tail"], sums["head"])
 
 

@@ -11,8 +11,27 @@ profiling.py``).
     caller calls the yielded profiler's ``step()`` after each step, and the
     trace records the first ``steps`` steps (all of a shorter context);
     the JAX package's XProf trace takes the whole context;
-  * ``annotate(name)``: ``torch.profiler.record_function``, a labelled span
-    on the host timeline;
+  * ``span(name)``: the span ``kgc/<name>`` on the profiler's host
+    timeline while a ``torch.profiler`` records (``--profile_dir``, a
+    profiled stretch of the benchmark), on the clock of the card's events,
+    so that the device work launched inside it, and the device's idle
+    gaps, can be put down to it; otherwise one shared null context, after
+    a single check of a flag.  The span is a ``RecordFunction`` of the
+    function scope, as an ATen operation's: a user-scope
+    ``record_function`` would also leave a device-side copy of each span
+    among the card's events, which reductions of the device's intervals
+    would count as device time.  ``train/loop.py`` opens spans at layer
+    boundaries only: ``step`` (a step's batch gather and ``train_step``),
+    ``encode`` (the forward; remat's recompute falls in ``backward``),
+    ``decode`` (the decoder and the scoring product), ``loss`` (the
+    ``fused`` loss scores too), ``backward`` (also the launches of
+    autograd's device thread), ``allreduce`` (a mesh's collectives),
+    ``optimizer``; ``eval_pass``, ``score`` and ``rank`` (of a query
+    batch) and ``metric_sync`` (the host waiting for metric sums);
+  * ``host_reads``: how many times the hot paths blocked the host on a
+    device value (the epoch's loss, each evaluation batch's metric sums,
+    the per-relation tables, metric sums summed over a data group); a
+    plain count, always on;
   * ``StepTimer``: steps/s and edges/s per device, with the JAX package's
     contract (``update`` after a host sync, the first interval excluded;
     ``add`` credits a span timed elsewhere).
@@ -26,6 +45,7 @@ import warnings
 from typing import Iterator, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 # Steps a trace records: enough for a per-kernel breakdown, while the
 # events of a whole epoch at the published sizes would hold host memory
@@ -51,8 +71,18 @@ def trace(logdir: str, steps: int = TRACE_STEPS
         yield prof
 
 
-def annotate(name: str):
-    return torch.profiler.record_function(name)
+_OFF = contextlib.nullcontext()
+
+# Blocking reads of a device value by the host on the hot paths.
+host_reads = 0
+
+
+def span(name: str):
+    """The span ``kgc/<name>`` while a profiler records; otherwise the
+    shared null context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast("kgc/" + name)
 
 
 class StepTimer:
@@ -87,7 +117,3 @@ class StepTimer:
     @property
     def edges_per_s_per_chip(self) -> float:
         return self.steps_per_s * self.edges_per_step / self.n_chips
-
-    def report(self) -> str:
-        return (f"{self.steps_per_s:.1f} steps/s, "
-                f"{self.edges_per_s_per_chip / 1e6:.1f} Medges/s/chip")
