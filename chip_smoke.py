@@ -42,7 +42,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      apart, K2a / K2b also at the
      FB15k-237 shape and beside the yardsticks of one addmm and of K2b's
      three products, K2a's two passes apart and K2a at every shape of its
-     check; phase 5 also gives K2a's device time in the fused step);
+     check; phase 5 also gives K2a's device time in the fused step), and
+     the optimizer's fused clip + Adam at the training cell's leaf shapes
+     (its model built on the meta device), three steps checked against the
+     plain step, its two passes apart, beside torch.optim.Adam(fused=True)
+     (Adam alone);
   5. training: the reference model (MGCN + ConvE at full width, WN18RR
      preset and dropout, random weights from --seed) on a WN18RR-shaped
      synthetic corpus: timed steps with loss_impl fused and auto (steps/s,
@@ -179,6 +183,13 @@ K1, K3, K7 and K8 checks use dyadic inputs, whose float32 sums are exact in
 any order, so kernel and plain version must agree to the bit; K5
 (segment-max, phase 3: the RGAT path's shape and edge cases), K4a and K4b
 (products in the plain version's order) are exact on any input.
+Every training step through a trainer calls the fused clip + Adam once
+(``adam`` among the launch counts), and each timed step, kernel step, rank
+step and CLI epoch above asserts it; a plain trainer, a serving path and
+tools/remat_probe.py's steps call it never.  The one-process reference
+steps of phases 14-16 update through the plain ``optim.step``, so each
+rank's fused step (under a graph axis, the sharded leaves' squares summed
+over the group between its two passes) is held against the plain update.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Before them a line gives the card, its
 power limit and the wall seconds of the whole script and of phases 12,
@@ -186,7 +197,8 @@ power limit and the wall seconds of the whole script and of phases 12,
 Nothing of JAX is imported.
 
 --kernels-only runs phases 1-3 and the time rows of K1, K2a, K7 and K3 (each
-with its two passes' device times), K2b, K8 and K5, then prints their entries and
+with its two passes' device times), K2b, K8, K5 and the fused clip + Adam
+(its two passes' too), then prints their entries and
 the last line: a quick check of the kernels that drives no path (their
 launch counts are 0).  --mesh-only runs phases 1-2 and 14, then the last
 line.  --entity-only runs phases 1-2 and 15 (the entity-sharded
@@ -1106,9 +1118,11 @@ def close_rel(got, want, rtol, atol_rel, what) -> float:
 
 
 class Launches:
-    """The launch counts of the kernel wrappers, in the order of NAMES."""
+    """The launch counts of the kernel wrappers, in the order of NAMES
+    (``adam``: the optimizer's fused clip + Adam, one call a training step
+    through the trainer's kernels)."""
 
-    NAMES = ("K1", "K2a", "K2b", "K7", "K8", "K5", "K3", "K4a", "K4b")
+    NAMES = ("K1", "K2a", "K2b", "K7", "K8", "K5", "K3", "K4a", "K4b", "adam")
 
     def __init__(self, wrappers):
         self.wrappers = wrappers
@@ -1244,7 +1258,7 @@ def same_step(trainer, batch, seed: int, launches: Launches, per_step,
         with kinks.patched(replay=name == "plain"):
             loss = t.loss(*batch)
         grads = list(torch.autograd.grad(loss, t.params))
-        optim.step(t.params, grads, t.opt_state, cfg, lr)
+        t.kernels.adam(t.params, grads, t.opt_state, cfg, lr)
         result[name] = (loss.detach(), grads, launches.read())
         del loss
         torch.cuda.empty_cache()
@@ -1483,7 +1497,7 @@ def toy_profile_run(work: str, seed: int, launches: Launches) -> dict:
     seconds = time.perf_counter() - t0
     got = launches.read()                              # the path ends
     steps = final.pop("steps")
-    if rc != 0 or got != (8 * steps + 4, 0, 0, 0, 0, 0, 0, 0, 0):
+    if rc != 0 or got != (8 * steps + 4, 0, 0, 0, 0, 0, 0, 0, 0, 2 * steps):
         raise AssertionError(f"toy profile run: rc {rc}, launches {got}")
     (name,) = os.listdir(prof)
     size = os.path.getsize(os.path.join(prof, name))
@@ -1847,8 +1861,9 @@ def mesh_reference(trainer, seed: int, launches: Launches, per_step,
     """The one-process kernel step that the ranks are held against:
     ``trainer`` takes WARM_STEPS steps, then one step on a batch of a
     seeded plan (its first, or with ``last`` its short last one) with its
-    ReLU sides recorded; weights, Adam state, batch, sides, loss,
-    gradients and updates go to ``path``."""
+    ReLU sides recorded, its update by the plain ``optim.step`` (the ranks
+    step through the fused kernel: ``rank_step``); weights, Adam state,
+    batch, sides, loss, gradients and updates go to ``path``."""
     import dataclasses as dc
 
     from kgc_gcn_torch.convert import jax_leaf_names
@@ -1926,7 +1941,6 @@ def rank_step(case: dict, mesh, ds, graph, banks, launches: Launches) -> dict:
         all_gather_cat, flat_all_reduce)
     from kgc_gcn_torch.parallel.mesh import (
         edge_table_names, shard_batches, shard_like)
-    from kgc_gcn_torch.train import optim
     from kgc_gcn_torch.train.loop import Trainer
     ref = torch.load(case["ref"])
     cfg = Config(**ref["cfg"]).replace(**case.get("cfg", {}))
@@ -1952,16 +1966,19 @@ def rank_step(case: dict, mesh, ds, graph, banks, launches: Launches) -> dict:
     launches.zero()
     with replay.patched(replay=True):
         loss, grads = trainer.gradients(*batch, scale=scale)
-    optim.step(trainer.params, grads, trainer.opt_state, cfg, ref["lr"],
-               trainer.sharded, mesh.graph_group)
+    trainer.kernels.adam(trainer.params, grads, trainer.opt_state, cfg,
+                         ref["lr"], trainer.sharded, mesh.graph_group)
     torch.cuda.synchronize()
     counts = launches.read()
-    want = tuple(case.get("per_step", ref["per_step"]))
+    # the reference stepped through optim.step; a rank through its trainer's
+    # optimizer, the fused kernel's one call unless the trainer is plain
+    adam = 0 if case.get("plain", False) else 1
+    want = tuple(case.get("per_step", ref["per_step"][:-1] + [adam]))
     if case.get("per_step") == "boundary":
         # K1 forward and d_x per block of each half's plan
         want = (2 * sum(len(a.blocks)
                         for a in model.entity_sharding.boundary),) + (
-            0,) * 8
+            0,) * 8 + (adam,)
     if counts != want:
         raise AssertionError(f"{case['name']}: launches "
                              f"{Launches.show(counts)}, want "
@@ -2060,6 +2077,7 @@ def run_rank(spec_path: str) -> int:
     from kgc_gcn_torch.data.graph import build_graph
     from kgc_gcn_torch.ops.basis import basis_backward, basis_segment_sum
     from kgc_gcn_torch.ops.elementwise import bwd_products, compose_msg
+    from kgc_gcn_torch.ops.fused_adam import fused_adam
     from kgc_gcn_torch.ops.fused_compose import fused_compose
     from kgc_gcn_torch.ops.fused_loss import dense_grads, dense_loss
     from kgc_gcn_torch.ops.segment_max import segment_max
@@ -2071,7 +2089,7 @@ def run_rank(spec_path: str) -> int:
     load_kernels()
     launches = Launches((segment_sum, dense_loss, dense_grads,
                          basis_segment_sum, basis_backward, segment_max,
-                         fused_compose, compose_msg, bwd_products))
+                         fused_compose, compose_msg, bwd_products, fused_adam))
     out = {"rank": info.rank, "backend": info.backend,
            "device": str(info.device),
            "collectives": check_collectives(info.device)}
@@ -2197,8 +2215,8 @@ def phase14(seed: int, work: str, corpus_root: str, fb_root: str, ds,
     no_drop = dict(gcn_drop=0.0, conv_drop=0.0, hidden_drop=0.0,
                    feat_drop=0.0)
     refs = {}
-    per_mgcn = (4, 0, 0, 0, 0, 0, 0, 0, 0)
-    per_rgat = (10, 0, 0, 0, 0, 2, 0, 0, 0)
+    per_mgcn = (4, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+    per_rgat = (10, 0, 0, 0, 0, 2, 0, 0, 0, 0)
     for key, cfg, per, last in (
             ("mgcn", dataset_preset("WN18RR", seed=seed, **no_drop),
              per_mgcn, False),
@@ -2208,7 +2226,7 @@ def phase14(seed: int, work: str, corpus_root: str, fb_root: str, ds,
             # rows, which the loss scale puts over the global batch's
             ("mgcn_fused", dataset_preset("WN18RR", seed=seed,
                                           loss_impl="fused", **no_drop),
-             (4, 1, 1, 0, 0, 0, 0, 0, 0), True),
+             (4, 1, 1, 0, 0, 0, 0, 0, 0, 0), True),
             ("rgat", dataset_preset("WN18RR", model="rgat",
                                     decoder="distmult", num_heads=4,
                                     seed=seed, **no_drop), per_rgat, False)):
@@ -2276,6 +2294,11 @@ def phase14(seed: int, work: str, corpus_root: str, fb_root: str, ds,
             if not r["cli"]["launches"][0]:
                 raise AssertionError(f"14e {what}: rank {r['rank']} "
                                      "launched no K1")
+            # training steps through the fused clip + Adam; --do_test none
+            got = r["cli"]["launches"]
+            if bool(got[-1]) != (what == "cli_train"):
+                raise AssertionError(f"14e {what}: rank {r['rank']} "
+                                     f"launched {Launches.show(got)}")
     paths["mesh_cli_test_one_process"] = tuple(one["launches"])
     log(f"[mesh] cli: two ranks, --graph_axis 2 --partition locality, 2 "
         f"epochs on data/Toy: {train_res[0]['cli']['seconds']:.1f} s, best "
@@ -2371,7 +2394,8 @@ def phase15(seed: int, work: str, corpus_root: str, ds, graph, banks,
             f" counted from the plans: gather {b['gather']}, ring "
             f"{b['ring']}, boundary {b['boundary']} as sent "
             f"({b['boundary_real']} of real rows)")
-    zero, k1 = (0,) * 9, lambda n: (n,) + (0,) * 8
+    # a rank's step: K1 n times, the fused clip + Adam once (or plain)
+    k1 = lambda n: (n,) + (0,) * 8 + (1,)
 
     def case(family, schedule, g, pallas, per_step, tag="", plain=False):
         c = {"name": f"{family}_{schedule}{tag}", "ref": refs[family],
@@ -2390,21 +2414,21 @@ def phase15(seed: int, work: str, corpus_root: str, ds, graph, banks,
     # kernel path through the plain versions
     worlds = {
         "es_g2": (2, [case("mgcn", "gather", 2, True, k1(4)),
-                      case("mgcn", "gather", 2, False, zero, "_plain"),
+                      case("mgcn", "gather", 2, False, k1(0), "_plain"),
                       case("mgcn", "boundary", 2, True, "boundary"),
-                      case("mgcn", "boundary", 2, False, zero, "_plain"),
-                      case("mgcn", "ring", 2, False, zero),
-                      case("rgcn", "gather", 2, False, zero),
-                      case("rgcn", "ring", 2, False, zero),
-                      case("rgcn", "boundary", 2, False, zero),
+                      case("mgcn", "boundary", 2, False, k1(0), "_plain"),
+                      case("mgcn", "ring", 2, False, k1(0)),
+                      case("rgcn", "gather", 2, False, k1(0)),
+                      case("rgcn", "ring", 2, False, k1(0)),
+                      case("rgcn", "boundary", 2, False, k1(0)),
                       case("rgat", "gather", 2, True,
-                           (10, 0, 0, 0, 0, 2, 0, 0, 0)),
-                      case("rgat", "gather", 2, True, zero, "_plain",
+                           (10, 0, 0, 0, 0, 2, 0, 0, 0, 1)),
+                      case("rgat", "gather", 2, True, (0,) * 10, "_plain",
                            plain=True)]),
-        "es_g4": (4, [case("mgcn", "ring", 4, False, zero),
+        "es_g4": (4, [case("mgcn", "ring", 4, False, k1(0)),
                       case("mgcn", "boundary", 4, True, "boundary"),
-                      case("rgcn", "ring", 4, False, zero),
-                      case("rgcn", "boundary", 4, False, zero)])}
+                      case("rgcn", "ring", 4, False, k1(0)),
+                      case("rgcn", "boundary", 4, False, k1(0))])}
     for what, (g, cases) in worlds.items():
         res = launch_ranks({"kind": "steps", "mesh": [1, g], "dataset": "SYN",
                             "data_dir": corpus_root, "cases": cases},
@@ -2447,6 +2471,9 @@ def phase15(seed: int, work: str, corpus_root: str, ds, graph, banks,
             if not r["cli"]["launches"][0]:
                 raise AssertionError(f"15 {what}: rank {r['rank']} launched "
                                      "no K1")
+            if bool(r["cli"]["launches"][-1]) != (what == "es_cli_train"):
+                raise AssertionError(f"15 {what}: rank {r['rank']} launched "
+                                     f"{Launches.show(r['cli']['launches'])}")
     paths["es_cli_test_one_process"] = tuple(one["launches"])
     log(f"[entity] cli: two ranks, --graph_axis 2 --entity_sharded boundary "
         f"--use_pallas --partition locality, 1 epoch on data/Toy: "
@@ -2483,7 +2510,7 @@ def phase16(seed: int, work: str, corpus_root: str, ds, graph, banks,
         ref, draws = os.path.join(work, f"ref16_{key}.pt"), []
         with recorded_draws(draws):
             mesh_reference(Trainer(cfg, model, graph, banks), seed, launches,
-                           (0,) * 9, ref, False, f"16 {key}")
+                           (0,) * 10, ref, False, f"16 {key}")
         case = {"name": key, "ref": ref, "degenerate": MESH_DEGENERATE,
                 "host_steps": 1, "profile": False}
         if draws:   # the compared step's: in-half, then out-half
@@ -2562,11 +2589,13 @@ def phase16(seed: int, work: str, corpus_root: str, ds, graph, banks,
             paths[f"{what}_rank{r['rank']}"] = tuple(r["cli"]["launches"])
     paths["rest_cli_serve_one_process"] = tuple(one["launches"])
     for r in mesh_res:   # K1 on each half's slice, for the test's encode
-        if tuple(r["cli"]["launches"]) != (4,) + (0,) * 8:   # and serving's
+        if tuple(r["cli"]["launches"]) != (4,) + (0,) * 9:   # and serving's
             raise AssertionError(f"16c serve rank {r['rank']}: launches "
                                  f"{Launches.show(r['cli']['launches'])}")
-    if not all(r["cli"]["launches"][0] for r in train_res):
-        raise AssertionError("16c: a training rank launched no K1")
+    if not all(r["cli"]["launches"][0] and r["cli"]["launches"][-1]
+               for r in train_res):
+        raise AssertionError("16c: a training rank launched no K1 or no "
+                             "fused clip + Adam")
     out["serve_max_score_err"] = float((s_two - s_one).abs().max())
     log(f"[rest] cli: two ranks, --graph_axis 2 --use_pallas --ckpt_every 1,"
         f" 1 epoch on data/Toy: {train_res[0]['cli']['seconds']:.1f} s "
@@ -2731,7 +2760,7 @@ def phase17(seed: int, work: str, corpus_root: str, ds, graph, banks,
         log("[remat] ladder " + json.dumps(rec))
     paths["remat_ladder"] = launches.read()
     # one epoch through the CLI with --remat: K1 6 a step (the recompute's
-    # 2), 2 in the validation encode
+    # 2), 2 in the validation encode; the fused clip + Adam once a step
     cfg0 = dataset_preset("WN18RR")
     steps = -(-banks["train"].n_queries // cfg0.batch_size)
     exp_dir = os.path.join(work, "experiments_remat")
@@ -2742,7 +2771,7 @@ def phase17(seed: int, work: str, corpus_root: str, ds, graph, banks,
         argv += [f"--{flag}", str(getattr(cfg0, flag))]
     paths["mgcn_remat_train"], ep = cli_epoch(
         argv, os.path.join(exp_dir, "SYN"), launches,
-        (6 * steps + 2, 0, 0, 0, 0, 0, 0, 0, 0),
+        (6 * steps + 2, 0, 0, 0, 0, 0, 0, 0, 0, steps),
         f"cli --do_train --remat --max_epoch 1 ({steps} steps)")
     out["cli_epoch_s"] = ep["sec"]
     out["seconds"] = time.perf_counter() - t17
@@ -2787,6 +2816,7 @@ def main() -> int:
     from kgc_gcn_torch.ops.elementwise import (
         bwd_products, bwd_products_reference, compose_msg,
         compose_msg_reference)
+    from kgc_gcn_torch.ops.fused_adam import fused_adam
     from kgc_gcn_torch.ops.fused_compose import (
         fused_compose, fused_compose_reference)
     from kgc_gcn_torch.ops.fused_loss import (
@@ -2813,7 +2843,7 @@ def main() -> int:
     log(smi)
     launches = Launches((segment_sum, dense_loss, dense_grads,
                          basis_segment_sum, basis_backward, segment_max,
-                         fused_compose, compose_msg, bwd_products))
+                         fused_compose, compose_msg, bwd_products, fused_adam))
 
     # 2. build ----------------------------------------------------------------
     kernels = load_kernels(force_build=True)
@@ -3237,13 +3267,16 @@ def main() -> int:
     timings["k5"] = time_k5(segment_max, segment_max_reference, max_cases,
                             {"wn18rr_h4": graph.inb.e_real,
                              "fb15k237_h4": fb_graph.inb.e_real})
+    from kgc_gcn_torch.ops.fused_adam import fused_adam
+    timings["adam"] = time_adam(args.seed)
     if args.kernels_only:
         print(json.dumps({"kernels": [k1_entry(errs, timings, {})]
                           + k2_entries(k2_errs, timings, {}, {})
                           + basis_entries(basis_errs, timings["basis_config3"],
                                           {}, {})
                           + [k5_entry(max_errs, timings["k5"], {}),
-                             k3_entry(k3_errs, timings["k3"], {})]}))
+                             k3_entry(k3_errs, timings["k3"], {}),
+                             adam_entry(timings["adam"], {})]}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3314,7 +3347,7 @@ def main() -> int:
         trainer = Trainer(cfg, model, graph, banks)
         fused = int(impl == "fused")
         train[impl] = timed_steps(
-            trainer, launches, (4, fused, fused, 0, 0, 0, 0, 0, 0),
+            trainer, launches, (4, fused, fused, 0, 0, 0, 0, 0, 0, 1),
             f"loss_impl={impl} ({trainer.loss_impl})", args.seed,
             kinds=K2A_PASSES if fused else ())
         if fused:
@@ -3327,7 +3360,7 @@ def main() -> int:
     same_step(fused_trainer,
               fused_trainer.batch(idx.to(device),
                                   torch.ones(cfg0.batch_size, device=device)),
-              args.seed + 7, launches, (4, 1, 1, 0, 0, 0, 0, 0, 0), "mgcn",
+              args.seed + 7, launches, (4, 1, 1, 0, 0, 0, 0, 0, 0, 1), "mgcn",
               degenerate=DEGENERATE)
     del fused_trainer, trainer, model
 
@@ -3342,7 +3375,7 @@ def main() -> int:
     train_launches, ep = cli_epoch(
         argv, run_dir, launches,
         (4 * steps_per_epoch + 2, steps_per_epoch, steps_per_epoch, 0, 0, 0, 0,
-         0, 0),
+         0, 0, steps_per_epoch),
         f"cli --do_train --loss_impl fused --max_epoch 1 ({steps_per_epoch} "
         "steps)")
     train["fused"]["cli_epoch_s"] = ep["sec"]
@@ -3400,7 +3433,7 @@ def main() -> int:
                 math.isfinite(t["score"]) and t["entity"] in ds.entity2id
                 for t in rec["topk"]):
             raise AssertionError(f"bad answer: {rec}")
-    if not (serve_launches == (4, 0, 0, 0, 0, 0, 0, 0, 0)
+    if not (serve_launches == (4, 0, 0, 0, 0, 0, 0, 0, 0, 0)
             and 1.0 <= metrics["mr"] <= ds.num_entity
             and 0.0 < metrics["mrr"] <= 1.0
             and all(0.0 <= metrics[k] <= 1.0 for k in metrics if "hits" in k)):
@@ -3472,7 +3505,7 @@ def main() -> int:
         f"{cfg3.moment_dtype}; {sum(p.numel() for p in model3.parameters())} "
         "parameters")
     train["rgcn"] = timed_steps(trainer3, launches,
-                                (2, 0, 0, 2, 2, 0, 0, 0, 0),
+                                (2, 0, 0, 2, 2, 0, 0, 0, 0, 1),
                                 "rgcn + distmult, negative sampling",
                                 args.seed)
 
@@ -3482,7 +3515,7 @@ def main() -> int:
     same_step(trainer3,
               trainer3.batch(idx.to(device),
                              torch.ones(cfg3.batch_size, device=device)),
-              args.seed + 7, launches, (2, 0, 0, 2, 2, 0, 0, 0, 0), "rgcn")
+              args.seed + 7, launches, (2, 0, 0, 2, 2, 0, 0, 0, 0, 1), "rgcn")
     est_epoch_s = trainer3.steps_per_epoch / train["rgcn"]["steps_per_s"]
     del trainer3, model3
     torch.cuda.empty_cache()
@@ -3513,7 +3546,8 @@ def main() -> int:
     cli_steps = -(-2 * ds_cli.num_edge // cfg3.batch_size)
     rgcn_train_launches, ep = cli_epoch(
         argv3, run3, launches,
-        (2 * cli_steps, 0, 0, 2 * cli_steps + 2, 2 * cli_steps, 0, 0, 0, 0),
+        (2 * cli_steps, 0, 0, 2 * cli_steps + 2, 2 * cli_steps, 0, 0, 0, 0,
+         cli_steps),
         f"cli --model rgcn --decoder distmult --num_bases 30 --train_mode "
         f"negative_sampling --max_epoch 1 ({cli_steps} steps, "
         f"{ds_cli.num_edge} train triples)")
@@ -3531,7 +3565,7 @@ def main() -> int:
                   os.path.join(work.name, "serve_rgcn")]
     rgcn_serve_launches, metrics3 = cli_serve(
         serve_base, qfile3, len(test3), ds_cli.entity2id, launches,
-        (0, 0, 0, 4, 0, 0, 0, 0, 0), "rgcn")
+        (0, 0, 0, 4, 0, 0, 0, 0, 0, 0), "rgcn")
     graph_cli, banks_cli = graph3, banks3
     if cli_root != fb_root:
         graph_cli = build_graph(ds_cli.train_triples, ds_cli.num_entity,
@@ -3561,7 +3595,7 @@ def main() -> int:
     # per half and layer: K5 once, K1 on expd (E, 4) and on msg (E, 200);
     # backward K1 for edge_compose's d_h and both gather_rows_sorted
     train["rgat"] = timed_steps(trainer_a, launches,
-                                (10, 0, 0, 0, 0, 2, 0, 0, 0),
+                                (10, 0, 0, 0, 0, 2, 0, 0, 0, 1),
                                 "rgat + distmult, 1-vs-all", args.seed,
                                 kinds=("segment_max_kernel",))
 
@@ -3571,7 +3605,7 @@ def main() -> int:
     same_step(trainer_a,
               trainer_a.batch(idx.to(device),
                               torch.ones(cfg_a.batch_size, device=device)),
-              args.seed + 7, launches, (10, 0, 0, 0, 0, 2, 0, 0, 0), "rgat",
+              args.seed + 7, launches, (10, 0, 0, 0, 0, 2, 0, 0, 0, 1), "rgat",
               cancelling=RGAT_DEGENERATE)
     del trainer_a, model_a
     torch.cuda.empty_cache()
@@ -3589,7 +3623,7 @@ def main() -> int:
     rgat_train_launches, ep = cli_epoch(
         argv_a, run_a, launches,
         (10 * steps_per_epoch + 4, 0, 0, 0, 0, 2 * steps_per_epoch + 2, 0, 0,
-         0),
+         0, steps_per_epoch),
         f"cli --model rgat --decoder distmult --num_heads {cfg_a.num_heads} "
         f"--max_epoch 1 ({steps_per_epoch} steps)")
     train["rgat"]["cli_epoch_s"] = ep["sec"]
@@ -3600,7 +3634,7 @@ def main() -> int:
                run_a, "--experiments_dir", os.path.join(work.name, "serve_rgat")]
     rgat_serve_launches, metrics_a = cli_serve(
         serve_a, qfile, len(test), ds.entity2id, launches,
-        (8, 0, 0, 0, 0, 4, 0, 0, 0), "rgat")
+        (8, 0, 0, 0, 0, 4, 0, 0, 0, 0), "rgat")
     serve_rgat = served_encode(run_a, ds, graph, banks, test[:128], metrics_a,
                                "rgat")
 
@@ -3608,10 +3642,12 @@ def main() -> int:
     # loss_impl auto; ew_impl is a Config field, reached through Trainer) --
     paths = {}
     for name, field, per_step in (
-            ("ew_pallas", dict(ew_impl="pallas"), (4, 0, 0, 0, 0, 0, 0, 2, 2)),
-            ("stacked", dict(spmm_mode="stacked"), (1, 0, 0, 0, 0, 0, 1, 0, 0)),
+            ("ew_pallas", dict(ew_impl="pallas"),
+             (4, 0, 0, 0, 0, 0, 0, 2, 2, 1)),
+            ("stacked", dict(spmm_mode="stacked"),
+             (1, 0, 0, 0, 0, 0, 1, 0, 0, 1)),
             ("stacked_xla", dict(spmm_mode="stacked_xla"),
-             (2, 0, 0, 0, 0, 0, 0, 0, 0))):
+             (2, 0, 0, 0, 0, 0, 0, 0, 0, 1))):
         cfg_s = dataset_preset("WN18RR", seed=args.seed, **field)
         model_s = build_model(cfg_s, ds.num_entity, ds.num_relation,
                               ds.num_edge, e_pad=graph.e_pad,
@@ -3643,7 +3679,8 @@ def main() -> int:
         argv_s += [f"--{flag}", str(getattr(cfg0, flag))]
     paths["mgcn_stacked_train"], ep = cli_epoch(
         argv_s, run_s, launches,
-        (steps_per_epoch, 0, 0, 0, 0, 0, steps_per_epoch + 1, 0, 0),
+        (steps_per_epoch, 0, 0, 0, 0, 0, steps_per_epoch + 1, 0, 0,
+         steps_per_epoch),
         f"cli {' '.join(flags_s)} --max_epoch 1 ({steps_per_epoch} steps)")
     train["mgcn_stacked"]["cli_epoch_s"] = ep["sec"]
     serve_s = ["--dataset", "SYN", "--data_dir", corpus_root, "--restore_dir",
@@ -3651,7 +3688,7 @@ def main() -> int:
                os.path.join(work.name, "serve_stacked")] + flags_s
     paths["mgcn_stacked_serve"], metrics_s = cli_serve(
         serve_s, qfile, len(test), ds.entity2id, launches,
-        (0, 0, 0, 0, 0, 0, 2, 0, 0), "mgcn stacked")
+        (0, 0, 0, 0, 0, 0, 2, 0, 0, 0), "mgcn stacked")
     serve_stacked = served_encode(run_s, ds, graph, banks, test[:128],
                                   metrics_s, "mgcn stacked")
 
@@ -3680,7 +3717,7 @@ def main() -> int:
         f"loss_impl {cfg_c.loss_impl} = {trainer_c.loss_impl}, batch "
         f"{cfg_c.batch_size}, {cfg_c.compute_dtype}; "
         f"{sum(p.numel() for p in model_c.parameters())} parameters")
-    per_c = (8, 0, 0, 0, 0, 0, 0, 0, 0)
+    per_c = (8, 0, 0, 0, 0, 0, 0, 0, 0, 1)
     train["mgcn_depth_corr"] = timed_steps(
         trainer_c, launches, per_c, "mgcn 2 layers corr", args.seed)
     paths["mgcn_depth_corr_steps"] = tuple(TIMED_STEPS * c for c in per_c)
@@ -3699,7 +3736,8 @@ def main() -> int:
         ["--dataset", "SYN", "--data_dir", corpus_root, "--experiments_dir",
          exp_c, "--do_train", "--max_epoch", "1", "--eval_every", "1",
          "--seed", str(args.seed)] + flags_c + preset_flags,
-        run_c, launches, (8 * steps_per_epoch + 4, 0, 0, 0, 0, 0, 0, 0, 0),
+        run_c, launches,
+        (8 * steps_per_epoch + 4, 0, 0, 0, 0, 0, 0, 0, 0, steps_per_epoch),
         f"cli {' '.join(flags_c)} --max_epoch 1 ({steps_per_epoch} steps)")
     train["mgcn_depth_corr"]["cli_epoch_s"] = ep["sec"]
     serve_c = os.path.join(work.name, "serve_depth")
@@ -3707,7 +3745,7 @@ def main() -> int:
         ["--dataset", "SYN", "--data_dir", corpus_root, "--restore_dir", run_c,
          "--experiments_dir", serve_c, "--per_relation"],
         qfile, len(test), ds.entity2id, launches,
-        (8, 0, 0, 0, 0, 0, 0, 0, 0), "mgcn depth corr (--per_relation)")
+        (8, 0, 0, 0, 0, 0, 0, 0, 0, 0), "mgcn depth corr (--per_relation)")
     check_per_relation(os.path.join(serve_c, "SYN", "per_relation.json"),
                        run_c, ds, graph, banks, metrics_c)
     served_encode(run_c, ds, graph, banks, test[:128], metrics_c,
@@ -3722,19 +3760,19 @@ def main() -> int:
             ("mgcn + complex, fused",
              dataset_preset("WN18RR", seed=args.seed, decoder="complex",
                             loss_impl="fused"), graph, banks,
-             (4, 1, 1, 0, 0, 0, 0, 0, 0)),
+             (4, 1, 1, 0, 0, 0, 0, 0, 0, 1)),
             ("mgcn + transe", dataset_preset("WN18RR", seed=args.seed,
                                              decoder="transe"),
-             graph, banks, (4, 0, 0, 0, 0, 0, 0, 0, 0)),
+             graph, banks, (4, 0, 0, 0, 0, 0, 0, 0, 0, 1)),
             ("mgcn + rotate", dataset_preset("WN18RR", seed=args.seed,
                                              decoder="rotate"),
-             graph, banks, (4, 0, 0, 0, 0, 0, 0, 0, 0)),
+             graph, banks, (4, 0, 0, 0, 0, 0, 0, 0, 0, 1)),
             ("rgcn + complex, negative sampling",
              cfg3.replace(decoder="complex"), graph3, banks3,
-             (2, 0, 0, 2, 2, 0, 0, 0, 0)),
+             (2, 0, 0, 2, 2, 0, 0, 0, 0, 1)),
             ("rgcn + rotate, negative sampling",
              cfg3.replace(decoder="rotate"), graph3, banks3,
-             (2, 0, 0, 2, 2, 0, 0, 0, 0))):
+             (2, 0, 0, 2, 2, 0, 0, 0, 0, 1))):
         n_ent_d = g_.n_ent
         model_d = build_model(cfg_d, n_ent_d, g_.n_rel, g_.n_edge,
                               e_pad=g_.e_pad,
@@ -3775,7 +3813,7 @@ def main() -> int:
                            ).to(device)
     trainer_s4 = Trainer(cfg_s4, model_s4, graph, banks)
     train["mgcn_sampled"] = timed_steps(
-        trainer_s4, launches, (0,) * 9,
+        trainer_s4, launches, (0,) * 9 + (1,),
         f"mgcn sampled K={k_sample} (E/8) per half", args.seed)
     del trainer_s4, model_s4
     torch.cuda.empty_cache()
@@ -3786,14 +3824,14 @@ def main() -> int:
         ["--dataset", "SYN", "--data_dir", corpus_root, "--experiments_dir",
          exp_s4, "--do_train", "--max_epoch", "1", "--eval_every", "1",
          "--seed", str(args.seed)] + flags_s4 + preset_flags,
-        run_s4, launches, (2, 0, 0, 0, 0, 0, 0, 0, 0),
+        run_s4, launches, (2, 0, 0, 0, 0, 0, 0, 0, 0, steps_per_epoch),
         f"cli {' '.join(flags_s4)} --max_epoch 1 ({steps_per_epoch} steps)")
     train["mgcn_sampled"]["cli_epoch_s"] = ep["sec"]
     paths["mgcn_sampled_serve"], metrics_s4 = cli_serve(
         ["--dataset", "SYN", "--data_dir", corpus_root, "--restore_dir",
          run_s4, "--experiments_dir", os.path.join(work.name, "serve_sampled")],
         qfile, len(test), ds.entity2id, launches,
-        (4, 0, 0, 0, 0, 0, 0, 0, 0), "mgcn sampled")
+        (4, 0, 0, 0, 0, 0, 0, 0, 0, 0), "mgcn sampled")
     served_encode(run_s4, ds, graph, banks, test[:128], metrics_s4,
                   "mgcn sampled")
     phase12_s = time.perf_counter() - t12
@@ -3810,7 +3848,7 @@ def main() -> int:
     # corpus of phase 7; per half K1 forward and K1 backward (d_x)
     cfg_cb = dataset_preset("FB15k-237", seed=args.seed,
                             compute_dtype="float32", moment_dtype="float32")
-    per_cb = (4, 0, 0, 0, 0, 0, 0, 0, 0)
+    per_cb = (4, 0, 0, 0, 0, 0, 0, 0, 0, 1)
     with knob(scatter, "MGCN_CONTRIB", "bf16"):
         train["fb15k_cb"], paths["fb15k_cb_steps"] = opt_in_steps(
             cfg_cb, graph3, banks3, launches, per_cb, "fb15k_cb (mgcn, "
@@ -3819,7 +3857,7 @@ def main() -> int:
 
     # 13b. bench.py's rgcn_best: config 3 with the backward's readback of
     # d_msg in bf16 (K1 sums the bf16 products in float32)
-    per3 = (2, 0, 0, 2, 2, 0, 0, 0, 0)
+    per3 = (2, 0, 0, 2, 2, 0, 0, 0, 0, 1)
     with knob(basis, "BASIS_READBACK", "bf16"):
         train["rgcn_best"], paths["rgcn_best_steps"] = opt_in_steps(
             cfg3, graph3, banks3, launches, per3,
@@ -3830,7 +3868,7 @@ def main() -> int:
     # weights (10 x 10 x 20 blocks); per half K1 forward (dst order) and K1
     # backward (d_x in src order); then a CLI epoch, its checkpoint served
     cfg_blk = cfg3.replace(num_bases=0, num_blocks=10)
-    per_blk = (4, 0, 0, 0, 0, 0, 0, 0, 0)
+    per_blk = (4, 0, 0, 0, 0, 0, 0, 0, 0, 1)
     train["rgcn_block"], paths["rgcn_block_steps"] = opt_in_steps(
         cfg_blk, graph3, banks3, launches, per_blk,
         "rgcn_block (config 3, 10 blocks)", args.seed, opt_steps, gen)
@@ -3858,7 +3896,8 @@ def main() -> int:
         ["--dataset", "SYN3", "--data_dir", blk_root, "--experiments_dir",
          exp_blk, "--do_train", "--max_epoch", "1", "--eval_every", "1",
          "--seed", str(args.seed)] + flags_blk,
-        run_blk, launches, (4 * blk_steps + 2, 0, 0, 0, 0, 0, 0, 0, 0),
+        run_blk, launches,
+        (4 * blk_steps + 2, 0, 0, 0, 0, 0, 0, 0, 0, blk_steps),
         f"cli --num_blocks 10 --max_epoch 1 ({blk_steps} steps, "
         f"{ds_blk.num_edge} train triples)")
     train["rgcn_block"]["cli_epoch_s"] = ep["sec"]
@@ -3872,7 +3911,7 @@ def main() -> int:
         ["--dataset", "SYN3", "--data_dir", blk_root, "--restore_dir",
          run_blk, "--experiments_dir", os.path.join(work.name, "serve_block")],
         qfile_blk, len(test_blk), ds_blk.entity2id, launches,
-        (4, 0, 0, 0, 0, 0, 0, 0, 0), "rgcn_block")
+        (4, 0, 0, 0, 0, 0, 0, 0, 0, 0), "rgcn_block")
     graph_blk, banks_blk = graph3, banks3
     if blk_root != fb_root:
         graph_blk = build_graph(ds_blk.train_triples, ds_blk.num_entity,
@@ -3884,7 +3923,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 13d. bench.py's rgat_pallas with edge_compose's d_h stream in bf16
-    per_a = (10, 0, 0, 0, 0, 2, 0, 0, 0)
+    per_a = (10, 0, 0, 0, 0, 2, 0, 0, 0, 1)
     with knob(sorted_ops, "EDGE_CONTRIB", "bf16"):
         train["rgat_edge_bf16"], paths["rgat_edge_bf16_steps"] = opt_in_steps(
             cfg_a, graph, banks, launches, per_a,
@@ -3894,7 +3933,7 @@ def main() -> int:
     # 13e. MGCN halves at the WN18RR preset (use_pallas) with bwd_perm
     # operands and fwdw, which compute contrib's gradients; one step's
     # gradients of each against contrib's
-    per_h = (4, 0, 0, 0, 0, 0, 0, 0, 0)
+    per_h = (4, 0, 0, 0, 0, 0, 0, 0, 0, 1)
     for perm in ("operands", "fwdw"):
         cfg_p = dataset_preset("WN18RR", seed=args.seed, bwd_perm=perm)
         train[f"mgcn_{perm}"], paths[f"mgcn_{perm}_steps"] = opt_in_steps(
@@ -3923,7 +3962,7 @@ def main() -> int:
         ["--dataset", "SYN", "--data_dir", corpus_root, "--restore_torch",
          ref_ckpt, "--experiments_dir", os.path.join(work.name, "serve_rt")],
         qfile, len(test), ds.entity2id, launches,
-        (4, 0, 0, 0, 0, 0, 0, 0, 0), "mgcn --restore_torch")
+        (4, 0, 0, 0, 0, 0, 0, 0, 0, 0), "mgcn --restore_torch")
     imported = build_model(cfg5, ds.num_entity, ds.num_relation, ds.num_edge,
                            e_pad=graph.e_pad)
     apply_reference_state_dict(imported, load_reference_checkpoint(
@@ -3998,6 +4037,7 @@ def main() -> int:
             "launches_by_path": by_path(7 + i),
             "cases": {"max_abs_err": ew_errs[key]},
         })
+    entries.append(adam_entry(timings["adam"], by_path(9)))
     log(f"[smoke] {torch.cuda.get_device_name(0)}; {smi}; whole script "
         f"{time.perf_counter() - t_start:.1f} s, phase 12 {phase12_s:.1f} s, "
         f"phase 13 {phase13_s:.1f} s, phase 14 {mesh_summary['seconds']:.1f}"
@@ -4014,6 +4054,122 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# the fused step's two kernels (csrc/fused_adam.cu)
+ADAM_PASSES = ("adam_norm", "adam_update")
+
+
+def adam_bound(n: int, moment_bytes: int):
+    """The fused step: g read for the norm, then p, g and the moments read
+    and p and the moments written once; 15 float32 operations an element
+    (the clip's divide and multiply, the two moments' 7, the update's 6)."""
+    return bound_of(n * (16 + 4 * moment_bytes), 15.0 * n)
+
+
+def adam_shapes() -> list:
+    """The training cell's leaf shapes, in the JAX leaf order: its model
+    (benchmark/configs/mgcn_conve.json) built on the meta device at its
+    traffic's counts (benchmark/traffic/train.zipf-123k.json), the per-edge
+    table unpadded as the cell's graph is."""
+    from kgc_gcn_torch.config import Config
+    from kgc_gcn_torch.convert import model_params
+    from kgc_gcn_torch.models import build_model
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "benchmark")
+    with open(os.path.join(root, "configs", "mgcn_conve.json")) as f:
+        cfg = Config(**json.load(f)["port"])
+    with open(os.path.join(root, "traffic", "train.zipf-123k.json")) as f:
+        counts = json.load(f)["counts"]
+    with torch.device("meta"):
+        model = build_model(cfg, counts["entities"], counts["relations"],
+                            counts["train"], e_pad=counts["train"])
+    return [tuple(p.shape) for p in model_params(model, cfg)]
+
+
+def time_adam(seed: int) -> dict:
+    """The fused clip + Adam at the training cell's leaf shapes (clip
+    1.0, engaged; float32 moments; no decay), three steps against the plain
+    step (``optim.step``) from the same state, then both timed in turns
+    beside ``torch.optim.Adam(fused=True)`` (Adam alone, no clip: a
+    yardstick the port never calls); the card sleeps long enough ahead of
+    each call for the host to issue the plain step's ~460 launches."""
+    from kgc_gcn_torch.config import Config
+    from kgc_gcn_torch.ops.fused_adam import fused_adam
+    from kgc_gcn_torch.train import optim
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cfg = Config(clip_grad=1.0)
+    shapes = adam_shapes()
+    params = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    grads = [1e-3 * torch.randn(s, generator=gen, device="cuda")
+             for s in shapes]
+    state = optim.init_state(params, cfg)
+    pp = [p.clone() for p in params]
+    ps = optim.init_state(pp, cfg)
+    for lr in (1e-2, 3e-3, 1e-3):
+        fused_adam(params, grads, state, cfg, lr)
+        optim.step(pp, grads, ps, cfg, lr)
+    errs, rel = {}, {}
+    for key, got, want in (("p", params, pp), ("mu", state.mu, ps.mu),
+                           ("nu", state.nu, ps.nu)):
+        errs[key] = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        rel[key] = max(float((a - b).abs().max() / b.abs().max())
+                       for a, b in zip(got, want))
+        for a, b in zip(got, want):
+            # the norm's squares in another order, bc1 and bc2 divided
+            # where PyTorch multiplies by their float reciprocals
+            torch.testing.assert_close(a, b, rtol=1e-6,
+                                       atol=1e-6 * float(b.abs().max()),
+                                       msg=f"fused Adam {key}")
+    del pp, ps
+    lib_params = [p.clone().requires_grad_() for p in params]
+    for p, g in zip(lib_params, grads):
+        p.grad = g
+    library = torch.optim.Adam(lib_params, lr=1e-3, betas=(optim.B1, optim.B2),
+                               eps=optim.EPS, fused=True)
+    pp = [p.clone() for p in params]
+    ps = optim.AdamState(state.count, [m.clone() for m in state.mu],
+                         [v.clone() for v in state.nu])
+    t = time_in_turns({
+        "fused": lambda: fused_adam(params, grads, state, cfg, 1e-3),
+        "plain": lambda: optim.step(pp, grads, ps, cfg, 1e-3),
+        "library": library.step,
+    }, n=20, lead_cycles=40_000_000)
+    n = sum(p.numel() for p in params)
+    t["bound_ms"], t["bound_by"] = adam_bound(n, 4)
+    t["pass_a_us"], t["pass_b_us"] = passes_us(
+        lambda: fused_adam(params, grads, state, cfg, 1e-3), ADAM_PASSES)
+    t.update(elements=n, leaves=len(params), max_abs_err=errs,
+             max_rel_err=rel)
+    log(f"[adam time] the training cell's {len(params)} leaves ({n} "
+        f"elements, clip engaged): kernel {t['fused']:.4f} ms (passes A / B "
+        f"{us(t['pass_a_us'])} / {us(t['pass_b_us'])} us), plain "
+        f"{t['plain']:.4f} ms, torch.optim.Adam(fused=True) "
+        f"{t['library']:.4f} ms (Adam alone), bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}), {t['bound_ms'] / t['fused']:.1%} of bound; "
+        f"largest error {errs}, / the leaf's largest {rel}")
+    del params, grads, state, pp, ps, lib_params, library
+    torch.cuda.empty_cache()
+    return t
+
+
+def adam_entry(t: dict, launches_by_path: dict) -> dict:
+    """The fused clip + Adam's entry of the kernels line: its time row's
+    numbers and the calls of each path driven (one a training step)."""
+    return {
+        "name": "fused_adam (clip + Adam)", "route": "cuda",
+        "source": "kgc_gcn_torch/csrc/fused_adam.cu",
+        "replaces": "none: the JAX package leaves optax's chain to XLA",
+        "launches": sum(launches_by_path.values()),
+        "launches_by_path": launches_by_path,
+        "max_abs_err": max(t["max_abs_err"].values()),
+        "max_rel_err": max(t["max_rel_err"].values()),
+        "ms": t["fused"], "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library"],
+        "library": "torch.optim.Adam(fused=True), Adam alone",
+        "pass_a_us": t["pass_a_us"], "pass_b_us": t["pass_b_us"],
+        "elements": t["elements"], "leaves": t["leaves"],
+    }
 
 
 def k1_entry(errs: dict, timings: dict, launches_by_path: dict) -> dict:

@@ -226,10 +226,10 @@ class Trainer:
         the (scaled) batch loss, a device scalar."""
         loss, grads = self.gradients(*batch, scale=scale)
         with span("optimizer"):
-            optim.step(self.params, grads, self.opt_state, self.cfg, lr,
-                       self.sharded,
-                       self.mesh.graph_group if self.mesh is not None
-                       else None)
+            self.kernels.adam(self.params, grads, self.opt_state, self.cfg,
+                              lr, self.sharded,
+                              self.mesh.graph_group if self.mesh is not None
+                              else None)
         return loss
 
     def train_epoch(self, epoch: int, host_rng: np.random.Generator,

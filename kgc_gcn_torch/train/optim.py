@@ -75,7 +75,7 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
     return [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
 
 
-def _bias_correction(decay: float, count: int) -> float:
+def bias_correction(decay: float, count: int) -> float:
     """``1 - decay**count`` in float32, as optax computes it."""
     return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
 
@@ -90,8 +90,8 @@ def step(params: Sequence[torch.Tensor], grads: List[torch.Tensor],
     if cfg.weight_decay and cfg.weight_decay > 0:
         grads = [g + cfg.weight_decay * p for g, p in zip(grads, params)]
     state.count += 1
-    bc1 = _bias_correction(B1, state.count)
-    bc2 = _bias_correction(B2, state.count)
+    bc1 = bias_correction(B1, state.count)
+    bc2 = bias_correction(B2, state.count)
     with torch.no_grad():
         for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
             m = (1 - B1) * g + B1 * mu.float()

@@ -133,6 +133,17 @@ def load_kernels(force_build: bool = False) -> KernelLibrary:
     lib.kgc_compose_msg.restype = i32
     lib.kgc_bwd_products.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i64, vp]
     lib.kgc_bwd_products.restype = i32
+    ptrs = ctypes.POINTER(vp)
+    lib.kgc_fused_adam_norm_blocks.argtypes = []
+    lib.kgc_fused_adam_norm_blocks.restype = i32
+    lib.kgc_fused_adam_norm.argtypes = [ptrs, ctypes.POINTER(i64),
+                                        ctypes.POINTER(ctypes.c_uint8), i32,
+                                        vp, vp, vp, vp]
+    lib.kgc_fused_adam_norm.restype = i32
+    lib.kgc_fused_adam_update.argtypes = [ptrs, ptrs, ptrs, ptrs,
+                                          ctypes.POINTER(i64), i32, i32, vp,
+                                          vp] + [f32] * 10 + [vp]
+    lib.kgc_fused_adam_update.restype = i32
     lib.kgc_cuda_error_string.argtypes = [i32]
     lib.kgc_cuda_error_string.restype = ctypes.c_char_p
     _LOADED = KernelLibrary(lib, path, seconds, log,

@@ -4,7 +4,9 @@ RGAT attention wrappers' gradients through K1, and one training step through
 the kernels against the same step in plain PyTorch (MGCN 1-vs-all, also
 under each aggregation schedule, at 2 layers with corr and with ComplEx on
 the fused loss; R-GCN on sampled negatives, also with RotatE; RGAT
-1-vs-all), and a ``--remat`` step against the plain step (MGCN, RGAT).
+1-vs-all), a ``--remat`` step against the plain step (MGCN, RGAT), and the
+optimizer's fused clip + Adam against the plain step, alone and inside
+``Trainer.train_step``.
 
 This file imports neither JAX nor kgc_gcn_tpu, so that it runs on a machine
 with a card and no JAX (tests/conftest.py imports JAX, hence --noconftest):
@@ -1604,3 +1606,206 @@ def test_rgat_entity_sharded_attend_matches_plain(cuda, g_size):
                           segment_max.launches - start[1])))
         assert runs[0][1] == (10, 2) and runs[1][1] == (0, 0), runs
         _assert_forms_equal(runs[0][0], runs[1][0])
+
+
+# The optimizer's fused clip + Adam (ops/fused_adam.py, csrc/fused_adam.cu)
+# against the plain step on the same leaves: lengths 1 (a scalar leaf), 3 (a
+# tail alone), 200, 4097 (two update tiles and one element) and one above
+# 2**24; the gradients aligned, cut from one flat buffer at odd offsets (as
+# parallel.distributed.flat_all_reduce hands them: the scalar lanes), or 70
+# leaves (two launch groups of pass A and of pass B).
+ADAM_LENGTHS = (1, 3, 200, 4097, 2**24 + 3)
+ADAM_LRS = (1e-2, 3e-3, 1e-3)
+
+
+def adam_case(layout: str, moment_dtype, cuda, seed: int = 0):
+    """(params, state, grads of each of 3 steps) on the card."""
+    from kgc_gcn_torch.train import optim
+    gen = torch.Generator().manual_seed(seed)
+    lengths = (ADAM_LENGTHS if layout != "many" else
+               torch.randint(1, 300, (70,), generator=gen).tolist())
+    params = [torch.randn(n, generator=gen).to(cuda) for n in lengths]
+    state = optim.AdamState(
+        0, *([torch.zeros(n, dtype=moment_dtype, device=cuda)
+              for n in lengths] for _ in range(2)))
+    steps = []
+    for step in range(len(ADAM_LRS)):
+        grads = [torch.randn(n, generator=gen).to(cuda) * (step + 1)
+                 for n in lengths]
+        if layout == "misaligned":
+            flat = torch.empty(1 + sum(lengths), device=cuda)
+            at, cut = 1, []
+            for g in grads:
+                cut.append(flat[at:at + g.numel()])
+                cut[-1].copy_(g)
+                at += g.numel()
+            grads = cut
+        steps.append(grads)
+    return params, state, steps
+
+
+def adam_copy(params, state):
+    from kgc_gcn_torch.train import optim
+    return ([p.clone() for p in params],
+            optim.AdamState(state.count, [m.clone() for m in state.mu],
+                            [v.clone() for v in state.nu]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sharded", ["none", "alternate"])
+@pytest.mark.parametrize("layout", ["aligned", "misaligned", "many"])
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+@pytest.mark.parametrize("clip", ["engaged", "above", "off"])
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_fused_adam_matches_plain_step(cuda, moment_dtype, clip, wd, layout,
+                                       sharded):
+    """Three steps of the fused clip + Adam against three of the plain step
+    (``optim.step``) from the same leaves and ``sharded`` flags:
+    parameters and both moments.  The clip engaged (``max_norm`` 0.5 below
+    the first step's norm), not engaged (twice the largest step's norm) or
+    off (``clip_grad`` 0: pass B alone); one call a step either way.  With
+    every other leaf marked sharded (and no group, so no reduce), pass A
+    keeps the marked leaves' squares in its second sum and pass B adds the
+    two: the split must give the norm of all leaves, as the plain step's."""
+    from kgc_gcn_torch.config import Config
+    from kgc_gcn_torch.ops.fused_adam import fused_adam
+    from kgc_gcn_torch.train import optim
+    lowp = moment_dtype == "bfloat16"
+    params, state, steps = adam_case(layout, getattr(torch, moment_dtype),
+                                     cuda)
+    norms = [float(torch.linalg.vector_norm(torch.cat(g))) for g in steps]
+    max_norm = {"engaged": norms[0] - 0.5, "above": 2 * max(norms),
+                "off": 0.0}[clip]
+    cfg = Config(clip_grad=max_norm, weight_decay=wd,
+                 moment_dtype=moment_dtype)
+    flags = [sharded == "alternate" and i % 2 == 1
+             for i in range(len(params))]
+    pp, ps = adam_copy(params, state)
+    start = fused_adam.launches
+    for grads, lr in zip(steps, ADAM_LRS):
+        fused_adam(params, grads, state, cfg, lr, flags)
+        optim.step(pp, grads, ps, cfg, lr, flags)
+    assert fused_adam.launches - start == len(ADAM_LRS)
+    assert state.count == ps.count == len(ADAM_LRS)
+    # float32: the norm's squares summed in another order and PyTorch's
+    # division by bc1 and bc2 as a multiply by a float reciprocal move an
+    # element by a few ulp (a first moment that cancels to near 0 keeps the
+    # error of its terms: the absolute part is relative to the leaf's
+    # largest).  bf16 moments: a clipped gradient an ulp apart can round a
+    # moment to the neighbouring bf16 value (2**-7 relative at most), which
+    # moves that element's later updates by up to 2**-7 of the update
+    # (|u| <= 3 here) times lr
+    moment_rtol = 2**-7 if lowp else 1e-6
+    p_atol = 3 * max(ADAM_LRS) * 2**-7 if lowp else 1e-7
+    for got, want in zip(params, pp):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=p_atol)
+    for got, want in zip(state.mu + state.nu, ps.mu + ps.nu):
+        assert got.dtype == want.dtype == getattr(torch, moment_dtype)
+        torch.testing.assert_close(
+            got.float(), want.float(), rtol=moment_rtol,
+            atol=moment_rtol * float(want.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["aligned", "misaligned", "many"])
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_fused_adam_is_deterministic(cuda, moment_dtype, layout):
+    """The same leaves and gradients through the fused step twice, the clip
+    engaged: the same bits in every parameter and moment (the norm's sum
+    takes a fixed order)."""
+    from kgc_gcn_torch.config import Config
+    from kgc_gcn_torch.ops.fused_adam import fused_adam
+    params, state, steps = adam_case(layout, getattr(torch, moment_dtype),
+                                     cuda, seed=1)
+    norm = float(torch.linalg.vector_norm(torch.cat(steps[0])))
+    cfg = Config(clip_grad=norm - 0.5, moment_dtype=moment_dtype)
+    runs = []
+    for _ in range(2):
+        p, s = adam_copy(params, state)
+        for grads, lr in zip(steps, ADAM_LRS):
+            fused_adam(p, grads, s, cfg, lr)
+        runs.append(p + s.mu + s.nu)
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def _trainer_case(family: str, cuda):
+    """(trainer class, cfg, model, graph, banks) of one family on the toy
+    graph, dropout on."""
+    from kgc_gcn_torch.config import dataset_preset
+    from kgc_gcn_torch.data.batching import make_banks
+    from kgc_gcn_torch.data.dataset import build_dataset
+    from kgc_gcn_torch.data.graph import build_graph
+    from kgc_gcn_torch.data.toy import toy_triples
+    from kgc_gcn_torch.models import build_model
+    from kgc_gcn_torch.train.loop import Trainer
+    from kgc_gcn_torch.train.negative import NegativeSamplingTrainer
+
+    ds = build_dataset("toy", *toy_triples(n_ent=40, n_rel=5, n_train=300))
+    graph = build_graph(ds.train_triples, ds.num_entity,
+                        ds.num_relation).to(cuda)
+    banks = make_banks(ds, cuda)
+    small = dict(gcn_in_dim=16, gcn_out_dim=32, batch_size=16, gcn_drop=0.2,
+                 seed=5)
+    cls = Trainer
+    if family == "mgcn":
+        cfg = dataset_preset("Toy", k_w=4, k_h=8, num_filter=4, kernel_size=3,
+                             feat_drop=0.2, hidden_drop=0.3, **small)
+    elif family == "rgcn":
+        cls = NegativeSamplingTrainer
+        cfg = dataset_preset("Toy", model="rgcn", decoder="distmult",
+                             num_bases=4, num_layers=2, num_negatives=8,
+                             train_mode="negative_sampling", **small)
+    else:
+        cfg = dataset_preset("Toy", model="rgat", decoder="distmult",
+                             num_heads=4, num_layers=2, **small)
+    model = build_model(cfg, ds.num_entity, ds.num_relation, ds.num_edge,
+                        e_pad=graph.e_pad).to(cuda)
+    if family == "rgat":
+        with torch.no_grad():        # the attention bias starts at zero
+            for layer in model.layers:
+                layer.rel_bias.normal_(0.0, 0.5)
+    return cls, cfg, model, graph, banks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["mgcn", "rgcn", "rgat"])
+def test_train_step_through_fused_adam_matches_plain(cuda, family):
+    """``Trainer.train_step`` through ``KERNELS`` (the fused clip + Adam
+    among them) against the same step through ``PLAIN`` (``optim.step``),
+    from a warm state with the same batch and dropout masks: MGCN + ConvE
+    1-vs-all, basis R-GCN + DistMult on negatives, RGAT + DistMult.  The
+    fused step launches once on the kernel side and never on the plain
+    side; parameters and moments agree within the kernel-vs-plain step's
+    tolerances (the gradients differ by K1's sums in another order)."""
+    from kgc_gcn_torch.convert import jax_leaf_names
+    from kgc_gcn_torch.ops.fused_adam import fused_adam
+    from kgc_gcn_torch.train import optim
+    cls, cfg, model, graph, banks = _trainer_case(family, cuda)
+    start = fused_adam.launches
+    kernel, plain = warm_pair(cls, cfg, model, graph, banks)
+    assert fused_adam.launches - start == 3
+    assert kernel.kernels.adam is fused_adam and plain.kernels.adam is optim.step
+    idx = torch.arange(16, device=cuda)
+    batch = kernel.batch(idx, torch.ones(16, device=cuda))
+    before = [p.detach().clone() for p in kernel.params]
+    launched = {}
+    for name, t in (("kernel", kernel), ("plain", plain)):
+        t.generator.manual_seed(9)
+        start = fused_adam.launches
+        t.train_step(1e-3, *batch)
+        launched[name] = fused_adam.launches - start
+    assert launched == {"kernel": 1, "plain": 0}
+    assert kernel.opt_state.count == plain.opt_state.count == 4
+    for i, name in enumerate(jax_leaf_names(cfg)[0]):
+        if name in ("decoder.bn0.scale", "decoder.bn0.bias"):
+            continue   # BN1 cancels them: float noise on both sides
+        for got, want in ((kernel.opt_state.mu[i], plain.opt_state.mu[i]),
+                          (kernel.opt_state.nu[i], plain.opt_state.nu[i])):
+            torch.testing.assert_close(got, want, rtol=1e-3,
+                                       atol=1e-4 * float(want.abs().max()),
+                                       msg=name)
+        uk = kernel.params[i].detach() - before[i]
+        up = plain.params[i].detach() - before[i]
+        agree = torch.isclose(uk, up, rtol=1e-3, atol=1e-7)
+        assert float(agree.float().mean()) > 0.999, name

@@ -2,6 +2,7 @@
 did not see is reported as not measured, never as 0 µs."""
 
 import importlib.util
+import math
 from pathlib import Path
 
 import pytest
@@ -94,3 +95,34 @@ def test_k5_time_rows_and_entry(smoke, monkeypatch):
     assert entry["launches"] == 2 and entry["route"] == "cuda"
     assert entry["ms"] == t["wn18rr_h4"]["ms"]
     assert sorted(entry["shapes"]) == sorted(t)
+
+
+def test_adam_shapes_are_the_training_cells_leaves(smoke):
+    """The fused clip + Adam's time row takes its leaf shapes from the
+    training cell's model, built on the meta device: the port's 21 leaves
+    in the JAX leaf order, the per-edge table at the cell's edge count."""
+    shapes = smoke.adam_shapes()
+    assert len(shapes) == 21
+    assert shapes[0] == (123182, 100) and shapes[2] == (2, 1079040, 100)
+    assert shapes[-1] == (123182,)
+    n = sum(math.prod(s) for s in shapes)
+    assert 235_000_000 < n < 237_000_000
+
+
+def test_adam_entry_counts_launches_by_path(smoke):
+    """The fused clip + Adam's entry of the kernels line: the calls of each
+    path driven and their sum, and the absolute and relative errors of its
+    check kept apart."""
+    t = {"fused": 2.5, "plain": 15.0, "library": 9.0, "bound_ms": 2.25,
+         "bound_by": "bytes", "pass_a_us": 290.0, "pass_b_us": 2200.0,
+         "elements": 236, "leaves": 21,
+         "max_abs_err": {"p": 2e-7, "mu": 1e-12, "nu": 3e-15},
+         "max_rel_err": {"p": 5e-8, "mu": 4e-7, "nu": 1e-7}}
+    entry = smoke.adam_entry(t, {"mgcn_train": 40, "mgcn_serve": 0})
+    assert entry["launches"] == 40
+    assert entry["launches_by_path"] == {"mgcn_train": 40, "mgcn_serve": 0}
+    assert entry["max_abs_err"] == 2e-7 and entry["max_rel_err"] == 4e-7
+    for key in ("name", "route", "source", "replaces", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms"):
+        assert key in entry
+    assert smoke.Launches.NAMES[-1] == "adam"
